@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``.
+
+Each source compiles at first use into a shared library with a plain C
+interface, under ``kernels/_build/`` (git-ignored), and is loaded with
+:mod:`ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
+
+The library name carries a hash of the source and flags, so an edited
+kernel is never served from a stale build.  A failed build raises
+:class:`KernelBuildError`; there is no fallback.  :func:`build_all`
+starts one ``nvcc`` per source at once, so a program that needs several
+kernels pays for the slowest build, not the sum.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+__all__ = ["KernelBuildError", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS",
+           "build_all", "load", "build_log"]
+
+CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: name -> {"seconds": build wall time (0.0 when already built),
+#:          "ptxas": nvcc's stderr (registers, shared memory, spills)}
+build_log: dict[str, dict] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a kernel source."""
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (set NVCC, or put the CUDA toolkit's bin/ on PATH); "
+        "the CUDA kernels are compiled at first use")
+
+
+def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
+    src = CSRC_DIR / f"{name}.cu"
+    if not src.is_file():
+        raise KernelBuildError(f"no kernel source {src}")
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names: list[str]) -> dict[str, pathlib.Path]:
+    """Compile every named source that is not built yet, all at once.
+
+    Returns name -> library path.  Raises :class:`KernelBuildError` with
+    the compiler's output if any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    t0 = time.perf_counter()
+    for n, (src, lib) in targets.items():
+        if lib.exists():
+            build_log.setdefault(n, {"seconds": 0.0, "ptxas": ""})
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        procs[n] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, lib)
+    failed = []
+    for n, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        build_log[n] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)     # atomic: concurrent builds agree
+    if failed:
+        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
+    return {n: lib for n, (_, lib) in targets.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = _libs[name] = ctypes.CDLL(str(path))
+        return lib

@@ -8,3 +8,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA Hopper GPU and nvcc (the PyTorch "
+        "port's kernels); skips elsewhere")

@@ -1,0 +1,76 @@
+"""The PyTorch port stands alone: no JAX and nothing of ``repro``.
+
+An AST walk over every module of ``src/repro_torch`` and over
+``chip_smoke.py`` finds no import of ``jax`` or of the JAX package, and a
+fresh interpreter in which ``jax`` and ``repro`` cannot be imported still
+imports the port's entry points.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+jax = pytest.importorskip("jax")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py"))
+    smoke = ROOT / "chip_smoke.py"
+    if smoke.exists():
+        files.append(smoke)
+    return files
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_has_modules_and_smoke_script():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"__init__.py", "core/layering.py", "kernels/ops.py",
+            "kernels/layered_matmul.py", "runtime/master.py",
+            "runtime/transport/cuda_device.py"} <= names
+    assert (PORT / "kernels" / "csrc" / "layered_matmul.cu").is_file()
+    assert (ROOT / "chip_smoke.py").is_file()
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_entry_points_import_with_jax_and_reference_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch, repro_torch.runtime, repro_torch.kernels.ops\n"
+        "import repro_torch.core.layered_matmul\n"
+        "import repro_torch.runtime.transport.cuda_device\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

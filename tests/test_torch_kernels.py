@@ -1,0 +1,217 @@
+"""Port parity: the layered int8 matmul kernel and its ``ops`` wrappers.
+
+On the CPU the port's wrappers run the kernel's plain PyTorch version;
+its partials must be bit-equal to the JAX package's Pallas kernel run in
+interpret mode, on the same cases as ``tests/test_kernels.py``.  The
+card-side comparison of the CUDA kernel with its plain version is
+``tests/test_torch_cuda.py``; the one case here that needs a card holds
+the CUDA kernel against the JAX package.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import layering as jl  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import layering  # noqa: E402
+from repro_torch.kernels import layered_matmul as lm  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def pallas_tpu_params(monkeypatch):
+    """Run the JAX package's Pallas kernel in interpret mode on this JAX.
+
+    ``repro/kernels/layered_matmul.py`` names ``pltpu.TPUCompilerParams``,
+    which newer JAX releases renamed ``CompilerParams``; the alias is set
+    for the duration of each test, and the JAX package is not edited.
+    """
+    from jax.experimental.pallas import tpu as pltpu
+    if not hasattr(pltpu, "TPUCompilerParams"):
+        monkeypatch.setattr(pltpu, "TPUCompilerParams",
+                            pltpu.CompilerParams, raising=False)
+
+
+@pytest.fixture
+def hopper():
+    """The card to run on; decided here, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs an sm_90 (Hopper) device")
+    return torch.device("cuda", 0)
+
+
+REFERENCE_CASES = [
+    (2, 7, 64, 16, 24),
+    (2, 7, 1024, 128, 128),   # multi-block K accumulation
+    (3, 5, 128, 128, 128),
+    (4, 4, 32, 8, 8),
+    (1, 7, 16, 8, 8),         # degenerate single layer
+]
+
+
+def _operands(rng, m, d, K, M, N):
+    hi = 1 << (m * d - 1)
+    return (rng.integers(-hi, hi, size=(K, M)).astype(np.int32),
+            rng.integers(-hi, hi, size=(K, N)).astype(np.int32))
+
+
+@pytest.mark.parametrize("m,d,K,M,N", REFERENCE_CASES)
+def test_partials_bit_equal_to_jax_interpret(rng, m, d, K, M, N):
+    A, B = _operands(rng, m, d, K, M, N)
+    want = np.asarray(jops.layered_matmul_partials(
+        jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
+    got = ops.layered_matmul_partials(torch.from_numpy(A),
+                                      torch.from_numpy(B), m=m, d=d)
+    assert got.dtype == torch.int32 and got.shape == (2 * m - 1, M, N)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,d,K,R", [(2, 7, 37, 5), (3, 5, 64, 9),
+                                     (1, 7, 16, 3)])
+def test_kmajor_planes_are_decompose_of_transpose_padded(rng, m, d, K, R):
+    """The ops wrapper's K-major planes are the reference's planes of
+    ``x.T`` cast to int8, with K padded by zeros to a multiple of 16."""
+    hi = 1 << 20     # beyond m*d bits as well: the int8 store wraps
+    x = rng.integers(-hi, hi, size=(K, R)).astype(np.int32)
+    got = ops._planes_kmajor(torch.from_numpy(x), m, d)
+    kp = -(-K // lm.K_ALIGN) * lm.K_ALIGN
+    assert got.dtype == torch.int8 and got.shape == (m, R, kp)
+    want = np.asarray(jl.decompose(jnp.asarray(x.T), m, d)).astype(np.int8)
+    np.testing.assert_array_equal(got[:, :, :K].numpy(), want)
+    assert not got[:, :, K:].any()
+
+
+def test_host_fusion_bit_exact(rng):
+    m, d, K = 2, 7, 256
+    A, B = _operands(rng, m, d, K, 16, 16)
+    parts = ops.layered_matmul_partials(torch.from_numpy(A),
+                                        torch.from_numpy(B), m=m, d=d)
+    scales = np.asarray([1 << ((2 * m - 2 - l) * d)
+                         for l in range(2 * m - 1)], np.int64)
+    recon = (parts.numpy().astype(np.int64)
+             * scales[:, None, None]).cumsum(0)[-1]
+    exact = A.astype(np.int64).T @ B.astype(np.int64)
+    np.testing.assert_array_equal(recon, exact)
+
+
+def test_fused_wrapper_matches_oracle(rng):
+    m, d = 2, 6
+    hi = 1 << (m * d - 1)
+    A = rng.integers(-hi, hi, size=(64, 32)).astype(np.int32)
+    B = rng.integers(-hi, hi, size=(64, 8)).astype(np.int32)
+    got = ops.layered_matmul(torch.from_numpy(A), torch.from_numpy(B),
+                             m=m, d=d)
+    assert got.dtype == torch.float32
+    planes_a = np.asarray(jl.decompose(jnp.asarray(A), m, d))
+    planes_b = np.asarray(jl.decompose(jnp.asarray(B), m, d))
+    want = jref.layered_matmul_ref(planes_a, planes_b, d=d)
+    np.testing.assert_array_equal(
+        ref.layered_matmul_ref(planes_a, planes_b, d=d), want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jops.layered_matmul(
+            jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True)),
+        rtol=1e-6)
+
+
+def test_resolution_monotone_improvement(rng):
+    m, d = 3, 4
+    A = rng.integers(0, 1 << (m * d - 1), size=(32, 16)).astype(np.int32)
+    B = rng.integers(0, 1 << (m * d - 1), size=(32, 16)).astype(np.int32)
+    res = ops.layered_matmul(torch.from_numpy(A), torch.from_numpy(B),
+                             m=m, d=d).numpy()
+    exact = A.astype(np.int64).T @ B.astype(np.int64)
+    errs = [np.abs(res[l] - exact).max() for l in range(res.shape[0])]
+    assert all(a >= b for a, b in zip(errs, errs[1:]))
+
+
+def test_d_too_large_rejected():
+    with pytest.raises(ValueError):
+        ops.layered_matmul(torch.zeros((8, 8), dtype=torch.int32),
+                           torch.zeros((8, 8), dtype=torch.int32), m=2, d=8)
+
+
+@pytest.mark.parametrize("m,d,K,M,N", [(3, 5, 100, 20, 33),
+                                       (2, 7, 37, 5, 70)])
+def test_ragged_shape_against_int64_oracle(rng, m, d, K, M, N):
+    """Shapes that divide no tile: the reference would take each odd dim
+    as one whole block; the port has no such rule."""
+    A, B = _operands(rng, m, d, K, M, N)
+    parts = ops.layered_matmul_partials(torch.from_numpy(A),
+                                        torch.from_numpy(B), m=m, d=d)
+    scales = np.asarray([1 << ((2 * m - 2 - l) * d)
+                         for l in range(2 * m - 1)], np.int64)
+    res = (parts.numpy().astype(np.int64) * scales[:, None, None]).cumsum(0)
+    np.testing.assert_array_equal(
+        res, layering.layered_matmul_reference(A, B, m=m, d=d))
+
+
+def test_out_of_range_operands_wrap_like_reference(rng):
+    """Operands beyond ``m*d`` signed bits wrap in the int8 plane cast in
+    both packages."""
+    m, d = 2, 5
+    A = rng.integers(-(1 << 20), 1 << 20, size=(32, 8)).astype(np.int32)
+    B = rng.integers(-(1 << 20), 1 << 20, size=(32, 8)).astype(np.int32)
+    want = np.asarray(jops.layered_matmul_partials(
+        jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
+    got = ops.layered_matmul_partials(torch.from_numpy(A),
+                                      torch.from_numpy(B), m=m, d=d)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kernel_call_keeps_reference_layout_and_errors(rng):
+    m, d, K, M, N = 2, 7, 48, 12, 20
+    A, B = _operands(rng, m, d, K, M, N)
+    pa = np.asarray(jl.decompose(jnp.asarray(A), m, d)).astype(np.int8)
+    pb = np.asarray(jl.decompose(jnp.asarray(B), m, d)).astype(np.int8)
+    from repro.kernels.layered_matmul import layered_matmul_kernel_call
+    want = np.asarray(layered_matmul_kernel_call(
+        jnp.asarray(pa), jnp.asarray(pb), m=m, d=d, bm=M, bn=N, bk=K,
+        interpret=True))
+    got = lm.layered_matmul_kernel_call(torch.from_numpy(pa),
+                                        torch.from_numpy(pb), m=m, d=d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="plane count mismatch"):
+        lm.layered_matmul_kernel_call(torch.from_numpy(pa),
+                                      torch.from_numpy(pb), m=3, d=d)
+    with pytest.raises(TypeError):
+        lm.layered_matmul_kmajor(torch.zeros((2, 4, 8), dtype=torch.int32),
+                                 torch.zeros((2, 4, 8), dtype=torch.int32),
+                                 m=2)
+
+
+def test_cpu_path_never_counts_a_launch(rng):
+    A, B = _operands(rng, 2, 7, 32, 8, 8)
+    before = lm.launches
+    ops.layered_matmul(torch.from_numpy(A), torch.from_numpy(B), m=2, d=7)
+    assert lm.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_bit_equal_to_jax(rng, hopper):
+    """The CUDA kernel, launched on the card, against the JAX package's
+    Pallas kernel in interpret mode on the host and against its own
+    plain version on the card."""
+    m, d, K, M, N = 3, 5, 1000, 200, 328
+    A, B = _operands(rng, m, d, K, M, N)
+    want = np.asarray(jops.layered_matmul_partials(
+        jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
+    before = lm.launches
+    got = ops.layered_matmul_partials(torch.from_numpy(A).to(hopper),
+                                      torch.from_numpy(B).to(hopper),
+                                      m=m, d=d)
+    torch.cuda.synchronize()
+    assert lm.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    plain = lm.layered_matmul_plain(
+        ops._planes_kmajor(torch.from_numpy(A).to(hopper), m, d),
+        ops._planes_kmajor(torch.from_numpy(B).to(hopper), m, d), m=m)
+    assert torch.equal(got, plain)
