@@ -5,7 +5,7 @@
 Run from the repository root (the port lives in ``src/repro_torch``).  It
 builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all started together), then drives the port's
-two main paths and checks what comes out:
+main paths and checks what comes out:
 
 1. environment: card name and power limit, torch/CUDA versions, build time;
 2. the layered int8 matmul kernel against its plain PyTorch version on the
@@ -21,7 +21,24 @@ two main paths and checks what comes out:
 4. main path 2, the coded runtime on the ``cuda`` worker backend: a
    verified run, then a full-width K=M=N=4096 run whose released final
    resolutions are held against the exact float64 product on the card;
-5. one ``{"kernels": [...]}`` line with every kernel's launches on the
+5. the flash-attention kernel against its plain version at the llama3-8b
+   prefill shape (bf16, causal, GQA), a ragged fp32 windowed case and a
+   non-causal S=8 case, with the kernel's times, the plain version's,
+   ``scaled_dot_product_attention``'s (``library_ms``, a yardstick the
+   port never calls) and the bound;
+6. the SSD chunk-scan kernel against its plain version at the mamba2-370m
+   prefill shape, with an initial state, and with a ragged S padded to the
+   chunk, with the same timings (no library call computes the scan);
+7. main paths 3 and 4, ``launch.serve.ProgressiveServer`` at the full
+   width of llama3-8b and of mamba2-370m (random weights from a seed):
+   prefill 4 x 1024 tokens (launch counts reset before it: 32 flash
+   launches, or 48 SSD launches), decode 16 tokens unbudgeted and 16 at
+   ``layer_budget=1``, and the decode step's logits at position S held
+   against ``forward`` over S+1 tokens;
+8. main path 5, the ``deadline_ms`` mode with the head as runtime jobs on
+   the ``cuda`` backend, at the llama3-8b smoke width: an expired deadline
+   releases resolution 0 only, a generous one all 2m-1;
+9. one ``{"kernels": [...]}`` line with every kernel's launches on its
    main path, its largest difference from its plain version, its times
    and its bound.
 
@@ -46,10 +63,22 @@ SRC = HERE / "src"
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12      # tensor cores
+PEAK_FP32_FLOPS = 67e12       # CUDA cores (no TF32: fp32 work stays fp32)
 PEAK_BYTES = 3.35e12
 
 #: Every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu).
-KERNEL_SOURCES = ["layered_matmul"]
+KERNEL_SOURCES = ["layered_matmul", "flash_attention", "ssd_scan"]
+
+LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
+MAMBA_PREFILL = dict(B=4, S=1024, H=32, P=64, N=128, chunk=256)
+SERVE = dict(batch=4, prompt=1024, gen=16)
+#: decode_step at position S against forward over S+1 tokens, in bf16:
+#: max |diff| / max |logit|.  bf16 keeps 8 bits (unit roundoff 2^-8 =
+#: 3.9e-3); the two paths round differently in attention and in every
+#: GEMM whose shape differs (one row against S+1), so a budget of about
+#: ten roundoffs of the largest logit.
+DECODE_TOL = 5e-2
 
 SEED = 0
 HEAD = dict(K=4096, M=64, N=128256, m=2, d=7)      # llama3-8b LM head
@@ -304,6 +333,326 @@ def phase_runtime(torch, dev):
           "launches": {"layered_matmul": lm.launches}})
 
 
+def roofline(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """Least time (ms) for ``flops`` at ``peak`` and ``nbytes`` at the
+    memory rate, and which of the two sets it."""
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(B, Sq, Skv, H, kv, dh, causal, window, elem, peak):
+    """Bound of one attention call: 4*dh flops per unmasked (query, key)
+    pair (q k^T and p v), q, k, v read once and o written once."""
+    pairs = 0
+    for i in range(Sq):
+        hi = min(i, Skv - 1) if causal else Skv - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo + 1)
+    flops = 4.0 * dh * pairs * B * H
+    nbytes = elem * dh * (2 * B * Sq * H + 2 * B * Skv * kv)
+    return roofline(flops, nbytes, peak)
+
+
+def phase_flash_vs_plain(torch, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    L = LLAMA_PREFILL
+    cases = {
+        "llama3_8b_prefill": (L["B"], L["S"], L["H"], L["kv"], L["dh"], True,
+                              None, torch.bfloat16, 2e-2),
+        "fp32_window64_s100": (2, 100, 8, 2, 64, True, 64, torch.float32,
+                               3e-5),
+        "noncausal_s8": (2, 8, 4, 4, 32, False, None, torch.float32, 3e-5),
+    }
+    rows = {}
+    for name, (B, S, H, kv, dh, causal, window, dtype, tol) in cases.items():
+        q = torch.randn((B, S, H, dh), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, kv, dh), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, kv, dh), generator=gen, device=dev).to(dtype)
+        call = lambda: ops.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+        plain = lambda: fa.flash_attention_gqa_plain(q, k, v, causal=causal,
+                                                     window=window)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= tol or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: kernel differs from plain by "
+                                 f"{err} (tolerance {tol})")
+        row = {"shape": dict(B=B, S=S, H=H, kv=kv, dh=dh, causal=causal,
+                             window=window, dtype=str(dtype)),
+               "max_abs_err": err, "tolerance": tol}
+        if name == "llama3_8b_prefill":
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            bound_ms, bound_by = flash_bound(B, S, S, H, kv, dh, causal,
+                                             window, 2, PEAK_BF16_FLOPS)
+            ms = cuda_ms(torch, call)
+            row.update(ms=ms,
+                       kernel_device_ms=device_ms(torch, call,
+                                                  "flash_attention_kernel"),
+                       plain_ms=cuda_ms(torch, plain, runs=5),
+                       library_ms=cuda_ms(torch, sdpa),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       bound_share=bound_ms / ms)
+        rows[name] = row
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    emit({"phase": "flash_attention_vs_plain", "timed_runs": TIMED_RUNS,
+          "calls_per_run": REPS, "cases": rows})
+    return rows
+
+
+def ssd_bound(B, nc, l, H, P, N):
+    """Bound of one SSD scan (one B/C group, x/B/C in bf16, dt in fp32):
+    per (batch, chunk) the scores C B^T once for all heads, on the
+    l (l + 1) / 2 pairs i >= j (2 N flops each); per (batch, head, chunk)
+    the masked scores times dt x on those pairs (2 P each), C state^T
+    and the state update (2 l N P each).  Each input read once, y and the
+    final state written once in fp32."""
+    pairs = l * (l + 1) // 2
+    flops = (2.0 * pairs * N * B * nc
+             + (2.0 * pairs * P + 4.0 * l * N * P) * B * H * nc)
+    S = nc * l
+    nbytes = (2 * B * S * H * P + 4 * B * S * H + 4 * H + 2 * 2 * B * S * N
+              + 4 * B * S * H * P + 4 * B * H * P * N)
+    return roofline(flops, nbytes, PEAK_FP32_FLOPS)
+
+
+def phase_ssd_vs_plain(torch, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    M = MAMBA_PREFILL
+    # (B, S, S padded, H, P, N, chunk, initial state); x/B/C in bf16 and
+    # dt in fp32, as the model's ssm_block hands them over
+    cases = {"mamba2_370m_prefill": (M["B"], M["S"], M["S"], M["H"], M["P"],
+                                     M["N"], M["chunk"], False),
+             "init_state": (2, 512, 512, M["H"], M["P"], M["N"], M["chunk"],
+                            True),
+             "ragged_s1000_padded": (2, 1000, 1024, 8, M["P"], M["N"],
+                                     M["chunk"], False)}
+    tol = 1e-4
+    rows = {}
+    for name, (B, S, Sp, H, P, N, chunk, init) in cases.items():
+        bf = torch.bfloat16
+        x = torch.randn((B, S, H, P), generator=gen, device=dev).to(bf)
+        dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=gen, device=dev)
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+        Bm = torch.randn((B, S, 1, N), generator=gen, device=dev).to(bf)
+        Cm = torch.randn((B, S, 1, N), generator=gen, device=dev).to(bf)
+        s0 = (torch.randn((B, H, P, N), generator=gen, device=dev)
+              if init else None)
+        if Sp > S:      # as ssm_block pads: dt = 0 on the padded steps
+            pad = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, Sp - S))
+            x, dt, Bm, Cm = map(pad, (x, dt, Bm, Cm))
+        nc = Sp // chunk
+        call = lambda: ops.ssd_scan_fused(x, dt, A, Bm, Cm, chunk=chunk,
+                                          init_state=s0)
+        plain = lambda: ss.ssd_scan_plain(
+            x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H), A,
+            Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N), s0)
+        (y, st), (py, pst) = call(), plain()
+        torch.cuda.synchronize()
+        py = py.reshape(B, Sp, H, P)
+        err = max((y - py).abs().max().item(), (st - pst).abs().max().item())
+        scale = max(py.abs().max().item(), pst.abs().max().item())
+        # 1e-4 as the reference's allclose(atol=1e-4, rtol=1e-4)
+        ok = (torch.allclose(y, py, atol=tol, rtol=tol)
+              and torch.allclose(st, pst, atol=tol, rtol=tol))
+        if not ok or not torch.isfinite(y).all():
+            raise AssertionError(f"{name}: kernel differs from plain by "
+                                 f"{err} (atol = rtol = {tol})")
+        row = {"shape": dict(B=B, S=S, S_padded=Sp, H=H, P=P, N=N,
+                             chunk=chunk, init_state=init),
+               "max_abs_err": err, "max_abs_value": scale, "atol_rtol": tol}
+        if name == "mamba2_370m_prefill":
+            bound_ms, bound_by = ssd_bound(B, nc, chunk, H, P, N)
+            ms = cuda_ms(torch, call)
+            row.update(ms=ms,
+                       kernel_device_ms=device_ms(torch, call,
+                                                  "ssd_scan_kernel"),
+                       plain_ms=cuda_ms(torch, plain, runs=5),
+                       library_ms=None, bound_ms=bound_ms,
+                       bound_by=bound_by, bound_share=bound_ms / ms)
+        rows[name] = row
+        del x, dt, Bm, Cm, y, st, py, pst
+        torch.cuda.empty_cache()
+    emit({"phase": "ssd_scan_vs_plain", "timed_runs": TIMED_RUNS,
+          "calls_per_run": REPS, "cases": rows})
+    return rows
+
+
+def _clone(tree):
+    """A copy of a cache tree (dicts, lists and tensors)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone()
+
+
+def _serve(torch, dev, arch: str, kernel_module, want_launches: int):
+    """Serve ``arch`` at full width: prefill (launches counted), the decode
+    step against forward, 16 tokens unbudgeted and 16 at budget 1."""
+    from repro_torch.configs import registry
+    from repro_torch.core import progressive
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import layered_matmul as lm
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.serve import ProgressiveServer
+    from repro_torch.models import transformer as T
+    cfg = registry.get_config(arch)
+    B, S, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    server = ProgressiveServer(cfg, params, m=2, d=7, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=dev)
+    prompt = tokens[:, :S]
+
+    fa.launches = ss.launches = lm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last_logits, caches = server.prefill(prompt, max_len=S + 1 + G)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches,
+                "layered_matmul": lm.launches}
+    if kernel_module.launches != want_launches:
+        raise AssertionError(f"{arch}: prefill launched {launches}, want "
+                             f"{want_launches} of its kernel")
+    if (last_logits.shape != (B, cfg.vocab_size)
+            or not torch.isfinite(last_logits).all()):
+        raise AssertionError(f"{arch}: bad prefill logits "
+                             f"{tuple(last_logits.shape)}")
+
+    # decode updates the caches in place, so each run below but the last
+    # starts from its own copy of the prefill's caches.  First the plain
+    # decode path against the kernel path: decode_step at position S
+    # against forward over the S + 1 tokens
+    got, _ = T.decode_step(params, tokens[:, S:], _clone(caches), S, cfg)
+    full, _ = T.forward(params, tokens, cfg)
+    want = full[:, -1].float()
+    del full
+    rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+    argmax_agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    if not rel <= DECODE_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"{arch}: decode_step differs from forward by "
+                             f"{rel} of the largest logit (tolerance "
+                             f"{DECODE_TOL})")
+
+    decode = {}
+    for label, budget, want_rel in (("unbudgeted", None, 2),
+                                    ("layer_budget_1", 1, 1)):
+        fresh = _clone(caches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = server.decode(prompt[:, -1:], fresh, S, G,
+                                   layer_budget=budget)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if (tuple(out.shape) != (B, G)
+                or stats.released_at_layer != [want_rel] * G
+                or stats.full_resolution != (G if budget is None else 0)):
+            raise AssertionError(f"{arch} {label}: {tuple(out.shape)} "
+                                 f"released {stats.released_at_layer}")
+        decode[label] = {"ms_per_token": ms / G,
+                         "released_at_layer": stats.released_at_layer}
+        del fresh
+
+    hidden, _ = T.hidden_step(params, prompt[:, -1:], caches, S, cfg)
+    series = server.head_series(hidden)
+    if not torch.isfinite(series).all():
+        raise AssertionError(f"{arch}: head series not finite")
+    h32 = hidden.to(torch.float32)
+    head_ms = [cuda_ms(torch, lambda l=l: progressive.plane_step(
+        server.lm_head, h32, l), runs=5) for l in range(server.m)]
+    row = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": B, "prompt": S, "gen": G,
+           "m": server.m, "d": server.d,
+           "setup_seconds_init_params_and_head_planes": setup_s,
+           "prefill_ms": prefill_ms, "launches_per_prefill": launches,
+           "decode_vs_forward_rel_err": rel,
+           "decode_vs_forward_tolerance": DECODE_TOL,
+           "decode_vs_forward_argmax_agreement": argmax_agree,
+           "decode": decode,
+           "head_ms_per_resolution_increment": head_ms,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    server.close()
+    del params, server, caches, tokens, prompt, got, want, hidden, series
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_llama(torch, dev):
+    from repro_torch.kernels import flash_attention as fa
+    row = _serve(torch, dev, "llama3-8b", fa, 32)
+    emit(dict(phase="serve_llama3_8b", **row))
+    return row
+
+
+def phase_serve_mamba(torch, dev):
+    from repro_torch.kernels import ssd_scan as ss
+    row = _serve(torch, dev, "mamba2-370m", ss, 48)
+    emit(dict(phase="serve_mamba2_370m", **row))
+    return row
+
+
+def phase_serve_deadline(torch, dev):
+    """``deadline_ms`` on the ``cuda`` runtime backend, at the llama3-8b
+    smoke width: the runtime's host encode of W at full width (4096 x
+    128256 in float64) would take tens of seconds per decode step."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import ProgressiveServer
+    from repro_torch.models import transformer as T
+    cfg = registry.get_smoke_config("llama3-8b")
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    B, S, G = 2, 8, 4
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    rows = {}
+    with ProgressiveServer(cfg, params, m=2, d=7, device=dev) as server:
+        L = 2 * server.m - 1
+        for label, deadline, want in (("expired", 0.0, [1] * G),
+                                      ("generous", 1e9, [L] * G)):
+            _, caches = server.prefill(prompt, max_len=S + G)
+            t0 = time.perf_counter()
+            out, stats = server.decode(prompt[:, -1:], caches, S, G,
+                                       deadline_ms=deadline)
+            wall = time.perf_counter() - t0
+            if stats.released_at_layer != want or tuple(out.shape) != (B, G):
+                raise AssertionError(f"deadline {label}: released "
+                                     f"{stats.released_at_layer}, want "
+                                     f"{want}")
+            rows[label] = {"deadline_ms": deadline,
+                           "released_at_layer": stats.released_at_layer,
+                           "head_service_seconds":
+                               stats.head_service_seconds,
+                           "wall_seconds": wall}
+        backends = sorted({h.gateway.cfg.backend
+                           for h in server._runtime_heads.values()})
+    if backends != ["cuda"]:
+        raise AssertionError(f"runtime head ran on {backends}")
+    emit({"phase": "serve_deadline", "arch": cfg.name + "-smoke",
+          "width_reason": "host float64 encode of a 4096 x 128256 head per "
+                          "step is tens of seconds",
+          "backend": backends[0], "batch": B, "prompt": S, "gen": G,
+          "resolutions": L, "runs": rows})
+    return rows
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -324,25 +673,52 @@ def main() -> int:
     for name, phase in (("environment", phase_environment),
                         ("kernel_vs_plain", phase_kernel_vs_plain),
                         ("layered_main_path", phase_layered_main_path),
-                        ("runtime", phase_runtime)):
+                        ("runtime", phase_runtime),
+                        ("flash_attention_vs_plain", phase_flash_vs_plain),
+                        ("ssd_scan_vs_plain", phase_ssd_vs_plain),
+                        ("serve_llama3_8b", phase_serve_llama),
+                        ("serve_mamba2_370m", phase_serve_mamba),
+                        ("serve_deadline", phase_serve_deadline)):
         try:
             results[name] = phase(torch, dev)
         except Exception:      # reported, and the run fails below
             traceback.print_exc()
             emit({"phase": name, "ok": False})
             failed.append(name)
+    kernels = []
     if "kernel_vs_plain" in results and "layered_main_path" in results:
         head = results["kernel_vs_plain"]["llama3_8b_head"]
         errs = [row["max_abs_err"]
                 for row in results["kernel_vs_plain"].values()]
-        emit({"kernels": [{
+        kernels.append({
             "name": "layered_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/layered_matmul.cu",
             "replaces": "src/repro/kernels/layered_matmul.py:71",
             "launches": results["layered_main_path"],
             "max_abs_err": max(errs), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": None}]})
+            "bound_by": head["bound_by"], "library_ms": None})
+    for name, cmp_phase, serve_phase, main_case, replaces in (
+            ("flash_attention", "flash_attention_vs_plain",
+             "serve_llama3_8b", "llama3_8b_prefill",
+             "src/repro/kernels/flash_attention.py:85"),
+            ("ssd_scan", "ssd_scan_vs_plain", "serve_mamba2_370m",
+             "mamba2_370m_prefill", "src/repro/kernels/ssd_scan.py:84")):
+        if cmp_phase not in results or serve_phase not in results:
+            continue
+        row = results[cmp_phase][main_case]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": results[serve_phase]["launches_per_prefill"][name],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in results[cmp_phase].values()),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    if kernels:
+        emit({"kernels": kernels})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

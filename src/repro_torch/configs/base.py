@@ -1,0 +1,121 @@
+"""Model configs: the attention, SSM and model dataclasses.
+
+Carried over from the JAX package's ``configs/base.py`` with the same
+fields and defaults, so a config reads the same in both packages.  Only
+``cdtype()`` and ``pdtype()`` differ: they return :class:`torch.dtype`.
+Every architecture gets a ``configs/<id>.py`` exporting ``CONFIG`` (its
+published hyper-parameters) and ``smoke_config()`` (a reduced config of
+the same family for CPU tests); :mod:`repro_torch.configs.registry`
+resolves ``--arch <id>`` strings.
+
+The ``moe`` and ``rglru`` fields stay so that configs keep their shape,
+but the port's models run only the ``dense`` and ``ssm`` layer kinds.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+__all__ = ["AttentionConfig", "SSMConfig", "ModelConfig"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; known: {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10_000.0
+    window: Optional[int] = None          # sliding-window size (local attn)
+    causal: bool = True
+    qk_norm: bool = False
+    attn_logit_softcap: Optional[float] = None
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def group_size(self) -> int:
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(f"heads {self.num_heads} not a multiple of kv "
+                             f"{self.num_kv_heads}")
+        return self.num_heads // self.num_kv_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                           # dense|moe|ssm|hybrid|vlm|audio
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: Optional[AttentionConfig] = None
+    moe: Optional[object] = None          # MoEConfig: not ported yet
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[object] = None        # RGLRUConfig: not ported yet
+    activation: str = "silu"              # silu (SwiGLU) | gelu (plain MLP)
+    norm: str = "rmsnorm"                 # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    # enc-dec (audio) extras
+    encoder_layers: int = 0
+    encoder_seq: int = 0                  # stub frontend sequence length
+    # vlm extras
+    num_image_tokens: int = 0             # stub patch-embedding positions
+    # numerics
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    kv_cache_dtype: str = ""              # "" = compute dtype; "int8" packs
+    # scan/remat (the JAX package's; the port runs eagerly and ignores them)
+    remat_policy: str = "minimal"         # none|minimal|full
+    scan_layers: bool = True
+    # layered-resolution serving (the paper's technique)
+    layered_lm_head: bool = False
+    layered_m: int = 2
+    layered_d: int = 7
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context (O(1)-ish state)?"""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def cdtype(self) -> torch.dtype:
+        return _torch_dtype(self.compute_dtype)
+
+    def pdtype(self) -> torch.dtype:
+        return _torch_dtype(self.param_dtype)

@@ -3,9 +3,14 @@
   layered_matmul    the paper's mini-job grid as one fused int8 pass
                     (CUDA C++, csrc/layered_matmul.cu; replaces the TPU
                     kernel in repro/kernels/layered_matmul.py)
+  flash_attention   online-softmax attention, causal skip, window, GQA
+                    (CUDA C++, csrc/flash_attention.cu; replaces
+                    repro/kernels/flash_attention.py)
+  ssd_scan          the fused Mamba2 SSD chunk scan with carried state
+                    (CUDA C++, csrc/ssd_scan.cu; replaces
+                    repro/kernels/ssd_scan.py)
 ops.py holds the public wrappers, ref.py the NumPy oracles, _build.py the
-nvcc build step.  The TPU's flash_attention and ssd_scan kernels are not
-ported yet.
+nvcc build step.
 """
 
 from repro_torch.kernels import ops, ref  # noqa: F401

@@ -26,7 +26,7 @@ import threading
 import time
 
 __all__ = ["KernelBuildError", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS",
-           "build_all", "load", "build_log"]
+           "build_all", "load", "build_log", "require_hopper"]
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -94,6 +94,17 @@ def build_all(names: list[str]) -> dict[str, pathlib.Path]:
     if failed:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
     return {n: lib for n, (_, lib) in targets.items()}
+
+
+def require_hopper(dev, name: str) -> None:
+    """Raise unless ``dev`` is an sm_90 (Hopper) card, which the kernels
+    are built for."""
+    import torch
+    cap = torch.cuda.get_device_capability(dev)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"{name} kernel is built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(dev)} is sm_{cap[0]}{cap[1]}")
 
 
 def load(name: str) -> ctypes.CDLL:

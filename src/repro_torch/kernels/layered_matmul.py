@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.core import layering
+from repro_torch.kernels import _build
 
 __all__ = ["K_ALIGN", "layered_matmul_kernel_call", "layered_matmul_kmajor",
            "layered_matmul_plain", "launches"]
@@ -72,7 +73,6 @@ def _entry():
     """The kernel's C entry, bound once: ``(fn, max_planes)``."""
     global _bound
     if _bound is None:
-        from repro_torch.kernels import _build
         lib = _build.load(_SOURCE)
         fn = lib.layered_matmul_s8
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -107,11 +107,7 @@ def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int) -> torch.Tensor:
     if b_km.device != dev:
         raise ValueError(f"planes on different devices: {dev} vs "
                          f"{b_km.device}")
-    cap = torch.cuda.get_device_capability(dev)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"layered_matmul kernel is built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(dev)} is sm_{cap[0]}{cap[1]}")
+    _build.require_hopper(dev, _SOURCE)
     fn, max_planes = _entry()
     if m > max_planes:
         raise ValueError(f"kernel supports m <= {max_planes}, got m={m}")

@@ -6,12 +6,20 @@ hand-written kernels, CPU tensors run their plain PyTorch versions.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import layering
+# flash_attention(q, k, v, *, causal=True, window=None) for (B, S, H, dh)
+# tensors with GQA: kv head h // (H // n_kv) is read in place, no repeat
+from repro_torch.kernels.flash_attention import \
+    flash_attention_gqa as flash_attention
 from repro_torch.kernels.layered_matmul import K_ALIGN, layered_matmul_kmajor
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel_call
 
-__all__ = ["layered_matmul", "layered_matmul_partials"]
+__all__ = ["layered_matmul", "layered_matmul_partials", "flash_attention",
+           "ssd_scan_fused"]
 
 
 def _planes_kmajor(x: torch.Tensor, m: int, d: int) -> torch.Tensor:
@@ -72,3 +80,26 @@ def layered_matmul(a: torch.Tensor, b: torch.Tensor, *, m: int = 2,
                           device=partials.device)
     scaled = partials.to(torch.float32) * scales[:, None, None]
     return torch.cumsum(scaled, dim=0)
+
+
+def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
+                   init_state: Optional[torch.Tensor] = None):
+    """Fused-SSD twin of ``repro_torch.models.ssm.ssd_scan`` (G = 1 only).
+
+    x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm (B, S, 1, N), init_state
+    (B, H, P, N) or None -> (y (B, S, H, P) fp32, final_state (B, H, P, N)
+    fp32).
+    """
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if Bm.shape[-2] != 1 or Cm.shape[-2] != 1:
+        raise ValueError(f"one B/C group only, got Bm {tuple(Bm.shape)}")
+    if S % chunk:
+        raise ValueError(f"S={S} not divisible by chunk={chunk}")
+    nc = S // chunk
+    y, state = ssd_scan_kernel_call(
+        x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H), A,
+        Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
+        init_state=init_state)
+    return y.reshape(B, S, H, P), state

@@ -6,7 +6,7 @@ import numpy as np
 
 from repro_torch.core import layering
 
-__all__ = ["layered_matmul_ref"]
+__all__ = ["layered_matmul_ref", "flash_attention_ref"]
 
 
 def layered_matmul_ref(a_planes, b_planes, *, d: int) -> np.ndarray:
@@ -29,3 +29,25 @@ def layered_matmul_ref(a_planes, b_planes, *, d: int) -> np.ndarray:
                 1 << ((i + j) * d))
         out[l] = running
     return out
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int | None = None) -> np.ndarray:
+    """Naive softmax attention over (BH, S, dh) on the host, in float64:
+    the oracle for the flash kernel and its plain version (mask value
+    ``-0.7 * f32max`` as the TPU kernel's)."""
+    q64, k64, v64 = (np.asarray(t, dtype=np.float64) for t in (q, k, v))
+    s = np.einsum("bqd,bkd->bqk", q64, k64) / np.sqrt(q64.shape[-1])
+    Sq, Skv = s.shape[-2], s.shape[-1]
+    qpos = np.arange(Sq)[:, None]
+    kpos = np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), dtype=bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    s = np.where(ok[None], s, -0.7 * float(np.finfo(np.float32).max))
+    s = s - s.max(axis=-1, keepdims=True)
+    p = np.exp(s)
+    p /= p.sum(axis=-1, keepdims=True)
+    return np.einsum("bqk,bkd->bqd", p, v64)

@@ -1,0 +1,9 @@
+"""Models: layers, the Mamba2 SSM block, transformer assembly, and
+``convert`` (NumPy parameter trees into the port)."""
+
+from repro_torch.models import (  # noqa: F401
+    convert,
+    layers,
+    ssm,
+    transformer,
+)

@@ -27,6 +27,8 @@ from repro_torch.runtime.adaptive import (POLICIES, AIMDPolicy,
 from repro_torch.runtime.errors import FusionStateError, TransportDeadError
 from repro_torch.runtime.faults import FaultSupervisor
 from repro_torch.runtime.fusion import FusionNode, LayeredResult, RoundFusion
+from repro_torch.runtime.gateway import (AdmissionController, GatewayStats,
+                                         ServingGateway, Ticket)
 from repro_torch.runtime.master import JobQueue, Master, make_jobs, run_jobs
 from repro_torch.runtime.metrics import (STAGES, RuntimeResult, delay_table,
                                          format_controller_trace,
@@ -53,6 +55,7 @@ __all__ = [
     "WorkerTransport", "BACKENDS", "make_transport",
     "FusionNode", "RoundFusion", "LayeredResult",
     "Master", "JobQueue", "make_jobs", "run_jobs",
+    "ServingGateway", "AdmissionController", "GatewayStats", "Ticket",
     "OmegaController", "OmegaPolicy", "RoundObservation", "POLICIES",
     "FixedPolicy", "AIMDPolicy", "DeadlineMarginPolicy", "margin_ratio",
     "RuntimeResult", "delay_table", "format_delay_table",

@@ -1,6 +1,8 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
-These tests need an NVIDIA Hopper GPU and ``nvcc``; elsewhere they skip.
+The layered int8 matmul, flash attention and the SSD chunk scan, and the
+smoke models through them against the host.  These tests need an NVIDIA
+Hopper GPU and ``nvcc``; elsewhere they skip.
 They import nothing of JAX, so they run on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -105,3 +107,162 @@ def test_too_many_planes_raise(hopper):
     z = torch.zeros((5, 8, 16), dtype=torch.int8, device=hopper)
     with pytest.raises(ValueError, match="m <= 4"):
         lm.layered_matmul_kmajor(z, z, m=5)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernel 2) and the SSD chunk scan (kernel 3)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, Sq, Skv, H, kv, dh, causal, window, dtype
+    (2, 128, 128, 4, 2, 64, True, None, torch.float32),
+    (1, 100, 100, 2, 1, 32, True, 7, torch.float32),     # ragged + window
+    (2, 64, 64, 4, 4, 16, False, None, torch.float32),
+    (1, 512, 512, 2, 2, 128, True, None, torch.float32),
+    (1, 128, 128, 2, 2, 64, True, None, torch.bfloat16),
+    (2, 257, 257, 8, 2, 128, True, 64, torch.bfloat16),  # GQA, ragged
+    (1, 33, 77, 4, 2, 48, False, None, torch.float32),   # Sq != Skv
+    (1, 8, 8, 4, 1, 16, False, None, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,kv,dh,causal,window,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain(rng, hopper, B, Sq, Skv, H, kv, dh,
+                                    causal, window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.tensor(rng.normal(size=(B, Sq, H, dh)), dtype=dtype,
+                     device=hopper)
+    k = torch.tensor(rng.normal(size=(B, Skv, kv, dh)), dtype=dtype,
+                     device=hopper)
+    v = torch.tensor(rng.normal(size=(B, Skv, kv, dh)), dtype=dtype,
+                     device=hopper)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, Sq, H, dh)
+    want = fa.flash_attention_gqa_plain(q, k, v, causal=causal,
+                                        window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_call_bhsd_layout(rng, hopper):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (torch.tensor(rng.normal(size=(6, 96, 32)), dtype=torch.float32,
+                            device=hopper) for _ in range(3))
+    got = fa.flash_attention_kernel_call(q, k, v, causal=True, window=40)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=40)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(hopper):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 8, 2, 24), device=hopper)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_gqa(q, q, q)
+    h = torch.zeros((1, 8, 2, 16), dtype=torch.float16, device=hopper)
+    with pytest.raises(TypeError):
+        fa.flash_attention_gqa(h, h, h)
+
+
+SSD_CASES = [
+    # B, S, H, P, N, chunk, with init_state
+    (2, 48, 4, 8, 16, 16, False),
+    (1, 64, 2, 16, 32, 32, True),
+    (1, 32, 8, 8, 8, 8, False),
+    (1, 512, 4, 64, 128, 256, True),      # mamba2-370m head and state
+    (2, 300, 2, 64, 128, 100, False),     # chunk not a multiple of 64
+]
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dev, init):
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return (t(rng.normal(size=(B, S, H, P))),
+            t(rng.uniform(0.01, 0.2, size=(B, S, H))),
+            -t(rng.uniform(0.5, 2.0, size=(H,))),
+            t(rng.normal(size=(B, S, 1, N))),
+            t(rng.normal(size=(B, S, 1, N))),
+            t(rng.normal(size=(B, H, P, N))) if init else None)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init", SSD_CASES)
+def test_ssd_kernel_matches_plain(rng, hopper, B, S, H, P, N, chunk, init):
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, B, S, H, P, N, hopper, init)
+    before = ss.launches
+    y, state = ops.ssd_scan_fused(x, dt, A, Bm, Cm, chunk=chunk,
+                                  init_state=s0)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    nc = S // chunk
+    want_y, want_s = ss.ssd_scan_plain(
+        x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H), A,
+        Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N), s0)
+    torch.testing.assert_close(y, want_y.reshape(B, S, H, P), atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(state, want_s, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_rejects_a_state_too_large(hopper):
+    from repro_torch.kernels import ssd_scan as ss
+    x = torch.zeros((1, 1, 8, 1, 8), device=hopper)
+    dt = torch.zeros((1, 1, 8, 1), device=hopper)
+    big = torch.zeros((1, 1, 8, 256), device=hopper)
+    with pytest.raises(ValueError, match="d_state"):
+        ss.ssd_scan_kernel_call(x, dt, torch.zeros(1, device=hopper), big,
+                                big)
+
+
+@pytest.mark.parametrize("S", [20, 300])
+def test_ssm_block_on_card_matches_host(rng, hopper, S):
+    """The Mamba2 block through the kernel (with the sequence padded to a
+    chunk multiple at S=300, chunk 256) agrees with the host's plain
+    scan."""
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.models import ssm
+    cfg = SSMConfig(d_state=128, head_dim=64, chunk_size=256)
+    gen = torch.Generator().manual_seed(0)
+    p = ssm.init_ssm_params(gen, 128, cfg, torch.float32)
+    x = torch.tensor(rng.normal(size=(2, S, 128)), dtype=torch.float32)
+    want, want_c = ssm.ssm_block(p, x, 128, cfg)
+    pc = {n: t.to(hopper) for n, t in p.items()}
+    got, got_c = ssm.ssm_block(pc, x.to(hopper), 128, cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_c["state"].cpu(), want_c["state"],
+                               atol=1e-4, rtol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-370m"])
+def test_smoke_model_on_card_matches_host(rng, hopper, arch):
+    """forward and prefill+decode of the smoke configs (fp32) on the card,
+    through the kernels, against the host's plain versions."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 21)))
+    want, _ = T.forward(params, toks, cfg)
+    pc = _to(params, hopper)
+    counts = (fa.launches, ss.launches)
+    got, _ = T.forward(pc, toks.to(hopper), cfg)
+    launched = (fa.launches - counts[0], ss.launches - counts[1])
+    assert launched == ((2, 0) if arch == "llama3-8b" else (0, 2))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    _, cache = T.prefill(pc, toks[:, :20].to(hopper), cfg, max_len=24)
+    step, _ = T.decode_step(pc, toks[:, 20:].to(hopper), cache, 20, cfg)
+    torch.testing.assert_close(step.cpu(), want[:, -1], atol=1e-4,
+                               rtol=1e-4)

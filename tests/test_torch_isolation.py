@@ -43,10 +43,15 @@ def _forbidden(name):
 
 def test_port_has_modules_and_smoke_script():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
-    assert {"__init__.py", "core/layering.py", "kernels/ops.py",
-            "kernels/layered_matmul.py", "runtime/master.py",
-            "runtime/transport/cuda_device.py"} <= names
-    assert (PORT / "kernels" / "csrc" / "layered_matmul.cu").is_file()
+    assert {"__init__.py", "core/layering.py", "core/progressive.py",
+            "kernels/ops.py", "kernels/layered_matmul.py",
+            "kernels/flash_attention.py", "kernels/ssd_scan.py",
+            "configs/base.py", "configs/registry.py", "models/layers.py",
+            "models/ssm.py", "models/transformer.py", "models/convert.py",
+            "runtime/master.py", "runtime/gateway.py",
+            "runtime/transport/cuda_device.py", "launch/serve.py"} <= names
+    for kernel in ("layered_matmul", "flash_attention", "ssd_scan"):
+        assert (PORT / "kernels" / "csrc" / f"{kernel}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
 
 
@@ -66,6 +71,9 @@ def test_entry_points_import_with_jax_and_reference_blocked():
         "import repro_torch, repro_torch.runtime, repro_torch.kernels.ops\n"
         "import repro_torch.core.layered_matmul\n"
         "import repro_torch.runtime.transport.cuda_device\n"
+        "import repro_torch.models, repro_torch.launch.serve\n"
+        "import repro_torch.runtime.gateway, repro_torch.core.progressive\n"
+        "import repro_torch.configs.registry\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

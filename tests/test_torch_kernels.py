@@ -1,11 +1,13 @@
-"""Port parity: the layered int8 matmul kernel and its ``ops`` wrappers.
+"""Port parity: the three kernels and their ``ops`` wrappers.
 
-On the CPU the port's wrappers run the kernel's plain PyTorch version;
-its partials must be bit-equal to the JAX package's Pallas kernel run in
-interpret mode, on the same cases as ``tests/test_kernels.py``.  The
-card-side comparison of the CUDA kernel with its plain version is
-``tests/test_torch_cuda.py``; the one case here that needs a card holds
-the CUDA kernel against the JAX package.
+On the CPU the port's wrappers run each kernel's plain PyTorch version.
+The layered matmul's partials must be bit-equal to the JAX package's
+Pallas kernel run in interpret mode; flash attention and the SSD scan
+must agree with theirs within the reference's own tolerances, on the same
+cases as ``tests/test_kernels.py``.  The card-side comparison of the CUDA
+kernels with their plain versions is ``tests/test_torch_cuda.py``; the one
+case here that needs a card holds the layered CUDA kernel against the JAX
+package.
 """
 
 import numpy as np
@@ -215,3 +217,175 @@ def test_cuda_kernel_bit_equal_to_jax(rng, hopper):
         ops._planes_kmajor(torch.from_numpy(A).to(hopper), m, d),
         ops._planes_kmajor(torch.from_numpy(B).to(hopper), m, d), m=m)
     assert torch.equal(got, plain)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernel 2) and the SSD chunk scan (kernel 3), plain on the
+# CPU, against the JAX package's Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    (2, 128, 4, 2, 64, True, None, jnp.float32),
+    (1, 256, 2, 1, 32, True, 64, jnp.float32),
+    (2, 64, 4, 4, 16, False, None, jnp.float32),
+    (1, 512, 2, 2, 128, True, None, jnp.float32),
+    (1, 128, 2, 2, 64, True, None, jnp.bfloat16),
+]
+
+
+def _t(a):
+    """A jax/numpy array as a CPU tensor of the same dtype."""
+    from repro_torch.models.convert import array_to_tensor
+    return array_to_tensor(np.asarray(a), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("B,S,H,kv,dh,causal,window,dtype", FLASH_CASES)
+def test_flash_attention_matches_jax_interpret(rng, B, S, H, kv, dh, causal,
+                                               window, dtype):
+    q = jnp.asarray(rng.normal(size=(B, S, H, dh)), dtype)
+    k = jnp.asarray(rng.normal(size=(B, S, kv, dh)), dtype)
+    v = jnp.asarray(rng.normal(size=(B, S, kv, dh)), dtype)
+    want = np.asarray(jops.flash_attention(q, k, v, causal=causal,
+                                           window=window, interpret=True),
+                      np.float32)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                              window=window)
+    assert got.dtype == (torch.bfloat16 if dtype == jnp.bfloat16
+                         else torch.float32)
+    tol = 2e-2 if dtype == jnp.bfloat16 else 3e-5
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                               rtol=tol)
+
+
+def test_flash_plain_matches_host_oracle(rng):
+    """The (BH, S, dh) plain version against the float64 NumPy oracle and
+    the JAX package's ``flash_attention_ref``."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (rng.normal(size=(6, 96, 32)).astype(np.float32)
+               for _ in range(3))
+    got = fa.flash_attention_kernel_call(torch.from_numpy(q),
+                                         torch.from_numpy(k),
+                                         torch.from_numpy(v), window=40)
+    np.testing.assert_allclose(got.numpy(),
+                               ref.flash_attention_ref(q, k, v, window=40),
+                               atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.flash_attention_ref(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=40)),
+        atol=3e-5, rtol=3e-5)
+
+
+def test_flash_attention_matches_model_attention_layer(rng):
+    """The kernel's wrapper agrees with the JAX models' jnp attention."""
+    from repro.configs.base import AttentionConfig
+    from repro.models.layers import attention
+    B, S, H, kv, dh = 2, 128, 4, 2, 32
+    cfg = AttentionConfig(num_heads=H, num_kv_heads=kv, head_dim=dh)
+    q = jnp.asarray(rng.normal(size=(B, S, H, dh)), jnp.float32)
+    k = jnp.asarray(rng.normal(size=(B, S, kv, dh)), jnp.float32)
+    v = jnp.asarray(rng.normal(size=(B, S, kv, dh)), jnp.float32)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    want = np.asarray(attention(q, k, v, pos, pos, cfg))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("B,S,dh", [(1, 64, 16), (2, 128, 32), (3, 256, 64),
+                                    (1, 97, 48)])
+def test_flash_rows_are_convex_combinations(B, S, dh):
+    """Every output is a convex combination of values: bounded by V."""
+    rng = np.random.default_rng(S + dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, 2, dh))
+                                .astype(np.float32)) for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert out.abs().max().item() <= v.abs().max().item() + 1e-4
+
+
+def test_flash_cpu_path_never_counts_a_launch(rng):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.from_numpy(rng.normal(size=(1, 8, 2, 16)).astype(np.float32))
+    before = fa.launches
+    ops.flash_attention(q, q, q)
+    assert fa.launches == before
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=0)
+
+
+SSD_CASES = [
+    (2, 48, 4, 8, 16, 16),
+    (1, 64, 2, 16, 32, 32),
+    (1, 32, 8, 8, 8, 8),
+]
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dt_hi=0.2, unit_a=False):
+    x = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    dt = rng.uniform(0.01, dt_hi, size=(B, S, H)).astype(np.float32)
+    A = (-np.ones(H) if unit_a
+         else -rng.uniform(0.5, 2.0, size=(H,))).astype(np.float32)
+    Bm = rng.normal(size=(B, S, 1, N)).astype(np.float32)
+    Cm = rng.normal(size=(B, S, 1, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+def test_ssd_scan_matches_jax_interpret(rng, B, S, H, P, N, chunk):
+    from repro.models.ssm import ssd_scan
+    args = _ssd_inputs(rng, B, S, H, P, N)
+    want_y, want_s = jops.ssd_scan_fused(*map(jnp.asarray, args),
+                                         chunk=chunk, interpret=True)
+    got_y, got_s = ops.ssd_scan_fused(*map(torch.from_numpy, args),
+                                      chunk=chunk)
+    for got, want in ((got_y, want_y), (got_s, want_s)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+    plain_y, _ = ssd_scan(*map(jnp.asarray, args), chunk=chunk)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(plain_y),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_state_carries_across_chunks(rng):
+    """One long chunk == the same scan with 4x more chunks."""
+    args = tuple(map(torch.from_numpy,
+                     _ssd_inputs(rng, 1, 64, 2, 8, 8, dt_hi=0.1,
+                                 unit_a=True)))
+    y1, s1 = ops.ssd_scan_fused(*args, chunk=64)
+    y2, s2 = ops.ssd_scan_fused(*args, chunk=16)
+    torch.testing.assert_close(y1, y2, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s1, s2, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_init_state_matches_jax_model_scan(rng):
+    """The kernel's ``init_state`` (which the TPU kernel lacks) against the
+    JAX model's ``ssd_scan(..., init_state)``."""
+    from repro.models.ssm import ssd_scan
+    B, S, H, P, N, chunk = 2, 48, 4, 8, 16, 16
+    args = _ssd_inputs(rng, B, S, H, P, N)
+    s0 = rng.normal(size=(B, H, P, N)).astype(np.float32)
+    want_y, want_s = ssd_scan(*map(jnp.asarray, args), chunk=chunk,
+                              init_state=jnp.asarray(s0))
+    got_y, got_s = ops.ssd_scan_fused(*map(torch.from_numpy, args),
+                                      chunk=chunk,
+                                      init_state=torch.from_numpy(s0))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_call_layout_and_shape_checks(rng):
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, Bm, Cm = map(torch.from_numpy,
+                           _ssd_inputs(rng, 1, 32, 2, 8, 8))
+    before = ss.launches
+    y, _ = ss.ssd_scan_kernel_call(x.reshape(1, 2, 16, 2, 8),
+                                   dt.reshape(1, 2, 16, 2), A,
+                                   Bm.reshape(1, 2, 16, 8),
+                                   Cm.reshape(1, 2, 16, 8))
+    assert y.shape == (1, 2, 16, 2, 8) and ss.launches == before
+    with pytest.raises(ValueError, match="dt has shape"):
+        ss.ssd_scan_kernel_call(x.reshape(1, 2, 16, 2, 8), dt, A,
+                                Bm.reshape(1, 2, 16, 8),
+                                Cm.reshape(1, 2, 16, 8))
+    with pytest.raises(ValueError, match="not divisible"):
+        ops.ssd_scan_fused(x, dt, A, Bm, Cm, chunk=12)

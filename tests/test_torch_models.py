@@ -1,0 +1,308 @@
+"""Port parity: the models (configs, layers, Mamba2 SSM, transformer).
+
+The JAX package's parameters for the llama3-8b and mamba2-370m smoke
+configs are carried into the port with ``models.convert``; both packages
+then run the same tokens.  Forward logits, prefill caches and last
+logits, and four chained decode steps must agree:
+
+* at ``compute_dtype="float32"`` within 1e-4 (absolute and relative): the
+  two packages run the same fp32 arithmetic in another summation order,
+  and the port's prefill goes through the kernels' plain versions, which
+  the JAX models compute with jnp (a few ulps of fp32 after two layers);
+* at the default bf16 within 2e-2 of the largest value: bf16 keeps 8
+  bits (unit roundoff 3.9e-3), and the two frameworks round activations
+  at different places (XLA fuses, PyTorch rounds every op's output), so a
+  few roundoffs of the largest logit.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import registry as jreg  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+
+ARCHS = ["llama3-8b", "mamba2-370m"]
+DTYPES = ["float32", "bfloat16"]
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+B, S, DECODE = 2, 16, 4
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, dtype, what):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = _np(want)
+    tol = TOL[dtype]
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol,
+                                   err_msg=what)
+    else:
+        err = np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
+        assert err <= tol, f"{what}: {err} of the largest value"
+
+
+@functools.lru_cache(maxsize=None)
+def _runs(arch, dtype):
+    """Both packages on the same weights and tokens (cached per case)."""
+    jcfg = dataclasses.replace(jreg.get_smoke_config(arch),
+                               compute_dtype=dtype)
+    tcfg = dataclasses.replace(treg.get_smoke_config(arch),
+                               compute_dtype=dtype)
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = convert.to_torch(jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, jcfg.vocab_size, (B, S + DECODE)).astype(np.int32)
+    tt = torch.from_numpy(toks).long()
+    out = {"cfg": tcfg}
+    jforward = jax.jit(JT.forward, static_argnums=2)
+    jprefill = jax.jit(JT.prefill, static_argnums=(2, 3))
+    jdecode = jax.jit(JT.decode_step, static_argnums=4)
+    jl, _ = jforward(jp, jnp.asarray(toks), jcfg)
+    tl, _ = TT.forward(tp, tt, tcfg)
+    out["forward"] = (tl, jl)
+    jlast, jc = jprefill(jp, jnp.asarray(toks[:, :S]), jcfg, S + DECODE)
+    tlast, tc = TT.prefill(tp, tt[:, :S], tcfg, max_len=S + DECODE)
+    out["prefill"] = (tlast, jlast)
+    out["caches"] = ([{n: t.clone() for n, t in c.items()} for c in tc[0]],
+                     jax.tree.map(np.asarray, jc)[0])
+    steps = []
+    for i in range(DECODE):
+        jg, jc = jdecode(jp, jnp.asarray(toks[:, S + i:S + i + 1]), jc,
+                         jnp.int32(S + i), jcfg)
+        tg, tc = TT.decode_step(tp, tt[:, S + i:S + i + 1], tc, S + i, tcfg)
+        steps.append((tg, jg))
+    out["decode"] = steps
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_match_jax(arch, dtype):
+    got, want = _runs(arch, dtype)["forward"]
+    assert got.shape == want.shape
+    assert got.dtype == (torch.float32 if dtype == "float32"
+                         else torch.bfloat16)
+    _close(got, want, dtype, "forward logits")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_last_logits_and_caches_match_jax(arch, dtype):
+    runs = _runs(arch, dtype)
+    got, want = runs["prefill"]
+    _close(got, want, dtype, "prefill last logits")
+    tcaches, jcaches = runs["caches"]
+    for tcache, jcache in zip(tcaches, jcaches):
+        assert set(tcache) == set(jcache)
+        for name in tcache:
+            assert tuple(tcache[name].shape) == jcache[name].shape, name
+            _close(tcache[name], jcache[name], dtype, f"cache {name}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_chained_decode_steps_match_jax(arch, dtype):
+    for i, (got, want) in enumerate(_runs(arch, dtype)["decode"]):
+        _close(got, want, dtype, f"decode step {i}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_forward(rng, arch):
+    """Within the port: the invariant that catches cache/RoPE/mask bugs
+    (the JAX package's ``test_decode_matches_forward``)."""
+    cfg = dataclasses.replace(treg.get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = TT.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S + 1)))
+    full, _ = TT.forward(params, toks, cfg)
+    _, cache = TT.prefill(params, toks[:, :S], cfg, max_len=S + 8)
+    got, _ = TT.decode_step(params, toks[:, S:], cache, S, cfg)
+    want = full[:, -1]
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err < 2e-3, err
+
+
+def test_ssm_prefill_pads_to_the_chunk(rng):
+    """A prompt that is no multiple of the chunk: the padded steps carry
+    dt = 0, so the final state is the state at position S (JAX agrees)."""
+    from repro.configs.base import SSMConfig as JSSM
+    from repro.models import ssm as jssm
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.models import ssm
+    cfg = SSMConfig(d_state=16, head_dim=16, chunk_size=8)
+    jcfg = JSSM(d_state=16, head_dim=16, chunk_size=8)
+    jp = jssm.init_ssm_params(jax.random.PRNGKey(1), 64, jcfg, jnp.float32)
+    tp = convert.to_torch(jax.tree.map(np.asarray, jp), "cpu")
+    x = rng.normal(size=(2, 13, 64)).astype(np.float32)
+    jy, jc = jax.jit(jssm.ssm_block, static_argnums=(2, 3))(
+        jp, jnp.asarray(x), 64, jcfg)
+    ty, tc = ssm.ssm_block(tp, torch.from_numpy(x), 64, cfg)
+    np.testing.assert_allclose(ty.numpy(), _np(jy), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(tc["state"].numpy(), _np(jc["state"]),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_plain_ssd_scan_matches_jax(rng, init):
+    """``models.ssm.ssd_scan``, the plain scan with the reference's
+    signature, against the JAX model's ``ssd_scan`` (fp32, 1e-4 as the
+    kernel cases); with and without an initial state."""
+    from repro.models import ssm as jssm
+    from repro_torch.models import ssm
+    B, S, H, P, N, chunk = 2, 48, 4, 8, 16, 16
+    x = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, size=(B, S, H)).astype(np.float32)
+    A = -rng.uniform(0.5, 2.0, size=(H,)).astype(np.float32)
+    Bm = rng.normal(size=(B, S, 1, N)).astype(np.float32)
+    Cm = rng.normal(size=(B, S, 1, N)).astype(np.float32)
+    s0 = rng.normal(size=(B, H, P, N)).astype(np.float32) if init else None
+    args = (x, dt, A, Bm, Cm)
+    want_y, want_s = jssm.ssd_scan(
+        *map(jnp.asarray, args), chunk,
+        None if s0 is None else jnp.asarray(s0))
+    got_y, got_s = ssm.ssd_scan(
+        *map(torch.from_numpy, args), chunk,
+        None if s0 is None else torch.from_numpy(s0))
+    np.testing.assert_allclose(got_y.numpy(), _np(want_y), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), _np(want_s), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_layers_match_jax(rng):
+    """rope, the norms and decode attention on the same inputs."""
+    from repro.configs.base import AttentionConfig as JAttn
+    from repro.models import layers as JL
+    from repro_torch.configs.base import AttentionConfig
+    x = rng.normal(size=(2, 5, 4, 16)).astype(np.float32)
+    pos = np.tile(np.arange(5), (2, 1)).astype(np.int32)
+    np.testing.assert_allclose(
+        TL.rope(torch.from_numpy(x), torch.from_numpy(pos), 500_000.0)
+        .numpy(), _np(JL.rope(jnp.asarray(x), jnp.asarray(pos), 500_000.0)),
+        atol=1e-5, rtol=1e-5)
+    h = rng.normal(size=(3, 32)).astype(np.float32)
+    w = rng.normal(size=(32,)).astype(np.float32)
+    b = rng.normal(size=(32,)).astype(np.float32)
+    np.testing.assert_allclose(
+        TL.rms_norm(torch.from_numpy(h), torch.from_numpy(w)).numpy(),
+        _np(JL.rms_norm(jnp.asarray(h), jnp.asarray(w))), atol=1e-5,
+        rtol=1e-5)
+    np.testing.assert_allclose(
+        TL.layer_norm(torch.from_numpy(h), torch.from_numpy(w),
+                      torch.from_numpy(b)).numpy(),
+        _np(JL.layer_norm(jnp.asarray(h), jnp.asarray(w), jnp.asarray(b))),
+        atol=1e-5, rtol=1e-5)
+    acfg = AttentionConfig(num_heads=4, num_kv_heads=2, head_dim=16,
+                           window=3)
+    jacfg = JAttn(num_heads=4, num_kv_heads=2, head_dim=16, window=3)
+    q = rng.normal(size=(2, 1, 4, 16)).astype(np.float32)
+    kc = rng.normal(size=(2, 9, 2, 16)).astype(np.float32)
+    vc = rng.normal(size=(2, 9, 2, 16)).astype(np.float32)
+    p = np.array([6, 6], np.int32)
+    got = TL.decode_attention(*map(torch.from_numpy, (q, kc, vc)),
+                              torch.from_numpy(p).long(), acfg,
+                              torch.from_numpy(p + 1).long())
+    want = JL.decode_attention(*map(jnp.asarray, (q, kc, vc)),
+                               jnp.asarray(p), jacfg, jnp.asarray(p + 1))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_plain_attention_matches_jax_with_softcap(rng):
+    """``layers.attention`` stays the plain general function (softcap,
+    query chunks) that the kernel path does not cover."""
+    from repro.configs.base import AttentionConfig as JAttn
+    from repro.models import layers as JL
+    from repro_torch.configs.base import AttentionConfig
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=16,
+              attn_logit_softcap=30.0)
+    q = rng.normal(size=(2, 8, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 8, 2, 16)).astype(np.float32)
+    pos = np.tile(np.arange(8), (2, 1)).astype(np.int32)
+    got = TL.attention(*map(torch.from_numpy, (q, k, k, pos, pos)),
+                       AttentionConfig(**kw), q_chunk=4)
+    want = JL.attention(*map(jnp.asarray, (q, k, k, pos, pos)), JAttn(**kw),
+                        q_chunk=4)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_block_groups_and_configs_match_jax():
+    for arch in ARCHS:
+        for get in ("get_config", "get_smoke_config"):
+            jcfg = getattr(jreg, get)(arch)
+            tcfg = getattr(treg, get)(arch)
+            assert JT.block_groups(jcfg) == TT.block_groups(tcfg)
+            jd = dataclasses.asdict(jcfg)
+            td = dataclasses.asdict(tcfg)
+            assert jd == td, arch
+    assert treg.get_config("llama3-8b").cdtype() == torch.bfloat16
+    assert treg.get_config("llama3-8b").pdtype() == torch.float32
+    with pytest.raises(KeyError):
+        treg.get_config("qwen2-moe-a2.7b")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-9b",
+                                  "whisper-tiny", "internvl2-1b"])
+def test_unported_kinds_raise(arch):
+    """Layer kinds and extras of later slices raise, naming ROADMAP."""
+    jcfg = jreg.get_smoke_config(arch)
+    from repro_torch.configs.base import ModelConfig
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(**{k: v for k, v in vars(jcfg).items()
+                         if k in fields and k not in ("attention", "ssm")})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.init_params(cfg, device="cpu")
+
+
+def test_softcap_config_raises():
+    from repro_torch.configs.base import AttentionConfig
+    cfg = dataclasses.replace(
+        treg.get_smoke_config("llama3-8b"),
+        attention=AttentionConfig(num_heads=4, num_kv_heads=1, head_dim=16,
+                                  attn_logit_softcap=50.0))
+    with pytest.raises(NotImplementedError, match="softcap"):
+        TT.init_params(cfg, device="cpu")
+
+
+def test_init_params_defaults_to_cuda(monkeypatch):
+    """Entry points run on the card unless the caller asks for the CPU:
+    without a GPU, the default raises and ``device="cpu"`` works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = treg.get_smoke_config("mamba2-370m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.init_cache(cfg, 1, 8)
+    params = TT.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cache_matches_jax_layout(arch):
+    """Zero caches: the same nesting, shapes and dtypes as the JAX
+    package's (decode from an empty cache needs no prefill)."""
+    jcfg = jreg.get_smoke_config(arch)
+    tcfg = treg.get_smoke_config(arch)
+    jc = jax.tree.map(np.asarray, JT.init_cache(jcfg, 2, 12))
+    tc = TT.init_cache(tcfg, 2, 12, device="cpu")
+    assert len(tc) == len(jc)
+    for tg, jg in zip(tc, jc):
+        for tcache, jcache in zip(tg, jg):
+            assert set(tcache) == set(jcache)
+            for name, t in tcache.items():
+                assert tuple(t.shape) == jcache[name].shape, name
+                assert str(t.dtype).split(".")[-1] == jcache[name].dtype.name
+                assert not t.any()
