@@ -21,18 +21,25 @@ main paths and checks what comes out:
 4. main path 2, the coded runtime on the ``cuda`` worker backend: a
    verified run, then a full-width K=M=N=4096 run whose released final
    resolutions are held against the exact float64 product on the card;
-5. the flash-attention kernel against its plain version at the llama3-8b
-   prefill shape (bf16, causal, GQA), a ragged fp32 windowed case and a
-   non-causal S=8 case, with the kernel's times, the plain version's,
-   ``scaled_dot_product_attention``'s (``library_ms``, a yardstick the
-   port never calls) and the bound;
+5. the two flash-attention kernels against their plain version: the
+   tensor-core kernel (bf16, dh 64/128) at the llama3-8b prefill shape
+   (causal, GQA) and on bf16 twins of a ragged windowed case and a
+   non-causal case, the CUDA-core kernel on the fp32 cases; each case
+   checks which kernel launched.  At the llama3-8b shape: the tensor-core
+   kernel's times, its RMS error against the unrounded fp32 result beside
+   the plain bf16 output's, the CUDA-core kernel in bf16 (its earlier
+   route) and fp32, each held against the plain version before it is
+   timed, the plain version's times, ``scaled_dot_product_attention``'s
+   (``library_ms``, a yardstick the port never calls) and the bound;
 6. the SSD chunk-scan kernel against its plain version at the mamba2-370m
    prefill shape, with an initial state, and with a ragged S padded to the
    chunk, with the same timings (no library call computes the scan);
 7. main paths 3 and 4, ``launch.serve.ProgressiveServer`` at the full
    width of llama3-8b and of mamba2-370m (random weights from a seed):
    prefill 4 x 1024 tokens (launch counts reset before it: 32 flash
-   launches, or 48 SSD launches), decode 16 tokens unbudgeted and 16 at
+   launches, all on the tensor-core kernel, or 48 SSD launches; then one
+   more prefill under ``torch.profiler`` for the kernel's share of the
+   prefill's device time and the kernels that take the most), decode 16 tokens unbudgeted and 16 at
    ``layer_budget=1``, and the decode step's logits at position S held
    against ``forward`` over S+1 tokens;
 8. main path 5, the ``deadline_ms`` mode with the head as runtime jobs on
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -68,7 +76,8 @@ PEAK_FP32_FLOPS = 67e12       # CUDA cores (no TF32: fp32 work stays fp32)
 PEAK_BYTES = 3.35e12
 
 #: Every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu).
-KERNEL_SOURCES = ["layered_matmul", "flash_attention", "ssd_scan"]
+KERNEL_SOURCES = ["layered_matmul", "flash_attention",
+                  "flash_attention_wgmma", "ssd_scan"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 MAMBA_PREFILL = dict(B=4, S=1024, H=32, P=64, N=128, chunk=256)
@@ -146,6 +155,22 @@ def random_ints(torch, gen, m: int, d: int, shape, dev):
                          dtype=torch.int32)
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: the kernel's
+    name and mangled template arguments, registers and spill bytes."""
+    out, name = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"entry function '.*?([a-z][a-z_]*_kernel)I(\w*?)E+v",
+                      line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
+        elif "spill" in line and out:
+            out[-1] += f"; {line.strip()}"
+    return out
+
+
 def phase_environment(torch, dev):
     from repro_torch.kernels import _build
     smi = subprocess.run(
@@ -155,15 +180,19 @@ def phase_environment(torch, dev):
     t0 = time.perf_counter()
     _build.build_all(KERNEL_SOURCES)
     wall = time.perf_counter() - t0
-    ptxas = [line.strip() for n in KERNEL_SOURCES
-             for line in _build.build_log[n]["ptxas"].splitlines()
-             if "registers" in line or "spill" in line]
     emit({"phase": "environment", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(dev),
           "capability": list(torch.cuda.get_device_capability(dev)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0],
-          "build_seconds": wall, "ptxas": ptxas})
+          "python": sys.version.split()[0], "build_seconds": wall,
+          "build_seconds_by_source": {
+              n: _build.build_log[n]["seconds"] for n in KERNEL_SOURCES},
+          "ptxas": [ptxas_summary(_build.build_log[n]["ptxas"])
+                    for n in KERNEL_SOURCES],
+          # ptxas's performance notes, e.g. C7520: every wgmma serialized
+          "ptxas_notes": [line.strip() for n in KERNEL_SOURCES
+                          for line in _build.build_log[n]["ptxas"].splitlines()
+                          if "(C75" in line]})
     return smi
 
 
@@ -361,15 +390,23 @@ def phase_flash_vs_plain(torch, dev):
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     L = LLAMA_PREFILL
+    bf, f32 = torch.bfloat16, torch.float32
+    # name: (B, S, H, kv, dh, causal, window, dtype, tolerance, kernel)
     cases = {
         "llama3_8b_prefill": (L["B"], L["S"], L["H"], L["kv"], L["dh"], True,
-                              None, torch.bfloat16, 2e-2),
-        "fp32_window64_s100": (2, 100, 8, 2, 64, True, 64, torch.float32,
-                               3e-5),
-        "noncausal_s8": (2, 8, 4, 4, 32, False, None, torch.float32, 3e-5),
+                              None, bf, 2e-2, fa.WGMMA),
+        "fp32_window64_s100": (2, 100, 8, 2, 64, True, 64, f32, 3e-5,
+                               fa.CUDA_CORE),
+        "noncausal_s8": (2, 8, 4, 4, 32, False, None, f32, 3e-5,
+                         fa.CUDA_CORE),
+        "bf16_window64_s100": (2, 100, 8, 2, 64, True, 64, bf, 2e-2,
+                               fa.WGMMA),
+        "bf16_noncausal_s8": (2, 8, 4, 4, 64, False, None, bf, 2e-2,
+                              fa.WGMMA),
     }
     rows = {}
-    for name, (B, S, H, kv, dh, causal, window, dtype, tol) in cases.items():
+    for name, (B, S, H, kv, dh, causal, window, dtype, tol,
+               kernel) in cases.items():
         q = torch.randn((B, S, H, dh), generator=gen, device=dev).to(dtype)
         k = torch.randn((B, S, kv, dh), generator=gen, device=dev).to(dtype)
         v = torch.randn((B, S, kv, dh), generator=gen, device=dev).to(dtype)
@@ -377,29 +414,68 @@ def phase_flash_vs_plain(torch, dev):
                                            window=window)
         plain = lambda: fa.flash_attention_gqa_plain(q, k, v, causal=causal,
                                                      window=window)
+        before = dict(fa.kernel_launches)
         got, want = call(), plain()
         torch.cuda.synchronize()
+        launched = [n for n in fa.KERNELS
+                    if fa.kernel_launches[n] != before[n]]
+        if launched != [kernel]:
+            raise AssertionError(f"{name}: launched {launched}, want "
+                                 f"{kernel}")
         err = (got.float() - want.float()).abs().max().item()
         if not err <= tol or not torch.isfinite(got).all():
             raise AssertionError(f"{name}: kernel differs from plain by "
                                  f"{err} (tolerance {tol})")
         row = {"shape": dict(B=B, S=S, H=H, kv=kv, dh=dh, causal=causal,
                              window=window, dtype=str(dtype)),
-               "max_abs_err": err, "tolerance": tol}
+               "kernel": kernel, "max_abs_err": err, "tolerance": tol}
         if name == "llama3_8b_prefill":
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             sdpa = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
             bound_ms, bound_by = flash_bound(B, S, S, H, kv, dh, causal,
                                              window, 2, PEAK_BF16_FLOPS)
+            # the plain version on fp32 inputs: the result before any
+            # rounding to bf16.  The plain bf16 output's RMS error against
+            # it is that rounding alone; the kernel's should match it
+            q32, k32, v32 = (t.float() for t in (q, k, v))
+            exact = fa.flash_attention_gqa_plain(q32, k32, v32,
+                                                 causal=causal,
+                                                 window=window).double()
+            rms = lambda t: (t.double() - exact).pow(2).mean().sqrt().item()
+            # the CUDA-core kernel at this shape, each output held against
+            # the plain version before it is timed: bf16 (its route before
+            # the tensor-core kernel) and fp32 (its route now)
+            cuda_core = lambda: fa._launch(q, k, v, causal, window,
+                                           kernel=fa.CUDA_CORE)
+            cuda_core_f32 = lambda: fa._launch(q32, k32, v32, causal, window)
+            core = {}
+            for label, fn, ref, core_tol in (
+                    ("cuda_core_bf16", cuda_core, want.double(), tol),
+                    ("cuda_core_fp32", cuda_core_f32, exact, 3e-5)):
+                core_err = (fn().double() - ref).abs().max().item()
+                if not core_err <= core_tol:
+                    raise AssertionError(f"{name}: {label} differs from "
+                                         f"plain by {core_err} (tolerance "
+                                         f"{core_tol})")
+                core[label] = {
+                    "max_abs_err": core_err, "tolerance": core_tol,
+                    "ms": cuda_ms(torch, fn, runs=5),
+                    "kernel_device_ms": device_ms(torch, fn,
+                                                  "flash_attention_kernel")}
             ms = cuda_ms(torch, call)
-            row.update(ms=ms,
-                       kernel_device_ms=device_ms(torch, call,
-                                                  "flash_attention_kernel"),
-                       plain_ms=cuda_ms(torch, plain, runs=5),
-                       library_ms=cuda_ms(torch, sdpa),
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       bound_share=bound_ms / ms)
+            row.update(
+                ms=ms,
+                kernel_device_ms=device_ms(torch, call,
+                                           "flash_attention_wgmma_kernel"),
+                plain_ms=cuda_ms(torch, plain, runs=5),
+                library_ms=cuda_ms(torch, sdpa),
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms,
+                rms_err_vs_fp32=rms(got), plain_rms_err_vs_fp32=rms(want),
+                share_differing_from_plain=(got != want).float().mean()
+                .item(), **core)
+            del q32, k32, v32, exact, qt, kt, vt
         rows[name] = row
         del q, k, v, got, want
         torch.cuda.empty_cache()
@@ -499,9 +575,31 @@ def _clone(tree):
     return tree.clone()
 
 
-def _serve(torch, dev, arch: str, kernel_module, want_launches: int):
-    """Serve ``arch`` at full width: prefill (launches counted), the decode
-    step against forward, 16 tokens unbudgeted and 16 at budget 1."""
+def prefill_device_profile(torch, fn, kernel: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device time of the
+    kernels whose name contains ``kernel`` (their count and ms), of every
+    kernel and copy of the call, and the eight that took the most (name
+    cut to 100 characters, count, ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+    mine = [e for e in rows if kernel in e.key]
+    top = sorted(rows, key=lambda e: -e.device_time_total)[:8]
+    return {"kernel_launches": sum(e.count for e in mine),
+            "kernel_device_ms": sum(e.device_time_total for e in mine) / 1e3,
+            "all_device_ms": sum(e.device_time_total for e in rows) / 1e3,
+            "top_device_ms": [(e.key[:100], e.count,
+                               e.device_time_total / 1e3) for e in top]}
+
+
+def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
+           want_kernel: str, kernel_name: str):
+    """Serve ``arch`` at full width: prefill (launches counted, all of
+    them of ``want_kernel``; then a profiled prefill for the device time of
+    the kernels named ``kernel_name``), the decode step against forward, 16
+    tokens unbudgeted and 16 at budget 1."""
     from repro_torch.configs import registry
     from repro_torch.core import progressive
     from repro_torch.kernels import flash_attention as fa
@@ -522,6 +620,7 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int):
     prompt = tokens[:, :S]
 
     fa.launches = ss.launches = lm.launches = 0
+    fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     last_logits, caches = server.prefill(prompt, max_len=S + 1 + G)
@@ -529,9 +628,17 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int):
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches,
                 "layered_matmul": lm.launches}
-    if kernel_module.launches != want_launches:
-        raise AssertionError(f"{arch}: prefill launched {launches}, want "
-                             f"{want_launches} of its kernel")
+    by_source = {"flash_attention": dict(fa.kernel_launches),
+                 "ssd_scan": {"ssd_scan": ss.launches},
+                 "layered_matmul": {"layered_matmul": lm.launches}}
+    mine = [c for counts in by_source.values() for c in counts.items()]
+    if (kernel_module.launches != want_launches
+            or dict(mine).get(want_kernel) != want_launches):
+        raise AssertionError(f"{arch}: prefill launched {by_source}, want "
+                             f"{want_launches} of {want_kernel}")
+    profiled = prefill_device_profile(
+        torch, lambda: server.prefill(prompt, max_len=S + 1 + G),
+        kernel_name)
     if (last_logits.shape != (B, cfg.vocab_size)
             or not torch.isfinite(last_logits).all()):
         raise AssertionError(f"{arch}: bad prefill logits "
@@ -583,6 +690,11 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int):
            "m": server.m, "d": server.d,
            "setup_seconds_init_params_and_head_planes": setup_s,
            "prefill_ms": prefill_ms, "launches_per_prefill": launches,
+           "launches_per_prefill_by_source": by_source,
+           "profiled_prefill": dict(
+               profiled, kernel=kernel_name,
+               kernel_share_of_device=(profiled["kernel_device_ms"]
+                                       / profiled["all_device_ms"])),
            "decode_vs_forward_rel_err": rel,
            "decode_vs_forward_tolerance": DECODE_TOL,
            "decode_vs_forward_argmax_agreement": argmax_agree,
@@ -597,14 +709,16 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int):
 
 def phase_serve_llama(torch, dev):
     from repro_torch.kernels import flash_attention as fa
-    row = _serve(torch, dev, "llama3-8b", fa, 32)
+    row = _serve(torch, dev, "llama3-8b", fa, 32, fa.WGMMA,
+                 "flash_attention_wgmma_kernel")
     emit(dict(phase="serve_llama3_8b", **row))
     return row
 
 
 def phase_serve_mamba(torch, dev):
     from repro_torch.kernels import ssd_scan as ss
-    row = _serve(torch, dev, "mamba2-370m", ss, 48)
+    row = _serve(torch, dev, "mamba2-370m", ss, 48, "ssd_scan",
+                 "ssd_scan_kernel")
     emit(dict(phase="serve_mamba2_370m", **row))
     return row
 
@@ -707,9 +821,11 @@ def main() -> int:
         if cmp_phase not in results or serve_phase not in results:
             continue
         row = results[cmp_phase][main_case]
+        by_source = results[serve_phase]["launches_per_prefill_by_source"]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": ", ".join(f"src/repro_torch/kernels/csrc/{src}.cu"
+                                for src, n in by_source[name].items() if n),
             "replaces": replaces,
             "launches": results[serve_phase]["launches_per_prefill"][name],
             "max_abs_err": max(r["max_abs_err"]

@@ -4,10 +4,11 @@ The package mirrors the JAX package's module names (``core``, ``kernels``,
 ``runtime``) and never imports JAX: every module it needs is carried here.
 Its entry points run on the GPU unless the caller asks for the CPU —
 functions on tensors follow the tensor's device, constructors that make
-tensors take ``device="cuda"`` by default.  The one hand-written kernel
-(``kernels/csrc/layered_matmul.cu``) is compiled for Hopper (``sm_90a``)
-at first use; on CPU tensors each kernel wrapper runs its plain PyTorch
-version instead.
+tensors take ``device="cuda"`` by default.  The hand-written kernels
+(``kernels/csrc/*.cu``: the layered int8 matmul, flash attention on the
+CUDA cores and on the tensor cores, the SSD chunk scan) are compiled for
+Hopper (``sm_90a``) at first use; on CPU tensors each kernel wrapper runs
+its plain PyTorch version instead.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Flash attention: CUDA kernel + plain version.
+"""Flash attention: two CUDA kernels + plain version.
 
 Port of the TPU kernel ``flash_attention_kernel_call``
 (``src/repro/kernels/flash_attention.py:85``): online-softmax attention
@@ -8,13 +8,27 @@ key blocks above the diagonal, an optional sliding window
 q's dtype.  Positions are the row indices: query ``i`` and key ``j`` sit
 at positions ``i`` and ``j``.
 
-On a CUDA tensor the wrappers launch the hand-written Hopper kernel
-``csrc/flash_attention.cu`` (one CTA per 64-row query tile, the key loop
-inside the block; see the source for what bounds it).  It reads GQA K/V
-in place through their strides, takes fp32 or bf16 and head dims that are
-multiples of 16 up to 128, and any ``Sq``/``Skv``.  On a CPU tensor the
-wrappers run :func:`flash_attention_plain`.  There is no fallback between
-the two: a CUDA tensor that the kernel cannot take raises.
+On a CUDA tensor the wrappers launch one of two hand-written Hopper
+kernels, chosen by :func:`kernel_for` from ``(dtype, head_dim)``:
+
+- ``flash_attention_wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16 with
+  head dims 64 and 128, the serving path (every published config the
+  kernel takes; the models compute in bf16).  Both products run on the
+  tensor cores (``wgmma``, fp32 accumulation; P V takes P as two bf16
+  halves, so the output is as close to the fp32 result as the plain
+  version's), K and V come by TMA through two-stage rings; bounded by
+  the tensor cores' bf16 rate.
+- ``flash_attention`` (``csrc/flash_attention.cu``): fp32 with head dims
+  16..128 in steps of 16, and bf16 with the other head dims.  Its math is
+  fp32 FMAs on the CUDA cores: fp32 inputs must hold the reference's 3e-5,
+  which TF32 would not, so fp32 never goes to the tensor cores.
+
+Both read GQA K/V in place through their strides and take any
+``Sq``/``Skv``; both are held against the same plain version.  On a CPU
+tensor the wrappers run :func:`flash_attention_plain`.  There is no
+fallback: a CUDA tensor that neither kernel takes raises, and so does a
+failed launch.  :data:`launches` counts every launch;
+:data:`kernel_launches` counts them per kernel.
 """
 
 from __future__ import annotations
@@ -27,19 +41,27 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["NEG_INF", "flash_attention_plain", "flash_attention_kernel_call",
-           "flash_attention_gqa", "flash_attention_gqa_plain", "launches"]
+__all__ = ["NEG_INF", "KERNELS", "kernel_for", "flash_attention_plain",
+           "flash_attention_kernel_call", "flash_attention_gqa",
+           "flash_attention_gqa_plain", "launches", "kernel_launches"]
 
 #: The TPU kernel's finite mask value (a fully masked row stays finite).
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
-#: Kernel launches so far (incremented only where the CUDA kernel is
-#: launched; a caller resets it to 0 to count one run).
-launches = 0
+#: The two kernels, by source name (``csrc/<name>.cu``).
+WGMMA = "flash_attention_wgmma"
+CUDA_CORE = "flash_attention"
+KERNELS = (WGMMA, CUDA_CORE)
 
-_SOURCE = "flash_attention"
+#: Kernel launches so far, of both kernels (incremented only where a CUDA
+#: kernel is launched; a caller resets it to 0 to count one run).
+launches = 0
+#: The same count per kernel; a caller resets each entry to 0 with it.
+kernel_launches = dict.fromkeys(KERNELS, 0)
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_bound = None
+_WGMMA_HEAD_DIMS = (64, 128)
+_bound: dict = {}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,20 +84,65 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bqk,bkd->bqd", p, v32).to(q.dtype)
 
 
-def _entry():
-    global _bound
-    if _bound is None:
-        fn = _build.load(_SOURCE).flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes ``(dtype, head_dim)`` on the card.
+
+    bf16 with head dim 64 or 128 -> :data:`WGMMA` (tensor cores); fp32
+    with head dims 16..128 in steps of 16, and bf16 with the other head
+    dims of that range -> :data:`CUDA_CORE`.  Raises ``TypeError`` for
+    another dtype and ``ValueError`` for another head dim.
+    """
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash attention kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    if head_dim % 16 or not 16 <= head_dim <= 128:
+        raise ValueError(f"flash attention kernels take head dims 16..128 "
+                         f"in steps of 16, got {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+        return WGMMA
+    return CUDA_CORE
+
+
+def _entry(name: str):
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), f"{name}_fwd")
+        # the CUDA-core entry takes a dtype code before the shape
+        head = [ctypes.c_int] * (7 if name == CUDA_CORE else 6)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + head
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _bound = fn
-    return _bound
+        _bound[name] = fn
+    return fn
 
 
-def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
-    """``(B, Sq, H, dh)`` q and ``(B, Skv, n_kv, dh)`` k/v on the card."""
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as TMA reads it: a 16-byte aligned base and (batch, seq, head)
+    strides that are multiples of 16 bytes and grow outwards.  Packed
+    ``(B, S, heads, dh)`` tensors pass as they are; others are copied."""
+    strides = [s for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1]
+    if (t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0
+                                       for s in strides)
+            and strides == sorted(strides, reverse=True)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, seq, head) element strides, a size-1 dim's stride set to
+    what a packed layout would give it (TMA checks every stride)."""
+    n, st = t.shape, t.stride()
+    head = st[2] if n[2] > 1 else n[3]
+    seq = st[1] if n[1] > 1 else head * n[2]
+    batch = st[0] if n[0] > 1 else seq * n[1]
+    return batch, seq, head
+
+
+def _launch(q, k, v, causal: bool, window: Optional[int],
+            kernel: Optional[str] = None) -> torch.Tensor:
+    """``(B, Sq, H, dh)`` q and ``(B, Skv, n_kv, dh)`` k/v on the card,
+    through ``kernel`` (default: :func:`kernel_for`'s choice)."""
     global launches
     dev = q.device
     B, Sq, H, dh = q.shape
@@ -83,30 +150,37 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     if k.device != dev or v.device != dev:
         raise ValueError(f"q, k, v on different devices: {dev}, {k.device}, "
                          f"{v.device}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"kernel takes head dims 16..128 in steps of 16, "
-                         f"got {dh}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    chosen = kernel_for(q.dtype, dh)
+    kernel = kernel or chosen
+    if kernel == WGMMA and chosen != WGMMA:
+        raise ValueError(f"{WGMMA} takes bfloat16 with head dims "
+                         f"{_WGMMA_HEAD_DIMS}, got {q.dtype}, {dh}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous along head_dim")
-    _build.require_hopper(dev, _SOURCE)
-    fn = _entry()
+    _build.require_hopper(dev, kernel)
+    if kernel == WGMMA:
+        q, k, v = (_tma_operand(t) for t in (q, k, v))
+    fn = _entry(kernel)
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
-                                         for s in t.stride()[:3]))
+                                         for s in _strides(t)))
+    head = () if kernel == WGMMA else (_DTYPE_CODE[q.dtype],)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[q.dtype], B, Sq, Skv, H, n_kv, dh, strides,
+                 *head, B, Sq, Skv, H, n_kv, dh, strides,
                  int(causal), 0 if window is None else int(window),
                  1.0 / math.sqrt(dh), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err} (B={B} Sq={Sq} Skv={Skv} H={H} "
-                           f"n_kv={n_kv} dh={dh})")
+        raise RuntimeError(f"{kernel} kernel launch failed: error {err} "
+                           f"(a CUDA error; 10000 + a CUresult: a TMA "
+                           f"tensor map was refused) (B={B} Sq={Sq} "
+                           f"Skv={Skv} H={H} n_kv={n_kv} dh={dh})")
     launches += 1
+    kernel_launches[kernel] += 1
     return out
 
 

@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import AttentionConfig
 
 __all__ = [
@@ -175,16 +176,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,
                 dtype: torch.dtype, extra_dims: tuple[int, ...] = (),
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str = "cuda") -> torch.Tensor:
+    """Weights on ``device`` (the card unless the caller asks for the CPU),
+    drawn from ``gen``, which must live there too."""
     shape = extra_dims + (d_in, d_out)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=resolve_device(device))
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
 def init_norm(d: int, dtype: torch.dtype, kind: str = "rmsnorm",
               extra_dims: tuple[int, ...] = (),
-              device: torch.device | str = "cpu") -> dict:
+              device: torch.device | str = "cuda") -> dict:
+    """Norm parameters on ``device`` (the card unless the caller asks for
+    the CPU)."""
     shape = extra_dims + (d,)
+    device = resolve_device(device)
     if kind == "rmsnorm":
         return {"scale": torch.zeros(shape, dtype=dtype, device=device)}
     return {"scale": torch.ones(shape, dtype=dtype, device=device),

@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
@@ -38,8 +39,11 @@ NGROUPS = 1  # B/C projection groups (Mamba2 default for these scales)
 
 def init_ssm_params(gen: torch.Generator, d_model: int, cfg: SSMConfig,
                     dtype: torch.dtype, extra_dims: tuple[int, ...] = (),
-                    device: torch.device | str = "cpu") -> dict:
-    """Projections split per stream (gate/x/B/C/dt), as the reference."""
+                    device: torch.device | str = "cuda") -> dict:
+    """Projections split per stream (gate/x/B/C/dt), as the reference, on
+    ``device`` (the card unless the caller asks for the CPU; ``gen`` must
+    live there too)."""
+    device = resolve_device(device)
     d_in = cfg.d_inner(d_model)
     H = cfg.num_heads(d_model)
     N = cfg.d_state
@@ -79,8 +83,10 @@ def init_ssm_params(gen: torch.Generator, d_model: int, cfg: SSMConfig,
 
 def init_ssm_cache(batch: int, d_model: int, cfg: SSMConfig,
                    dtype: torch.dtype,
-                   device: torch.device | str = "cpu") -> dict:
-    """Per-stream conv caches and the fp32 recurrent state."""
+                   device: torch.device | str = "cuda") -> dict:
+    """Per-stream conv caches and the fp32 recurrent state, on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     d_in = cfg.d_inner(d_model)
     H = cfg.num_heads(d_model)
     K = cfg.d_conv - 1

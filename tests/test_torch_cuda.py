@@ -123,28 +123,98 @@ FLASH_CASES = [
     (2, 257, 257, 8, 2, 128, True, 64, torch.bfloat16),  # GQA, ragged
     (1, 33, 77, 4, 2, 48, False, None, torch.float32),   # Sq != Skv
     (1, 8, 8, 4, 1, 16, False, None, torch.float32),
+    # bf16 on the tensor-core kernel (dh 64 and 128)
+    (1, 1024, 1024, 32, 8, 128, True, None, torch.bfloat16),  # llama3-8b
+    (1, 33, 77, 4, 2, 64, False, None, torch.bfloat16),  # Sq != Skv
+    (2, 300, 300, 4, 2, 128, True, 7, torch.bfloat16),   # first tiles masked
+    (1, 200, 200, 4, 2, 64, False, 7, torch.bfloat16),   # window, no causal
+    (2, 256, 256, 8, 1, 64, True, None, torch.bfloat16),  # kv = 1 (MQA)
+    (1, 257, 257, 4, 4, 128, True, None, torch.bfloat16),  # ragged
+    (2, 100, 100, 4, 2, 64, True, None, torch.bfloat16),   # ragged
+    (1, 77, 300, 4, 2, 128, True, None, torch.bfloat16),   # Sq < Skv
+    (1, 300, 130, 4, 2, 128, True, None, torch.bfloat16),  # Sq > Skv
+    # bf16 with another head dim stays on the CUDA-core kernel
+    (1, 100, 100, 4, 2, 32, True, None, torch.bfloat16),
 ]
+
+
+def _flash_inputs(rng, B, Sq, Skv, H, kv, dh, dtype, dev, q_scale=1.0):
+    q = torch.tensor(q_scale * rng.normal(size=(B, Sq, H, dh)), dtype=dtype,
+                     device=dev)
+    k = torch.tensor(rng.normal(size=(B, Skv, kv, dh)), dtype=dtype,
+                     device=dev)
+    v = torch.tensor(rng.normal(size=(B, Skv, kv, dh)), dtype=dtype,
+                     device=dev)
+    return q, k, v
+
+
+def _want_kernel(dtype, dh):
+    """The routing rule, written out: bf16 with dh 64/128 on the tensor
+    cores, everything else on the CUDA cores."""
+    from repro_torch.kernels import flash_attention as fa
+    if dtype == torch.bfloat16 and dh in (64, 128):
+        return fa.WGMMA
+    return fa.CUDA_CORE
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,kv,dh,causal,window,dtype", FLASH_CASES)
 def test_flash_kernel_matches_plain(rng, hopper, B, Sq, Skv, H, kv, dh,
                                     causal, window, dtype):
     from repro_torch.kernels import flash_attention as fa
-    q = torch.tensor(rng.normal(size=(B, Sq, H, dh)), dtype=dtype,
-                     device=hopper)
-    k = torch.tensor(rng.normal(size=(B, Skv, kv, dh)), dtype=dtype,
-                     device=hopper)
-    v = torch.tensor(rng.normal(size=(B, Skv, kv, dh)), dtype=dtype,
-                     device=hopper)
+    q, k, v = _flash_inputs(rng, B, Sq, Skv, H, kv, dh, dtype, hopper)
     before = fa.launches
+    per_kernel = dict(fa.kernel_launches)
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    want_kernel = _want_kernel(dtype, dh)
+    assert {n: fa.kernel_launches[n] - c for n, c in per_kernel.items()} == {
+        n: int(n == want_kernel) for n in fa.KERNELS}
     assert got.dtype == dtype and got.shape == (B, Sq, H, dh)
     want = fa.flash_attention_gqa_plain(q, k, v, causal=causal,
                                         window=window)
     tol = 2e-2 if dtype == torch.bfloat16 else 3e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dh,window", [(128, None), (64, 7)])
+def test_flash_wgmma_large_scores_rescale(rng, hopper, dh, window):
+    """q scaled by 8: scores spread over a wide range, so the running max
+    moves often and the online rescale carries the result."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(rng, 2, 512, 512, 8, 2, dh, torch.bfloat16,
+                            hopper, q_scale=8.0)
+    before = fa.kernel_launches[fa.WGMMA]
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches[fa.WGMMA] == before + 1
+    want = fa.flash_attention_gqa_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_wgmma_takes_strided_views(rng, hopper):
+    """q, k, v as views of (B, heads, S, dh) tensors, and v at an offset
+    that is no multiple of 16 bytes: the wrapper copies what TMA cannot
+    read, and the result is the same."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, kv, dh = 2, 200, 4, 2, 128
+    bf = torch.bfloat16
+    q = torch.tensor(rng.normal(size=(B, H, S, dh)), dtype=bf,
+                     device=hopper).transpose(1, 2)
+    k = torch.tensor(rng.normal(size=(B, kv, S, dh)), dtype=bf,
+                     device=hopper).transpose(1, 2)
+    flat = torch.tensor(rng.normal(size=(B * S * kv * dh + 1,)), dtype=bf,
+                        device=hopper)
+    v = flat[1:].view(B, S, kv, dh)
+    assert v.data_ptr() % 16 != 0
+    before = fa.kernel_launches[fa.WGMMA]
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches[fa.WGMMA] == before + 1
+    want = fa.flash_attention_gqa_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_kernel_call_bhsd_layout(rng, hopper):
@@ -154,6 +224,21 @@ def test_flash_kernel_call_bhsd_layout(rng, hopper):
     got = fa.flash_attention_kernel_call(q, k, v, causal=True, window=40)
     want = fa.flash_attention_plain(q, k, v, causal=True, window=40)
     torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+def test_flash_wgmma_kernel_call_bhsd_layout(rng, hopper):
+    """The TPU kernel's (BH, S, dh) layout in bf16 reaches the tensor-core
+    kernel as H = n_kv = 1."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (torch.tensor(rng.normal(size=(6, 96, 64)),
+                            dtype=torch.bfloat16, device=hopper)
+               for _ in range(3))
+    before = fa.kernel_launches[fa.WGMMA]
+    got = fa.flash_attention_kernel_call(q, k, v, causal=True, window=40)
+    assert fa.kernel_launches[fa.WGMMA] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=40)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(hopper):
@@ -223,7 +308,7 @@ def test_ssm_block_on_card_matches_host(rng, hopper, S):
     from repro_torch.models import ssm
     cfg = SSMConfig(d_state=128, head_dim=64, chunk_size=256)
     gen = torch.Generator().manual_seed(0)
-    p = ssm.init_ssm_params(gen, 128, cfg, torch.float32)
+    p = ssm.init_ssm_params(gen, 128, cfg, torch.float32, device="cpu")
     x = torch.tensor(rng.normal(size=(2, S, 128)), dtype=torch.float32)
     want, want_c = ssm.ssm_block(p, x, 128, cfg)
     pc = {n: t.to(hopper) for n, t in p.items()}

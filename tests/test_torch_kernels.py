@@ -311,6 +311,67 @@ def test_flash_cpu_path_never_counts_a_launch(rng):
         ops.flash_attention(q, q, q, window=0)
 
 
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 64, "flash_attention_wgmma"),
+    (torch.bfloat16, 128, "flash_attention_wgmma"),
+    (torch.bfloat16, 16, "flash_attention"),
+    (torch.bfloat16, 48, "flash_attention"),
+    (torch.bfloat16, 112, "flash_attention"),
+    (torch.float32, 64, "flash_attention"),
+    (torch.float32, 128, "flash_attention"),
+    (torch.float32, 16, "flash_attention"),
+])
+def test_flash_routing_by_dtype_and_head_dim(dtype, dh, want):
+    """bf16 with dh 64/128 goes to the tensor-core kernel; fp32 (whose 3e-5
+    TF32 would not hold) and the other bf16 head dims to the CUDA-core
+    kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.kernel_for(dtype, dh) == want
+    assert want in fa.KERNELS
+
+
+@pytest.mark.parametrize("dtype,dh,error", [
+    (torch.float16, 64, TypeError),
+    (torch.float64, 128, TypeError),
+    (torch.bfloat16, 256, ValueError),
+    (torch.float32, 24, ValueError),
+    (torch.bfloat16, 0, ValueError),
+])
+def test_flash_routing_rejects_what_neither_kernel_takes(dtype, dh, error):
+    from repro_torch.kernels import flash_attention as fa
+    with pytest.raises(error):
+        fa.kernel_for(dtype, dh)
+
+
+def test_flash_cpu_path_counts_no_launch_of_either_kernel(rng):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.from_numpy(rng.normal(size=(1, 8, 2, 64))).to(torch.bfloat16)
+    before = dict(fa.kernel_launches)
+    out = ops.flash_attention(q, q, q)
+    assert fa.kernel_launches == before and out.dtype == torch.bfloat16
+
+
+def test_flash_tma_operand_keeps_packed_tensors_and_copies_the_rest(rng):
+    """What the tensor-core route hands to TMA: packed (B, S, H, dh)
+    tensors as they are; transposed views and unaligned bases as packed
+    copies with the same values.  Size-1 dims get packed strides."""
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.from_numpy(rng.normal(size=(2, 5, 3, 64))).to(torch.bfloat16)
+    assert fa._tma_operand(x) is x
+    assert fa._strides(x) == (5 * 3 * 64, 3 * 64, 64)
+    view = x.transpose(1, 2).contiguous().transpose(1, 2)
+    copied = fa._tma_operand(view)
+    assert copied is not view and torch.equal(copied, view)
+    assert copied.stride() == x.stride()
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    moved = fa._tma_operand(shifted)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, x)
+    one = torch.zeros((1, 5, 1, 64), dtype=torch.bfloat16)
+    assert fa._strides(one) == (5 * 64, 64, 64)
+
+
 SSD_CASES = [
     (2, 48, 4, 8, 16, 16),
     (1, 64, 2, 16, 32, 32),

@@ -290,6 +290,36 @@ def test_init_params_defaults_to_cuda(monkeypatch):
     assert params["embed"].device.type == "cpu"
 
 
+def _helper_calls():
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.models import ssm
+    cfg = SSMConfig(d_state=16, head_dim=8, chunk_size=8)
+    gen = torch.Generator()
+    return {
+        "init_linear": lambda **kw: TL.init_linear(gen, 4, 8, torch.float32,
+                                                   **kw),
+        "init_norm": lambda **kw: TL.init_norm(8, torch.float32, **kw),
+        "init_ssm_params": lambda **kw: ssm.init_ssm_params(
+            gen, 32, cfg, torch.float32, **kw),
+        "init_ssm_cache": lambda **kw: ssm.init_ssm_cache(
+            2, 32, cfg, torch.float32, **kw),
+    }
+
+
+@pytest.mark.parametrize("helper", ["init_linear", "init_norm",
+                                    "init_ssm_params", "init_ssm_cache"])
+def test_init_helpers_default_to_cuda(monkeypatch, helper):
+    """The exported init helpers, like ``init_params``, make their tensors
+    on the card unless the caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _helper_calls()[helper]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    out = call(device="cpu")
+    tensors = out.values() if isinstance(out, dict) else [out]
+    assert all(t.device.type == "cpu" for t in tensors)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_cache_matches_jax_layout(arch):
     """Zero caches: the same nesting, shapes and dtypes as the JAX
