@@ -31,13 +31,21 @@ main paths and checks what comes out:
    route) and fp32, each held against the plain version before it is
    timed, the plain version's times, ``scaled_dot_product_attention``'s
    (``library_ms``, a yardstick the port never calls) and the bound;
-6. the SSD chunk-scan kernel against its plain version at the mamba2-370m
-   prefill shape, with an initial state, and with a ragged S padded to the
-   chunk, with the same timings (no library call computes the scan);
+6. the two SSD chunk-scan kernels against their plain version, in bf16
+   x/B/C as the model hands them over: the tensor-core kernel at the
+   mamba2-370m prefill shape, at one prompt (B=1), with an initial state,
+   with a ragged S padded to the chunk and with chunk 64, each case
+   checking which kernel launched; at the two prefill shapes its times
+   (the state and output passes apart too), the CUDA-core kernel on the
+   same bf16 inputs (its earlier route), held against the plain version
+   before it is timed, the plain version's times and the bounds at the
+   bf16 tensor-core and the fp32 rates (no library call computes the
+   scan);
 7. main paths 3 and 4, ``launch.serve.ProgressiveServer`` at the full
    width of llama3-8b and of mamba2-370m (random weights from a seed):
    prefill 4 x 1024 tokens (launch counts reset before it: 32 flash
-   launches, all on the tensor-core kernel, or 48 SSD launches; then one
+   launches, all on the tensor-core kernel, or 48 SSD launches, all on the
+   tensor-core kernel; then one
    more prefill under ``torch.profiler`` for the kernel's share of the
    prefill's device time and the kernels that take the most), decode 16 tokens unbudgeted and 16 at
    ``layer_budget=1``, and the decode step's logits at position S held
@@ -77,7 +85,7 @@ PEAK_BYTES = 3.35e12
 
 #: Every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu).
 KERNEL_SOURCES = ["layered_matmul", "flash_attention",
-                  "flash_attention_wgmma", "ssd_scan"]
+                  "flash_attention_wgmma", "ssd_scan", "ssd_scan_wgmma"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 MAMBA_PREFILL = dict(B=4, S=1024, H=32, P=64, N=128, chunk=256)
@@ -122,20 +130,21 @@ def cuda_ms(torch, fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
 
 
 def device_ms(torch, fn, kernel: str, runs: int = 10):
-    """Mean device time (ms) of the CUDA kernels whose name contains
-    ``kernel``, over ``runs`` calls under ``torch.profiler`` — the
-    kernel alone, without the host's launch cost.  None when the
-    profiler records no such kernel."""
+    """Device time (ms) per call of ``fn`` of the CUDA kernels whose name
+    contains ``kernel``, over ``runs`` calls under ``torch.profiler`` — the
+    kernels alone, without the host's launch cost: the mean time of each
+    such kernel, summed over the kernels a call launches (each once).  A
+    mean per kernel, not the total over ``runs``: the profiler may drop
+    some of a window's records.  None when it records no such kernel."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in rows)
-    if not count:
+    rows = [e for e in prof.key_averages() if kernel in e.key and e.count]
+    if not rows:
         return None
-    return sum(e.device_time_total for e in rows) / count / 1e3
+    return sum(e.device_time_total / e.count for e in rows) / 1e3
 
 
 def layered_bound(K: int, M: int, N: int, m: int) -> tuple[float, str]:
@@ -160,10 +169,10 @@ def ptxas_summary(log: str) -> list[str]:
     name and mangled template arguments, registers and spill bytes."""
     out, name = [], "?"
     for line in log.splitlines():
-        m = re.search(r"entry function '.*?([a-z][a-z_]*_kernel)I(\w*?)E+v",
-                      line)
+        m = re.search(r"entry function '.*?([a-z][a-z_]*_kernel)"
+                      r"(?:I(\w*?)E+v|E)", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
         elif "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and out:
@@ -484,20 +493,29 @@ def phase_flash_vs_plain(torch, dev):
     return rows
 
 
-def ssd_bound(B, nc, l, H, P, N):
+def ssd_bound(B, nc, l, H, P, N, peak):
     """Bound of one SSD scan (one B/C group, x/B/C in bf16, dt in fp32):
     per (batch, chunk) the scores C B^T once for all heads, on the
     l (l + 1) / 2 pairs i >= j (2 N flops each); per (batch, head, chunk)
     the masked scores times dt x on those pairs (2 P each), C state^T
-    and the state update (2 l N P each).  Each input read once, y and the
-    final state written once in fp32."""
+    and the state update (2 l N P each), at ``peak``: the bf16 tensor
+    cores' where every product can run exactly there (bf16 operands, the
+    fp32 ones split into bf16 terms), the CUDA cores' fp32 rate for the
+    fp32 kernel.  Each input read once, y and the final state written
+    once in fp32."""
     pairs = l * (l + 1) // 2
     flops = (2.0 * pairs * N * B * nc
              + (2.0 * pairs * P + 4.0 * l * N * P) * B * H * nc)
     S = nc * l
     nbytes = (2 * B * S * H * P + 4 * B * S * H + 4 * H + 2 * 2 * B * S * N
               + 4 * B * S * H * P + 4 * B * H * P * N)
-    return roofline(flops, nbytes, PEAK_FP32_FLOPS)
+    return roofline(flops, nbytes, peak)
+
+
+#: torch.profiler name substrings: the tensor-core kernel's two device
+#: kernels (state pass, output pass), and the CUDA-core kernel's one
+SSD_WGMMA_PROFILE = "ssd_wgmma_"
+SSD_CUDA_CORE_PROFILE = "ssd_scan_kernel"
 
 
 def phase_ssd_vs_plain(torch, dev):
@@ -508,13 +526,20 @@ def phase_ssd_vs_plain(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     M = MAMBA_PREFILL
     # (B, S, S padded, H, P, N, chunk, initial state); x/B/C in bf16 and
-    # dt in fp32, as the model's ssm_block hands them over
+    # dt in fp32, as the model's ssm_block hands them over.  Every case
+    # takes the tensor-core kernel; the two timed ones are the mamba2-370m
+    # prefill of 4 prompts and of one
     cases = {"mamba2_370m_prefill": (M["B"], M["S"], M["S"], M["H"], M["P"],
                                      M["N"], M["chunk"], False),
+             "one_prompt_b1": (1, M["S"], M["S"], M["H"], M["P"], M["N"],
+                               M["chunk"], False),
              "init_state": (2, 512, 512, M["H"], M["P"], M["N"], M["chunk"],
                             True),
              "ragged_s1000_padded": (2, 1000, 1024, 8, M["P"], M["N"],
-                                     M["chunk"], False)}
+                                     M["chunk"], False),
+             "chunk64_init_state": (2, 512, 512, 8, M["P"], M["N"], 64,
+                                    True)}
+    timed = ("mamba2_370m_prefill", "one_prompt_b1")
     tol = 1e-4
     rows = {}
     for name, (B, S, Sp, H, P, N, chunk, init) in cases.items():
@@ -530,36 +555,79 @@ def phase_ssd_vs_plain(torch, dev):
             pad = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, Sp - S))
             x, dt, Bm, Cm = map(pad, (x, dt, Bm, Cm))
         nc = Sp // chunk
+        chunked = (x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H),
+                   A, Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N))
         call = lambda: ops.ssd_scan_fused(x, dt, A, Bm, Cm, chunk=chunk,
                                           init_state=s0)
-        plain = lambda: ss.ssd_scan_plain(
-            x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H), A,
-            Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N), s0)
+        plain = lambda: ss.ssd_scan_plain(*chunked, s0)
+        before = dict(ss.kernel_launches)
         (y, st), (py, pst) = call(), plain()
         torch.cuda.synchronize()
+        launched = [n for n in ss.KERNELS
+                    if ss.kernel_launches[n] != before[n]]
+        if launched != [ss.WGMMA]:
+            raise AssertionError(f"{name}: launched {launched}, want "
+                                 f"{ss.WGMMA}")
         py = py.reshape(B, Sp, H, P)
-        err = max((y - py).abs().max().item(), (st - pst).abs().max().item())
+
+        def check(label, got_y, got_st):
+            """max |diff| of y and the state against the plain version,
+            after the reference's allclose(atol=1e-4, rtol=1e-4)."""
+            ok = (torch.allclose(got_y, py, atol=tol, rtol=tol)
+                  and torch.allclose(got_st, pst, atol=tol, rtol=tol))
+            err = max((got_y - py).abs().max().item(),
+                      (got_st - pst).abs().max().item())
+            if not ok or not torch.isfinite(got_y).all():
+                raise AssertionError(f"{name}: {label} differs from plain "
+                                     f"by {err} (atol = rtol = {tol})")
+            return err
+
+        err = check(ss.WGMMA, y, st)
         scale = max(py.abs().max().item(), pst.abs().max().item())
-        # 1e-4 as the reference's allclose(atol=1e-4, rtol=1e-4)
-        ok = (torch.allclose(y, py, atol=tol, rtol=tol)
-              and torch.allclose(st, pst, atol=tol, rtol=tol))
-        if not ok or not torch.isfinite(y).all():
-            raise AssertionError(f"{name}: kernel differs from plain by "
-                                 f"{err} (atol = rtol = {tol})")
         row = {"shape": dict(B=B, S=S, S_padded=Sp, H=H, P=P, N=N,
                              chunk=chunk, init_state=init),
-               "max_abs_err": err, "max_abs_value": scale, "atol_rtol": tol}
-        if name == "mamba2_370m_prefill":
-            bound_ms, bound_by = ssd_bound(B, nc, chunk, H, P, N)
+               "kernel": ss.WGMMA, "max_abs_err": err,
+               "max_abs_value": scale, "atol_rtol": tol}
+        if name in timed:
+            bound_ms, bound_by = ssd_bound(B, nc, chunk, H, P, N,
+                                           PEAK_BF16_FLOPS)
+            fp32_bound_ms, _ = ssd_bound(B, nc, chunk, H, P, N,
+                                         PEAK_FP32_FLOPS)
+            # the CUDA-core kernel on the same bf16 inputs, widened to
+            # fp32 inside the timed call as its route before the
+            # tensor-core kernel did, held against the plain version
+            # before it is timed
+            cx, cdt, cA, cB, cC = chunked
+            core = lambda: ss.ssd_scan_kernel_call(
+                cx.float(), cdt, cA, cB.float(), cC.float(), init_state=s0)
+            before_core = ss.kernel_launches[ss.CUDA_CORE]
+            core_y, core_st = core()
+            torch.cuda.synchronize()
+            if ss.kernel_launches[ss.CUDA_CORE] == before_core:
+                raise AssertionError(f"{name}: the fp32 inputs did not "
+                                     f"launch {ss.CUDA_CORE}")
+            core_err = check(ss.CUDA_CORE,
+                             core_y.reshape(B, Sp, H, P), core_st)
             ms = cuda_ms(torch, call)
-            row.update(ms=ms,
-                       kernel_device_ms=device_ms(torch, call,
-                                                  "ssd_scan_kernel"),
-                       plain_ms=cuda_ms(torch, plain, runs=5),
-                       library_ms=None, bound_ms=bound_ms,
-                       bound_by=bound_by, bound_share=bound_ms / ms)
+            dev_ms = device_ms(torch, call, SSD_WGMMA_PROFILE)
+            row.update(
+                ms=ms, kernel_device_ms=dev_ms,
+                state_pass_device_ms=device_ms(torch, call,
+                                               "ssd_wgmma_state_kernel"),
+                output_pass_device_ms=device_ms(torch, call,
+                                                "ssd_wgmma_output_kernel"),
+                plain_ms=cuda_ms(torch, plain, runs=5),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms,
+                bound_share_of_device_ms=bound_ms / dev_ms,
+                cuda_core_bf16={
+                    "max_abs_err": core_err, "ms": cuda_ms(torch, core),
+                    "kernel_device_ms": device_ms(torch, core,
+                                                  SSD_CUDA_CORE_PROFILE),
+                    "fp32_bound_ms": fp32_bound_ms})
+            del core_y, core_st
         rows[name] = row
-        del x, dt, Bm, Cm, y, st, py, pst
+        del x, dt, Bm, Cm, y, st, py, pst, chunked
         torch.cuda.empty_cache()
     emit({"phase": "ssd_scan_vs_plain", "timed_runs": TIMED_RUNS,
           "calls_per_run": REPS, "cases": rows})
@@ -621,6 +689,7 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
 
     fa.launches = ss.launches = lm.launches = 0
     fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
+    ss.kernel_launches.update(dict.fromkeys(ss.KERNELS, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     last_logits, caches = server.prefill(prompt, max_len=S + 1 + G)
@@ -629,7 +698,7 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
     launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches,
                 "layered_matmul": lm.launches}
     by_source = {"flash_attention": dict(fa.kernel_launches),
-                 "ssd_scan": {"ssd_scan": ss.launches},
+                 "ssd_scan": dict(ss.kernel_launches),
                  "layered_matmul": {"layered_matmul": lm.launches}}
     mine = [c for counts in by_source.values() for c in counts.items()]
     if (kernel_module.launches != want_launches
@@ -717,8 +786,10 @@ def phase_serve_llama(torch, dev):
 
 def phase_serve_mamba(torch, dev):
     from repro_torch.kernels import ssd_scan as ss
-    row = _serve(torch, dev, "mamba2-370m", ss, 48, "ssd_scan",
-                 "ssd_scan_kernel")
+    # two device kernels per scan (state pass, output pass): the profile
+    # counts 96 of them for the 48 launches
+    row = _serve(torch, dev, "mamba2-370m", ss, 48, ss.WGMMA,
+                 SSD_WGMMA_PROFILE)
     emit(dict(phase="serve_mamba2_370m", **row))
     return row
 
@@ -822,10 +893,12 @@ def main() -> int:
             continue
         row = results[cmp_phase][main_case]
         by_source = results[serve_phase]["launches_per_prefill_by_source"]
+        # every source of the kernel, the one the main path launched first
+        sources = sorted(by_source[name], key=lambda s: -by_source[name][s])
         kernels.append({
             "name": name, "route": "cuda",
             "source": ", ".join(f"src/repro_torch/kernels/csrc/{src}.cu"
-                                for src, n in by_source[name].items() if n),
+                                for src in sources),
             "replaces": replaces,
             "launches": results[serve_phase]["launches_per_prefill"][name],
             "max_abs_err": max(r["max_abs_err"]

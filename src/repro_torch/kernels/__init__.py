@@ -10,8 +10,11 @@
                     other head dims on the CUDA cores; replaces
                     repro/kernels/flash_attention.py)
   ssd_scan          the fused Mamba2 SSD chunk scan with carried state
-                    (CUDA C++, csrc/ssd_scan.cu; replaces
-                    repro/kernels/ssd_scan.py)
+                    (CUDA C++, two kernels routed by dtype and shape:
+                    csrc/ssd_scan_wgmma.cu, bf16 x/B/C with P 64, N 128
+                    and chunks of 64..256 on the tensor cores;
+                    csrc/ssd_scan.cu, fp32 and the other shapes on the
+                    CUDA cores; replaces repro/kernels/ssd_scan.py)
 ops.py holds the public wrappers, ref.py the NumPy oracles, _build.py the
 nvcc build step.
 """

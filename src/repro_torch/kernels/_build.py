@@ -7,8 +7,9 @@ interface, under ``kernels/_build/`` (git-ignored), and is loaded with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source and flags, so an edited
-kernel is never served from a stale build.  A failed build raises
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel is never served from
+a stale build.  A failed build raises
 :class:`KernelBuildError`; there is no fallback.  :func:`build_all`
 starts one ``nvcc`` per source at once, so a program that needs several
 kernels pays for the slowest build, not the sum.
@@ -58,7 +59,11 @@ def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise KernelBuildError(f"no kernel source {src}")
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers too: a source that includes one is stale after it
+    # changes
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -39,8 +39,9 @@
 // the tile in registers and 16-byte shared-memory loads along N.  Only
 // B * H CTAs run (128 at B=4 on 132 SMs, one per SM at this shared-memory
 // size): the scores C B^T, shared by all heads of a batch row, are
-// recomputed by each head's CTA.  A chunk-parallel state pass and tensor
-// cores are later work.
+// recomputed by each head's CTA.  bf16 inputs at the mamba2 widths take
+// the tensor-core kernel beside this one (ssd_scan_wgmma.cu); this kernel
+// keeps fp32 and the other shapes.
 //
 // Plain C interface (bound with ctypes): pointers and the stream are
 // passed as void*, and the entry returns cudaGetLastError() after launch.

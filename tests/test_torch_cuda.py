@@ -260,6 +260,19 @@ SSD_CASES = [
     (2, 300, 2, 64, 128, 100, False),     # chunk not a multiple of 64
 ]
 
+#: bf16 x/B/C, as the model hands them over: (B, S, S padded, H, P, N,
+#: chunk, with init_state).  The tensor-core kernel takes P = 64, N = 128
+#: and chunks of 64..256 in steps of 64; the last case stays on the
+#: CUDA-core kernel.
+SSD_BF16_CASES = [
+    (1, 512, 512, 4, 64, 128, 256, False),  # mamba2-370m head and state
+    (1, 512, 512, 4, 64, 128, 256, True),
+    (2, 256, 256, 4, 64, 128, 64, False),   # chunk 64
+    (1, 512, 512, 2, 64, 128, 128, True),   # chunk 128
+    (2, 300, 512, 2, 64, 128, 256, False),  # ragged S padded with dt = 0
+    (2, 300, 300, 2, 64, 128, 100, False),  # chunk 100: CUDA-core kernel
+]
+
 
 def _ssd_inputs(rng, B, S, H, P, N, dev, init):
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
@@ -271,22 +284,57 @@ def _ssd_inputs(rng, B, S, H, P, N, dev, init):
             t(rng.normal(size=(B, H, P, N))) if init else None)
 
 
-@pytest.mark.parametrize("B,S,H,P,N,chunk,init", SSD_CASES)
-def test_ssd_kernel_matches_plain(rng, hopper, B, S, H, P, N, chunk, init):
+def _ssd_check(x, dt, A, Bm, Cm, s0, chunk, want_kernel):
+    """One call of the ops wrapper on the card: exactly one launch, of
+    ``want_kernel``, and y and the final state against the plain version
+    on the same inputs at the reference's atol = rtol = 1e-4."""
     from repro_torch.kernels import ssd_scan as ss
-    x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, B, S, H, P, N, hopper, init)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
     before = ss.launches
+    per_kernel = dict(ss.kernel_launches)
     y, state = ops.ssd_scan_fused(x, dt, A, Bm, Cm, chunk=chunk,
                                   init_state=s0)
     torch.cuda.synchronize()
     assert ss.launches == before + 1
+    assert {n: ss.kernel_launches[n] - c for n, c in per_kernel.items()} == {
+        n: int(n == want_kernel) for n in ss.KERNELS}
     nc = S // chunk
     want_y, want_s = ss.ssd_scan_plain(
         x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H), A,
         Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N), s0)
+    assert y.dtype == state.dtype == torch.float32
     torch.testing.assert_close(y, want_y.reshape(B, S, H, P), atol=1e-4,
                                rtol=1e-4)
     torch.testing.assert_close(state, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init", SSD_CASES)
+def test_ssd_kernel_matches_plain(rng, hopper, B, S, H, P, N, chunk, init):
+    """fp32 inputs stay on the CUDA-core kernel (ssd_scan.cu)."""
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, B, S, H, P, N, hopper, init)
+    _ssd_check(x, dt, A, Bm, Cm, s0, chunk, ss.CUDA_CORE)
+
+
+@pytest.mark.parametrize("B,S,Sp,H,P,N,chunk,init", SSD_BF16_CASES)
+def test_ssd_bf16_kernel_matches_plain(rng, hopper, B, S, Sp, H, P, N, chunk,
+                                       init):
+    """bf16 x/B/C on the tensor-core kernel (ssd_scan_wgmma.cu) where it
+    takes the shape, held against the plain version on the same bf16
+    inputs; a ragged S is padded to the chunk as ``ssm_block`` pads it,
+    with dt = 0 on the padded steps."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, B, S, H, P, N, hopper, init)
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    if Sp > S:
+        pad = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, Sp - S))
+        x, dt, Bm, Cm = map(pad, (x, dt, Bm, Cm))
+    _ssd_check(x, dt, A, Bm, Cm, s0, chunk, ss.kernel_for(x.dtype, P, N,
+                                                           chunk))
+    assert (ss.kernel_for(x.dtype, P, N, chunk) == ss.WGMMA) == (chunk != 100)
 
 
 def test_ssd_kernel_rejects_a_state_too_large(hopper):
@@ -297,14 +345,40 @@ def test_ssd_kernel_rejects_a_state_too_large(hopper):
     with pytest.raises(ValueError, match="d_state"):
         ss.ssd_scan_kernel_call(x, dt, torch.zeros(1, device=hopper), big,
                                 big)
+    # float16, which neither kernel takes, raises too; nothing launched
+    before = dict(ss.kernel_launches)
+    h = torch.zeros((1, 1, 64, 1, 64), dtype=torch.float16, device=hopper)
+    bc = torch.zeros((1, 1, 64, 128), dtype=torch.float16, device=hopper)
+    with pytest.raises(TypeError):
+        ss.ssd_scan_kernel_call(h, torch.zeros((1, 1, 64, 1), device=hopper),
+                                torch.zeros(1, device=hopper), bc, bc)
+    assert ss.kernel_launches == before
+
+
+def test_ssd_wgmma_takes_strided_and_unaligned_inputs(rng, hopper):
+    """x as a view of a (B, H, S, P) tensor and B at an offset that is no
+    multiple of 16 bytes: the wrapper packs what TMA cannot read, and the
+    result is the plain version's."""
+    from repro_torch.kernels import ssd_scan as ss
+    B, S, H, P, N, chunk = 2, 256, 4, 64, 128, 128
+    bf = torch.bfloat16
+    x = torch.tensor(rng.normal(size=(B, H, S, P)), dtype=bf,
+                     device=hopper).transpose(1, 2)
+    _, dt, A, _, Cm, _ = _ssd_inputs(rng, B, S, H, P, N, hopper, False)
+    flat = torch.tensor(rng.normal(size=(B * S * N + 1,)), dtype=bf,
+                        device=hopper)
+    Bm = flat[1:].view(B, S, 1, N)
+    assert Bm.data_ptr() % 16 != 0 and not x.is_contiguous()
+    _ssd_check(x, dt, A, Bm, Cm.to(bf), None, chunk, ss.WGMMA)
 
 
 @pytest.mark.parametrize("S", [20, 300])
 def test_ssm_block_on_card_matches_host(rng, hopper, S):
     """The Mamba2 block through the kernel (with the sequence padded to a
     chunk multiple at S=300, chunk 256) agrees with the host's plain
-    scan."""
+    scan.  In fp32 the scan stays on the CUDA-core kernel."""
     from repro_torch.configs.base import SSMConfig
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import ssm
     cfg = SSMConfig(d_state=128, head_dim=64, chunk_size=256)
     gen = torch.Generator().manual_seed(0)
@@ -312,10 +386,41 @@ def test_ssm_block_on_card_matches_host(rng, hopper, S):
     x = torch.tensor(rng.normal(size=(2, S, 128)), dtype=torch.float32)
     want, want_c = ssm.ssm_block(p, x, 128, cfg)
     pc = {n: t.to(hopper) for n, t in p.items()}
+    before = ss.kernel_launches[ss.CUDA_CORE]
     got, got_c = ssm.ssm_block(pc, x.to(hopper), 128, cfg)
+    assert ss.kernel_launches[ss.CUDA_CORE] == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got_c["state"].cpu(), want_c["state"],
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("S", [300, 1024])
+def test_ssm_block_bf16_on_card_matches_host(rng, hopper, S):
+    """The Mamba2 block in bf16 (the serving dtype), whose scan takes the
+    tensor-core kernel on the card, against the host's plain block.  The
+    block rounds the scan's fp32 output to bf16 before the gate, the norm
+    and the output projection, and the card's bf16 GEMMs and convolution
+    round at other places than the host's, so the two differ by a few bf16
+    steps (2^-8 = 3.9e-3 relative each): a tolerance of 3e-2.  The final
+    state is fp32 but is computed from those bf16 streams: 1e-2."""
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ssm
+    cfg = SSMConfig(d_state=128, head_dim=64, chunk_size=256)
+    gen = torch.Generator().manual_seed(0)
+    p = ssm.init_ssm_params(gen, 128, cfg, torch.float32, device="cpu")
+    x = torch.tensor(rng.normal(size=(2, S, 128)), dtype=torch.bfloat16)
+    want, want_c = ssm.ssm_block(p, x, 128, cfg)
+    pc = {n: t.to(hopper) for n, t in p.items()}
+    before = ss.kernel_launches[ss.WGMMA]
+    got, got_c = ssm.ssm_block(pc, x.to(hopper), 128, cfg)
+    torch.cuda.synchronize()
+    assert ss.kernel_launches[ss.WGMMA] == before + 1
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+    torch.testing.assert_close(got_c["state"].cpu(), want_c["state"],
+                               atol=1e-2, rtol=1e-2)
 
 
 def _to(tree, dev):

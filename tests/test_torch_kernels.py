@@ -450,3 +450,149 @@ def test_ssd_kernel_call_layout_and_shape_checks(rng):
                                 Cm.reshape(1, 2, 16, 8))
     with pytest.raises(ValueError, match="not divisible"):
         ops.ssd_scan_fused(x, dt, A, Bm, Cm, chunk=12)
+
+
+@pytest.mark.parametrize("dtype,P,N,chunk,want", [
+    (torch.bfloat16, 64, 128, 64, "ssd_scan_wgmma"),
+    (torch.bfloat16, 64, 128, 128, "ssd_scan_wgmma"),
+    (torch.bfloat16, 64, 128, 256, "ssd_scan_wgmma"),
+    (torch.float32, 64, 128, 256, "ssd_scan"),
+    (torch.float32, 64, 128, 64, "ssd_scan"),
+    (torch.bfloat16, 64, 128, 100, "ssd_scan"),
+    (torch.bfloat16, 64, 128, 512, "ssd_scan"),
+    (torch.bfloat16, 32, 128, 256, "ssd_scan"),
+    (torch.bfloat16, 64, 64, 256, "ssd_scan"),
+])
+def test_ssd_routing_by_dtype_and_shape(dtype, P, N, chunk, want):
+    """bf16 x/B/C with mamba2's P = 64, N = 128 and a chunk of 64..256 in
+    steps of 64 go to the tensor-core kernel; fp32 (1e-4 on fp32 inputs)
+    and the other bf16 shapes to the CUDA-core kernel."""
+    from repro_torch.kernels import ssd_scan as ss
+    assert ss.kernel_for(dtype, P, N, chunk) == want
+    assert want in ss.KERNELS
+
+
+@pytest.mark.parametrize("dtype,P,N,error", [
+    (torch.float16, 64, 128, TypeError),
+    (torch.float64, 64, 128, TypeError),
+    (torch.bfloat16, 64, 256, ValueError),
+    (torch.float32, 128, 128, ValueError),
+    (torch.bfloat16, 64, 126, ValueError),
+])
+def test_ssd_routing_rejects_what_neither_kernel_takes(dtype, P, N, error):
+    from repro_torch.kernels import ssd_scan as ss
+    with pytest.raises(error):
+        ss.kernel_for(dtype, P, N, 256)
+
+
+def test_ssd_cpu_path_counts_no_launch_of_either_kernel(rng):
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, Bm, Cm = map(torch.from_numpy,
+                           _ssd_inputs(rng, 1, 128, 2, 64, 128))
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    before, per_kernel = ss.launches, dict(ss.kernel_launches)
+    y, state = ops.ssd_scan_fused(x, dt, A, Bm, Cm, chunk=64)
+    assert ss.launches == before and ss.kernel_launches == per_kernel
+    assert y.dtype == state.dtype == torch.float32
+
+
+def test_ssd_bf16_inputs_match_jax_interpret(rng):
+    """bf16 x/B/C, as the model hands them to the scan, at mamba2's head
+    and state widths: the port's wrapper on the host against the JAX
+    package's Pallas kernel in interpret mode on the same values."""
+    args = list(_ssd_inputs(rng, 1, 256, 2, 64, 128))
+    for i in (0, 3, 4):           # x, B, C rounded to bf16 for both sides
+        args[i] = torch.from_numpy(args[i]).to(torch.bfloat16)
+    want_y, want_s = jops.ssd_scan_fused(
+        *(jnp.asarray(a.float().numpy() if torch.is_tensor(a) else a)
+          for a in args), chunk=64, interpret=True)
+    got_y, got_s = ops.ssd_scan_fused(
+        *(a if torch.is_tensor(a) else torch.from_numpy(a) for a in args),
+        chunk=64)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _bf16_terms(v, terms):
+    """``v`` as ``terms`` bf16 values, each the rounded rest of the ones
+    before it: the tensor-core SSD kernel's split of an fp32 operand."""
+    out = []
+    for _ in range(terms):
+        t = v.to(torch.bfloat16).to(torch.float32)
+        out.append(t)
+        v = v - t
+    return out
+
+
+def _split_scan(x, dt, A, Bm, Cm, init, terms):
+    """The tensor-core SSD kernel's arithmetic in plain PyTorch, in its two
+    passes: every product whose operands are bf16 (C B^T) as it is; each
+    product with an fp32 operand (W = (C B^T) o L o dt_j against x, C
+    against the state, x o dt exp(acum[-1] - acum) against B) once per bf16
+    term of that operand, the products summed in fp32.  ``terms`` gives the
+    number of terms of W, of the state and of x o w, in that order."""
+    t_w, t_state, t_xw = terms
+    f32 = torch.float32
+    Bsz, nc, l, H, P = x.shape
+    x, Bm, Cm = (t.to(f32) for t in (x, Bm, Cm))
+    causal = torch.tril(torch.ones((l, l), dtype=torch.bool))
+    state = (torch.zeros((Bsz, H, P, Bm.shape[-1]), dtype=f32)
+             if init is None else init.clone())
+    states, acums = [], []
+    for c in range(nc):                       # pass 1: the state
+        states.append(state)
+        acum = torch.cumsum(A * dt[:, c], dim=1)                   # (B, l, H)
+        acums.append(acum)
+        w = dt[:, c] * torch.exp(acum[:, -1:] - acum)
+        contrib = sum(torch.einsum("bjhp,bjn->bhpn", t, Bm[:, c])
+                      for t in _bf16_terms(x[:, c] * w[..., None], t_xw))
+        state = state * torch.exp(acum[:, -1])[:, :, None, None] + contrib
+    ys = []
+    for c in range(nc):                       # pass 2: the outputs
+        acum = acums[c]
+        diff = acum[:, :, None, :] - acum[:, None, :, :]           # (B,i,j,H)
+        L = torch.where(causal[None, :, :, None], torch.exp(diff),
+                        torch.zeros((), dtype=f32))
+        S = torch.einsum("bin,bjn->bij", Cm[:, c], Bm[:, c])
+        W = S[..., None] * L * dt[:, c][:, None]
+        y = sum(torch.einsum("bijh,bjhp->bihp", t, x[:, c])
+                for t in _bf16_terms(W, t_w))
+        y_off = sum(torch.einsum("bin,bhpn->bihp", Cm[:, c], t)
+                    for t in _bf16_terms(states[c], t_state))
+        ys.append(y + y_off * torch.exp(acum)[..., None])
+    return torch.stack(ys, dim=1), state
+
+
+@pytest.mark.parametrize("terms,init,holds", [
+    ((3, 3, 3), False, True), ((3, 3, 3), True, True),
+    ((1, 1, 1), False, False), ((1, 1, 1), True, False),
+    ((3, 2, 2), False, True), ((3, 2, 2), True, True)])
+def test_ssd_bf16_split_error_budget(terms, init, holds):
+    """The tensor-core kernel's error budget, on the host: with each fp32
+    operand split into three bf16 terms (the kernel's choice), the scan at
+    mamba2's head and state widths (B=1, S=512, H=2, P=64, N=128, chunk
+    256) matches the plain version on the same bf16 inputs within the
+    card's atol = rtol = 1e-4; with one term it does not.  Two terms for
+    the state products (C s^T and (x o w)^T B) hold it too.  Inputs are
+    drawn as ``chip_smoke.py`` draws them."""
+    from repro_torch.kernels import ssd_scan as ss
+    r = np.random.default_rng(3)
+    B, S, H, P, N, chunk = 1, 512, 2, 64, 128, 256
+    nc = S // chunk
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    x = bf(r.normal(size=(B, nc, chunk, H, P)))
+    dt = torch.from_numpy(
+        r.uniform(0.01, 0.2, size=(B, nc, chunk, H)).astype(np.float32))
+    A = -torch.from_numpy(r.uniform(0.5, 2.0, size=(H,)).astype(np.float32))
+    Bm = bf(r.normal(size=(B, nc, chunk, N)))
+    Cm = bf(r.normal(size=(B, nc, chunk, N)))
+    s0 = (torch.from_numpy(r.normal(size=(B, H, P, N)).astype(np.float32))
+          if init else None)
+    want_y, want_s = ss.ssd_scan_plain(x, dt, A, Bm, Cm, s0)
+    got_y, got_s = _split_scan(x, dt, A, Bm, Cm, s0, terms)
+    close = (torch.allclose(got_y, want_y, atol=1e-4, rtol=1e-4)
+             and torch.allclose(got_s, want_s, atol=1e-4, rtol=1e-4))
+    assert close == holds, (terms, (got_y - want_y).abs().max().item(),
+                            (got_s - want_s).abs().max().item())
