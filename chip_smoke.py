@@ -8,16 +8,20 @@ builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 main paths and checks what comes out:
 
 1. environment: card name and power limit, torch/CUDA versions, build time;
-2. the layered int8 matmul kernel against its plain PyTorch version on the
-   card, bit-exactly, at the llama3-8b LM-head contraction (K=4096, M=64,
-   N=128256), a square 4096^3 and a ragged m=3 case, with CUDA-event
-   medians of the kernel, the plain version and (as a reference point
-   only) m^2 int8 ``torch._int_mm`` calls, the kernel's device time from
-   ``torch.profiler``, and the kernel's bound;
+2. the two layered int8 matmul kernels against their plain PyTorch
+   version on the card, bit-exactly: the tensor-core (wgmma) kernel at the
+   llama3-8b LM-head contraction (K=4096, M=64, N=128256), a square
+   4096^3 and a ragged m=3 case, each case checking which kernel
+   launched, with CUDA-event medians of the kernel, the plain version and
+   (as a reference point only) m^2 int8 ``torch._int_mm`` calls, the
+   kernel's device time from ``torch.profiler``, and the kernel's bound;
+   at the head and square shapes also the mma.sync kernel (its earlier
+   route), held against the plain version before it is timed;
 3. main path 1, ``kernels.ops.layered_matmul`` at the LM-head contraction
-   (launch counts reset before it and read after it; then the medians of
-   the whole wrapper and of its plane preparation of W), and the fused
-   wrapper against the int64 NumPy oracle at a mid size;
+   (launch counts reset before it and read after it: one launch, of the
+   tensor-core kernel; then the medians of the whole wrapper and of its
+   plane preparation of W), and the fused wrapper against the int64
+   NumPy oracle at a mid size;
 4. main path 2, the coded runtime on the ``cuda`` worker backend: a
    verified run, then a full-width K=M=N=4096 run whose released final
    resolutions are held against the exact float64 product on the card;
@@ -84,8 +88,9 @@ PEAK_FP32_FLOPS = 67e12       # CUDA cores (no TF32: fp32 work stays fp32)
 PEAK_BYTES = 3.35e12
 
 #: Every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu).
-KERNEL_SOURCES = ["layered_matmul", "flash_attention",
-                  "flash_attention_wgmma", "ssd_scan", "ssd_scan_wgmma"]
+KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul",
+                  "flash_attention", "flash_attention_wgmma", "ssd_scan",
+                  "ssd_scan_wgmma"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 MAMBA_PREFILL = dict(B=4, S=1024, H=32, P=64, N=128, chunk=256)
@@ -166,17 +171,20 @@ def random_ints(torch, gen, m: int, d: int, shape, dev):
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from ``nvcc -Xptxas -v``: the kernel's
-    name and mangled template arguments, registers and spill bytes."""
-    out, name = [], "?"
+    name and mangled template arguments, registers and spill bytes (ptxas
+    prints a kernel's spills before its registers)."""
+    out, name, spill = [], "?", ""
     for line in log.splitlines():
         m = re.search(r"entry function '.*?([a-z][a-z_]*_kernel)"
                       r"(?:I(\w*?)E+v|E)", line)
         if m:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
         elif "registers" in line:
-            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
-        elif "spill" in line and out:
-            out[-1] += f"; {line.strip()}"
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}"
+                       + (f"; {spill}" if spill else ""))
     return out
 
 
@@ -205,41 +213,73 @@ def phase_environment(torch, dev):
     return smi
 
 
+#: torch.profiler name substrings of the two layered-matmul kernels
+LM_PROFILE = {"layered_matmul_wgmma": "layered_matmul_wgmma_kernel",
+              "layered_matmul": "layered_matmul_kernel"}
+
+
 def phase_kernel_vs_plain(torch, dev):
     from repro_torch.kernels import layered_matmul as lm
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
-    for name, s in (("llama3_8b_head", HEAD), ("square_4096", SQUARE),
-                    ("ragged_m3", RAGGED)):
+    # name: (shape, the kernel it launches, whether the mma.sync kernel is
+    # timed beside it)
+    for name, s, kernel, earlier in (
+            ("llama3_8b_head", HEAD, lm.WGMMA, True),
+            ("square_4096", SQUARE, lm.WGMMA, True),
+            ("ragged_m3", RAGGED, lm.WGMMA, False)):
         K, M, N, m, d = s["K"], s["M"], s["N"], s["m"], s["d"]
         a = random_ints(torch, gen, m, d, (K, M), dev)
         b = random_ints(torch, gen, m, d, (K, N), dev)
         pa = ops._planes_kmajor(a, m, d)
         pb = ops._planes_kmajor(b, m, d)
-        got = lm.layered_matmul_kmajor(pa, pb, m=m)
+        call = lambda: lm.layered_matmul_kmajor(pa, pb, m=m)
+        before = dict(lm.kernel_launches)
+        got = call()
         want = lm.layered_matmul_plain(pa, pb, m=m)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64))
-                  .abs().max().item())
+        launched = [n for n in lm.KERNELS
+                    if lm.kernel_launches[n] != before[n]]
+        if launched != [kernel]:
+            raise AssertionError(f"{name}: launched {launched}, want "
+                                 f"{kernel}")
+
+        def max_err(out):
+            return int((out.to(torch.int64) - want.to(torch.int64))
+                       .abs().max().item())
+        err = max_err(got)
         if err != 0 or got.shape != want.shape:
             raise AssertionError(f"{name}: kernel differs from plain "
                                  f"version by {err}")
+        bound_ms, bound_by = layered_bound(K, M, N, m)
+        row = {"shape": s, "kernel": kernel, "max_abs_err": err,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if earlier:
+            # the mma.sync kernel at this shape (its route before the
+            # tensor-core kernel), held against the plain version first
+            mma_sync = lambda: lm._launch(pa, pb, m, kernel=lm.MMA_SYNC)
+            mma_err = max_err(mma_sync())
+            if mma_err != 0:
+                raise AssertionError(f"{name}: {lm.MMA_SYNC} differs from "
+                                     f"plain version by {mma_err}")
+            mma_dev_ms = device_ms(torch, mma_sync, LM_PROFILE[lm.MMA_SYNC])
+            row["mma_sync"] = {
+                "max_abs_err": mma_err, "ms": cuda_ms(torch, mma_sync),
+                "kernel_device_ms": mma_dev_ms,
+                "bound_share_of_device_ms": bound_ms / mma_dev_ms}
         del got, want
-        ms = cuda_ms(torch, lambda: lm.layered_matmul_kmajor(pa, pb, m=m))
-        dev_ms = device_ms(torch,
-                           lambda: lm.layered_matmul_kmajor(pa, pb, m=m),
-                           "layered_matmul_kernel")
+        ms = cuda_ms(torch, call)
+        dev_ms = device_ms(torch, call, LM_PROFILE[kernel])
         plain_ms = cuda_ms(torch,
                            lambda: lm.layered_matmul_plain(pa, pb, m=m))
         bt = pb[0].T        # (K, N) column-major: the int8 "TN" layout
         int_mm_ms = cuda_ms(torch, lambda: torch._int_mm(pa[0], bt))
-        bound_ms, bound_by = layered_bound(K, M, N, m)
-        rows[name] = {"shape": s, "max_abs_err": err, "ms": ms,
-                      "kernel_device_ms": dev_ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "int_mm_x_m2_ms": m * m * int_mm_ms,
-                      "bound_share": bound_ms / ms}
+        row.update(ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
+                   int_mm_x_m2_ms=m * m * int_mm_ms,
+                   bound_share=bound_ms / ms,
+                   bound_share_of_device_ms=bound_ms / dev_ms)
+        rows[name] = row
         del a, b, pa, pb, bt
         torch.cuda.empty_cache()
     emit({"phase": "kernel_vs_plain", "timed_runs": TIMED_RUNS,
@@ -259,13 +299,16 @@ def phase_layered_main_path(torch, dev):
     w = random_ints(torch, gen, m, d, (K, N), dev)
     torch.cuda.synchronize()
     lm.launches = 0
+    lm.kernel_launches.update(dict.fromkeys(lm.KERNELS, 0))
     t0 = time.perf_counter()
     res = ops.layered_matmul(hidden_t, w, m=m, d=d)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = lm.launches
-    if launches < 1:
-        raise AssertionError("main path never launched the kernel")
+    by_source = dict(lm.kernel_launches)
+    if launches != 1 or by_source[lm.WGMMA] != 1:
+        raise AssertionError(f"main path launched {by_source}, want one "
+                             f"launch of {lm.WGMMA}")
     exact = hidden_t.to(torch.float64).T @ w.to(torch.float64)
     if res.shape != (2 * m - 1, M, N) or not torch.isfinite(res).all():
         raise AssertionError(f"bad output {tuple(res.shape)}")
@@ -290,6 +333,7 @@ def phase_layered_main_path(torch, dev):
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-6)
     emit({"phase": "layered_matmul_main_path", "shape": HEAD,
           "launches": {"layered_matmul": launches},
+          "launches_by_source": by_source,
           "wall_ms_incl_decompose": wall_ms, "wrapper_ms": wrapper_ms,
           "planes_w_ms": planes_w_ms,
           "final_rel_err_vs_exact": head_rel,
@@ -689,6 +733,7 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
 
     fa.launches = ss.launches = lm.launches = 0
     fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
+    lm.kernel_launches.update(dict.fromkeys(lm.KERNELS, 0))
     ss.kernel_launches.update(dict.fromkeys(ss.KERNELS, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -699,7 +744,7 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
                 "layered_matmul": lm.launches}
     by_source = {"flash_attention": dict(fa.kernel_launches),
                  "ssd_scan": dict(ss.kernel_launches),
-                 "layered_matmul": {"layered_matmul": lm.launches}}
+                 "layered_matmul": dict(lm.kernel_launches)}
     mine = [c for counts in by_source.values() for c in counts.items()]
     if (kernel_module.launches != want_launches
             or dict(mine).get(want_kernel) != want_launches):
@@ -873,11 +918,14 @@ def main() -> int:
     kernels = []
     if "kernel_vs_plain" in results and "layered_main_path" in results:
         head = results["kernel_vs_plain"]["llama3_8b_head"]
-        errs = [row["max_abs_err"]
-                for row in results["kernel_vs_plain"].values()]
+        errs = [e for row in results["kernel_vs_plain"].values()
+                for e in (row["max_abs_err"],
+                          row.get("mma_sync", {}).get("max_abs_err", 0))]
         kernels.append({
             "name": "layered_matmul", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/layered_matmul.cu",
+            # the main path's source first, then its earlier route
+            "source": "src/repro_torch/kernels/csrc/layered_matmul_wgmma.cu"
+                      ", src/repro_torch/kernels/csrc/layered_matmul.cu",
             "replaces": "src/repro/kernels/layered_matmul.py:71",
             "launches": results["layered_main_path"],
             "max_abs_err": max(errs), "ms": head["ms"],

@@ -1,4 +1,5 @@
-"""Layered-resolution int8 digit-plane matmul: CUDA kernel + plain version.
+"""Layered-resolution int8 digit-plane matmul: two CUDA kernels + plain
+version.
 
 Port of the TPU kernel ``layered_matmul_kernel_call``
 (``src/repro/kernels/layered_matmul.py:71``): the paper's ``m**2``
@@ -10,41 +11,63 @@ returns the ``L = 2m - 1`` exact, unscaled, non-cumulative int32 partials
 and leaves the ``2**((i+j) d)`` scales and the cumulative sum to the
 fusion (``ops.layered_matmul``).
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/layered_matmul.cu`` (int8 ``mma.sync``, one CTA per 64x64 output
-tile for all L layers, the K loop inside the block; see the source for
-what bounds it and what the design does about that).  It needs
-K-contiguous planes, ``(m, M, K)`` and ``(m, N, K)``, with K a multiple
-of :data:`K_ALIGN`, so :func:`layered_matmul_kmajor` takes that layout
-(padding K with zeros where a caller's planes lack it) and
+On a CUDA tensor the wrapper launches one of two hand-written Hopper
+kernels, chosen by :func:`kernel_for` from ``(m, M, N, K)``:
+
+- ``layered_matmul_wgmma`` (``csrc/layered_matmul_wgmma.cu``): m <= 3,
+  the LM head's m = 2 among them.  int8 ``wgmma`` fed by TMA through a
+  multistage ring, tiles wide in N (64 x 256 for M <= 64, else 128 x 128;
+  half as wide at m = 3).
+- ``layered_matmul`` (``csrc/layered_matmul.cu``): m = 4, whose seven
+  layers of accumulators do not fit the wgmma tile's registers.  int8
+  ``mma.sync``, one CTA per 64x64 output tile.
+
+Both need K-contiguous planes, ``(m, M, K)`` and ``(m, N, K)``, with K a
+multiple of :data:`K_ALIGN`, so :func:`layered_matmul_kmajor` takes that
+layout (padding K with zeros where a caller's planes lack it) and
 :func:`layered_matmul_kernel_call` keeps the reference's ``(m, K, M)`` /
 ``(m, K, N)`` layout by transposing first.  On a CPU tensor the wrapper
-runs :func:`layered_matmul_plain`.  There is no fallback between the two:
-a CUDA tensor that the kernel cannot take raises.
+runs :func:`layered_matmul_plain`.  There is no fallback: a CUDA tensor
+that neither kernel takes raises, and so does a failed launch.
+:data:`launches` counts every call that launches a kernel;
+:data:`kernel_launches` counts them per kernel source.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.core import layering
 from repro_torch.kernels import _build
 
-__all__ = ["K_ALIGN", "layered_matmul_kernel_call", "layered_matmul_kmajor",
-           "layered_matmul_plain", "launches"]
+__all__ = ["K_ALIGN", "KERNELS", "MAX_PLANES", "kernel_for",
+           "kernel_launches", "layered_matmul_kernel_call",
+           "layered_matmul_kmajor", "layered_matmul_plain", "launches"]
 
-#: The kernel reads K in 16-byte vectors: the contraction length of the
-#: planes it is given and their start addresses are multiples of this.
+#: The kernels read K in 16-byte rows (TMA's stride unit, the mma.sync
+#: kernel's vector): the contraction length of the planes they are given
+#: and their start addresses are multiples of this.
 K_ALIGN = 16
 
-#: Kernel launches so far (incremented only where the CUDA kernel is
-#: launched; a caller resets it to 0 to count one run).
-launches = 0
+#: The two kernels, by source name (``csrc/<name>.cu``).
+WGMMA = "layered_matmul_wgmma"
+MMA_SYNC = "layered_matmul"
+KERNELS = (WGMMA, MMA_SYNC)
 
-_SOURCE = "layered_matmul"
-_bound = None
+#: Most planes each kernel is built for.
+WGMMA_MAX_PLANES = 3
+MAX_PLANES = 4
+
+#: Kernel launches so far, of both kernels (incremented only where a CUDA
+#: kernel is launched; a caller resets it to 0 to count one run).
+launches = 0
+#: The same count per kernel; a caller resets each entry to 0 with it.
+kernel_launches = dict.fromkeys(KERNELS, 0)
+
+_bound: dict = {}
 
 
 def layered_matmul_plain(a_km: torch.Tensor, b_km: torch.Tensor, *,
@@ -69,27 +92,41 @@ def layered_matmul_plain(a_km: torch.Tensor, b_km: torch.Tensor, *,
     return out
 
 
-def _entry():
-    """The kernel's C entry, bound once: ``(fn, max_planes)``."""
-    global _bound
-    if _bound is None:
-        lib = _build.load(_SOURCE)
-        fn = lib.layered_matmul_s8
+def kernel_for(m: int, M: int, N: int, K: int) -> str:
+    """The kernel that takes ``m`` planes of an ``(M, K) x (N, K)`` product
+    on the card.
+
+    m <= 3 -> :data:`WGMMA` (its L layers of 64-wide int32 accumulators
+    fit a warpgroup's registers); m = 4 -> :data:`MMA_SYNC`.  Raises
+    ``ValueError`` for more planes than either kernel is built for and for
+    an empty shape.
+    """
+    if not 1 <= m <= MAX_PLANES:
+        raise ValueError(f"kernel supports m <= {MAX_PLANES}, got m={m}")
+    if M <= 0 or N <= 0 or K <= 0:
+        raise ValueError(f"empty product: M={M} N={N} K={K}")
+    return WGMMA if m <= WGMMA_MAX_PLANES else MMA_SYNC
+
+
+def _entry(name: str):
+    """The C entry of kernel ``name``, bound once."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), f"{name}_s8")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        max_planes = lib.layered_matmul_max_planes
-        max_planes.argtypes = []
-        max_planes.restype = ctypes.c_int
-        _bound = (fn, max_planes())
-    return _bound
+        _bound[name] = fn
+    return fn
 
 
 def _kernel_operand(planes: torch.Tensor) -> torch.Tensor:
     """``planes`` as the kernel reads them: contiguous, 16-byte aligned,
     with K padded by zeros to a multiple of :data:`K_ALIGN`.  Planes from
-    ``ops`` already are; other planes are copied."""
+    ``ops`` already are; other planes are copied.  Both kernels take
+    this: TMA zero-fills the rest of the wgmma kernel's 128-byte K
+    slices."""
     R, K = planes.shape[1:]
     pad = -K % K_ALIGN
     if (not pad and planes.is_contiguous()
@@ -101,29 +138,38 @@ def _kernel_operand(planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int) -> torch.Tensor:
+def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int,
+            kernel: Optional[str] = None) -> torch.Tensor:
+    """K-major planes on the card, through ``kernel`` (default:
+    :func:`kernel_for`'s choice)."""
     global launches
     dev = a_km.device
     if b_km.device != dev:
         raise ValueError(f"planes on different devices: {dev} vs "
                          f"{b_km.device}")
-    _build.require_hopper(dev, _SOURCE)
-    fn, max_planes = _entry()
-    if m > max_planes:
-        raise ValueError(f"kernel supports m <= {max_planes}, got m={m}")
-    a_km = _kernel_operand(a_km)
-    b_km = _kernel_operand(b_km)
     _, M, K = a_km.shape
     N = b_km.shape[1]
+    chosen = kernel_for(m, M, N, K)
+    kernel = kernel or chosen
+    if kernel == WGMMA and chosen != WGMMA:
+        raise ValueError(f"{WGMMA} takes m <= {WGMMA_MAX_PLANES}, got m={m}")
+    _build.require_hopper(dev, kernel)
+    fn = _entry(kernel)
+    a_km = _kernel_operand(a_km)
+    b_km = _kernel_operand(b_km)
+    K = a_km.shape[2]
     out = torch.empty((2 * m - 1, M, N), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a_km.data_ptr(), b_km.data_ptr(), out.data_ptr(), m, M, N, K,
                  stream)
     if err != 0:
-        raise RuntimeError(f"layered_matmul kernel launch failed: CUDA error "
-                           f"{err} (m={m} M={M} N={N} K={K})")
+        raise RuntimeError(f"{kernel} kernel launch failed: error {err} "
+                           f"(a CUDA error; 10000 + a CUresult: a TMA "
+                           f"tensor map was refused) (m={m} M={M} N={N} "
+                           f"K={K})")
     launches += 1
+    kernel_launches[kernel] += 1
     return out
 
 
@@ -132,7 +178,8 @@ def layered_matmul_kmajor(a_km: torch.Tensor, b_km: torch.Tensor, *,
     """Per-layer int32 partials from K-major int8 planes.
 
     a_km: (m, M, K) int8   b_km: (m, N, K) int8   ->   (L, M, N) int32.
-    CUDA tensors launch the kernel, CPU tensors run the plain version.
+    CUDA tensors launch :func:`kernel_for`'s kernel, CPU tensors run the
+    plain version.
     """
     if a_km.ndim != 3 or b_km.ndim != 3:
         raise ValueError(f"planes must be 3-D, got {tuple(a_km.shape)} and "

@@ -26,7 +26,7 @@ def _planes_kmajor(x: torch.Tensor, m: int, d: int) -> torch.Tensor:
     """int8 digit planes of ``x (K, R)``, K-major: ``(m, R, Kp)``.
 
     ``Kp`` is K rounded up to :data:`K_ALIGN`; the pad is zeros, which add
-    nothing to a partial, so the kernel loads 16-byte vectors only.  Each
+    nothing to a partial, so the kernels read whole 16-byte rows.  Each
     digit is computed in int32 in ``x``'s own layout
     (:func:`~repro_torch.core.layering.digit`: one pass, two for a middle
     plane), then one ``copy_`` transposes it and wraps it to int8 into its

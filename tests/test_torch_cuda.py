@@ -39,24 +39,39 @@ def _planes(rng, m, d, K, R, dev):
     return x, ops._planes_kmajor(x, m, d).to(dev)
 
 
-@pytest.mark.parametrize("m,d,K,M,N", [
-    (2, 7, 1024, 128, 128), (3, 5, 1000, 200, 328), (4, 4, 33, 7, 9),
-    (1, 7, 16, 8, 8), (2, 7, 4096, 64, 1000)])
-def test_kernel_bit_equal_to_plain(rng, hopper, m, d, K, M, N):
+WGMMA, MMA_SYNC = lm.WGMMA, lm.MMA_SYNC
+
+
+@pytest.mark.parametrize("m,d,K,M,N,kernel", [
+    (2, 7, 1024, 128, 128, WGMMA), (3, 5, 1000, 200, 328, WGMMA),
+    (4, 4, 33, 7, 9, MMA_SYNC), (1, 7, 16, 8, 8, WGMMA),
+    (2, 7, 4096, 64, 1000, WGMMA),
+    (2, 7, 4096, 64, 128256, WGMMA),     # the llama3-8b LM head
+    (2, 7, 4112, 64, 300, WGMMA),        # K tail of 16 bytes past 128s
+    (2, 7, 1008, 200, 300, WGMMA),       # K short of a 128-byte slice
+    (2, 7, 256, 65, 100, WGMMA),         # two row tiles, N below one tile
+    (3, 5, 4112, 65, 200, WGMMA),
+    (1, 7, 1008, 200, 1000, WGMMA),
+    (4, 4, 1008, 200, 300, MMA_SYNC)])
+def test_kernel_bit_equal_to_plain(rng, hopper, m, d, K, M, N, kernel):
     a, pa = _planes(rng, m, d, K, M, hopper)
     b, pb = _planes(rng, m, d, K, N, hopper)
     before = lm.launches
+    per_kernel = dict(lm.kernel_launches)
     got = lm.layered_matmul_kmajor(pa, pb, m=m)
     torch.cuda.synchronize()
     assert lm.launches == before + 1
+    assert lm.kernel_launches[kernel] == per_kernel[kernel] + 1
     want = lm.layered_matmul_plain(pa, pb, m=m)
     assert torch.equal(got, want)
-    scales = np.asarray([1 << ((2 * m - 2 - l) * d)
-                         for l in range(2 * m - 1)], np.int64)
-    full = (got.cpu().numpy().astype(np.int64)
-            * scales[:, None, None]).sum(0)
-    np.testing.assert_array_equal(
-        full, a.numpy().astype(np.int64).T @ b.numpy().astype(np.int64))
+    # the scaled partials sum to the exact product; float64 on the card is
+    # exact here (|a b| summed over K stays below 2**53)
+    scales = torch.tensor([1 << ((2 * m - 2 - l) * d)
+                           for l in range(2 * m - 1)], dtype=torch.int64,
+                          device=hopper)
+    full = (got.to(torch.int64) * scales[:, None, None]).sum(0)
+    exact = a.to(hopper, torch.float64).T @ b.to(hopper, torch.float64)
+    assert torch.equal(full, exact.to(torch.int64))
 
 
 @pytest.mark.parametrize("m,d,K,R", [(2, 7, 4096, 300), (3, 5, 37, 70),
@@ -86,8 +101,10 @@ def test_unaligned_or_unpadded_planes_are_copied_exactly(rng, hopper, K):
     shifted.copy_(pa)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
     before = lm.launches
+    per_kernel = dict(lm.kernel_launches)
     got = lm.layered_matmul_kmajor(shifted, pb, m=m)
     assert lm.launches == before + 1
+    assert lm.kernel_launches[WGMMA] == per_kernel[WGMMA] + 1
     assert torch.equal(got, lm.layered_matmul_plain(pa, pb, m=m))
 
 
@@ -107,6 +124,10 @@ def test_too_many_planes_raise(hopper):
     z = torch.zeros((5, 8, 16), dtype=torch.int8, device=hopper)
     with pytest.raises(ValueError, match="m <= 4"):
         lm.layered_matmul_kmajor(z, z, m=5)
+    # the mma.sync kernel's m = 4 is more than the wgmma kernel takes
+    z = torch.zeros((4, 8, 16), dtype=torch.int8, device=hopper)
+    with pytest.raises(ValueError, match="m <= 3"):
+        lm._launch(z, z, 4, kernel=WGMMA)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ The layered matmul's partials must be bit-equal to the JAX package's
 Pallas kernel run in interpret mode; flash attention and the SSD scan
 must agree with theirs within the reference's own tolerances, on the same
 cases as ``tests/test_kernels.py``.  The card-side comparison of the CUDA
-kernels with their plain versions is ``tests/test_torch_cuda.py``; the one
-case here that needs a card holds the layered CUDA kernel against the JAX
+kernels with their plain versions is ``tests/test_torch_cuda.py``; the
+cases here that need a card hold the layered CUDA kernel against the JAX
 package.
 """
 
@@ -26,18 +26,24 @@ from repro_torch.kernels import layered_matmul as lm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 
-@pytest.fixture(autouse=True)
-def pallas_tpu_params(monkeypatch):
+def _alias_pallas_tpu_params():
     """Run the JAX package's Pallas kernel in interpret mode on this JAX.
 
     ``repro/kernels/layered_matmul.py`` names ``pltpu.TPUCompilerParams``,
-    which newer JAX releases renamed ``CompilerParams``; the alias is set
-    for the duration of each test, and the JAX package is not edited.
+    which newer JAX releases renamed ``CompilerParams``.  The alias is set
+    once, when this file is collected, and holds for the whole process:
+    ``layered_matmul_kernel_call`` is jitted, so an alias that lasted one
+    test left traced cases behind it and made ``tests/test_kernels.py``
+    pass or fail by which file ran first in a worker.  Every pytest
+    process, an xdist worker included, collects this file before it runs
+    a test.  The JAX package is not edited.
     """
     from jax.experimental.pallas import tpu as pltpu
     if not hasattr(pltpu, "TPUCompilerParams"):
-        monkeypatch.setattr(pltpu, "TPUCompilerParams",
-                            pltpu.CompilerParams, raising=False)
+        pltpu.TPUCompilerParams = pltpu.CompilerParams
+
+
+_alias_pallas_tpu_params()
 
 
 @pytest.fixture
@@ -190,28 +196,87 @@ def test_kernel_call_keeps_reference_layout_and_errors(rng):
                                  m=2)
 
 
-def test_cpu_path_never_counts_a_launch(rng):
-    A, B = _operands(rng, 2, 7, 32, 8, 8)
-    before = lm.launches
-    ops.layered_matmul(torch.from_numpy(A), torch.from_numpy(B), m=2, d=7)
-    assert lm.launches == before
+@pytest.mark.parametrize("m,d", [(2, 7), (4, 4)])
+def test_cpu_path_never_counts_a_launch(rng, m, d):
+    """Neither kernel's count moves on the CPU, whichever kernel
+    :func:`kernel_for` would pick on the card."""
+    A, B = _operands(rng, m, d, 32, 8, 8)
+    before, per_kernel = lm.launches, dict(lm.kernel_launches)
+    ops.layered_matmul(torch.from_numpy(A), torch.from_numpy(B), m=m, d=d)
+    assert lm.launches == before and lm.kernel_launches == per_kernel
+    assert set(lm.kernel_launches) == set(lm.KERNELS)
+
+
+@pytest.mark.parametrize("m,M,N,K,want", [
+    (2, 64, 128256, 4096, "layered_matmul_wgmma"),   # llama3-8b LM head
+    (2, 4096, 4096, 4096, "layered_matmul_wgmma"),
+    (1, 8, 8, 16, "layered_matmul_wgmma"),
+    (3, 200, 328, 1008, "layered_matmul_wgmma"),
+    (2, 65, 100, 4112, "layered_matmul_wgmma"),
+    (4, 7, 9, 48, "layered_matmul"),
+    (4, 4096, 4096, 4096, "layered_matmul"),
+])
+def test_layered_routing_by_planes_and_shape(m, M, N, K, want):
+    """Up to three planes go to the wgmma kernel, whose L layers of
+    64-wide int32 accumulators fit a warpgroup's registers; four to the
+    mma.sync kernel."""
+    assert lm.kernel_for(m, M, N, K) == want
+    assert want in lm.KERNELS
+
+
+@pytest.mark.parametrize("m,M,N,K,match", [
+    (5, 8, 8, 16, "m <= 4"),
+    (0, 8, 8, 16, "m <= 4"),
+    (2, 0, 8, 16, "empty"),
+    (2, 8, 0, 16, "empty"),
+    (2, 8, 8, 0, "empty"),
+])
+def test_layered_routing_rejects_what_neither_kernel_takes(m, M, N, K,
+                                                           match):
+    with pytest.raises(ValueError, match=match):
+        lm.kernel_for(m, M, N, K)
+
+
+@pytest.mark.parametrize("K", [16, 1008, 4112, 37])
+def test_kernel_operand_keeps_aligned_planes_and_pads_the_rest(rng, K):
+    """What both kernels read: packed planes with K a multiple of 16 as
+    they are (TMA zero-fills the wgmma kernel's 128-byte slices past K);
+    others as a zero-padded copy whose partials equal the original's."""
+    m, d, M, N = 2, 7, 12, 20
+    A, B = _operands(rng, m, d, K, M, N)
+    pa = layering.decompose(torch.from_numpy(A.T.copy()), m, d).to(torch.int8)
+    pb = layering.decompose(torch.from_numpy(B.T.copy()), m, d).to(torch.int8)
+    got = lm._kernel_operand(pa)
+    if K % lm.K_ALIGN == 0:
+        assert got is pa
+    else:
+        assert got.shape[2] % lm.K_ALIGN == 0 and not got[:, :, K:].any()
+    assert torch.equal(got[:, :, :K], pa)
+    assert torch.equal(
+        lm.layered_matmul_plain(got, lm._kernel_operand(pb), m=m),
+        lm.layered_matmul_plain(pa, pb, m=m))
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_bit_equal_to_jax(rng, hopper):
+@pytest.mark.parametrize("m,d,K,M,N,kernel", [
+    (3, 5, 1000, 200, 328, "layered_matmul_wgmma"),
+    (2, 7, 1008, 64, 300, "layered_matmul_wgmma"),
+])
+def test_cuda_kernel_bit_equal_to_jax(rng, hopper, m, d, K, M, N, kernel):
     """The CUDA kernel, launched on the card, against the JAX package's
     Pallas kernel in interpret mode on the host and against its own
     plain version on the card."""
-    m, d, K, M, N = 3, 5, 1000, 200, 328
     A, B = _operands(rng, m, d, K, M, N)
     want = np.asarray(jops.layered_matmul_partials(
         jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
     before = lm.launches
+    per_kernel = dict(lm.kernel_launches)
     got = ops.layered_matmul_partials(torch.from_numpy(A).to(hopper),
                                       torch.from_numpy(B).to(hopper),
                                       m=m, d=d)
     torch.cuda.synchronize()
     assert lm.launches == before + 1
+    assert lm.kernel_launches[kernel] == per_kernel[kernel] + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want)
     plain = lm.layered_matmul_plain(
         ops._planes_kmajor(torch.from_numpy(A).to(hopper), m, d),
