@@ -34,7 +34,12 @@ main paths and checks what comes out:
    the plain bf16 output's, the CUDA-core kernel in bf16 (its earlier
    route) and fp32, each held against the plain version before it is
    timed, the plain version's times, ``scaled_dot_product_attention``'s
-   (``library_ms``, a yardstick the port never calls) and the bound;
+   (``library_ms``, a yardstick the port never calls) and the bound.
+   The CUDA-core kernel at head dim 256 (recurrentgemma-9b: MQA, a
+   2048-token window that binds at S = 4096) and head dim 8 (padded to
+   16), in bf16 and fp32, and timed at recurrentgemma-9b's prefill shape
+   beside the plain version, SDPA and the bound; the tensor-core kernel
+   also at qwen2-moe-a2.7b's prefill shape (MHA, H = kv = 16), timed;
 6. the two SSD chunk-scan kernels against their plain version, in bf16
    x/B/C as the model hands them over: the tensor-core kernel at the
    mamba2-370m prefill shape, at one prompt (B=1), with an initial state,
@@ -45,15 +50,23 @@ main paths and checks what comes out:
    before it is timed, the plain version's times and the bounds at the
    bf16 tensor-core and the fp32 rates (no library call computes the
    scan);
-7. main paths 3 and 4, ``launch.serve.ProgressiveServer`` at the full
-   width of llama3-8b and of mamba2-370m (random weights from a seed):
-   prefill 4 x 1024 tokens (launch counts reset before it: 32 flash
-   launches, all on the tensor-core kernel, or 48 SSD launches, all on the
-   tensor-core kernel; then one
-   more prefill under ``torch.profiler`` for the kernel's share of the
-   prefill's device time and the kernels that take the most), decode 16 tokens unbudgeted and 16 at
-   ``layer_budget=1``, and the decode step's logits at position S held
-   against ``forward`` over S+1 tokens;
+7. main paths 3 to 6, ``launch.serve.ProgressiveServer`` at the full
+   width of llama3-8b, mamba2-370m, recurrentgemma-9b (all 38 layers) and
+   qwen2-moe-a2.7b (all 24 layers), random weights from a seed: prefill
+   4 x 1024 tokens (launch counts reset before it: 32 flash launches, all
+   on the tensor-core kernel; 48 SSD launches, all on the tensor-core
+   kernel; 12 flash launches, all on the CUDA-core kernel at head dim 256;
+   24 flash launches, all on the tensor-core kernel; then one more prefill
+   under ``torch.profiler`` for the kernel's share of the prefill's device
+   time and the kernels that take the most; then, on the flash paths, one
+   more prefill with every flash call held against the plain version on
+   the inputs the path gives it), decode 16 tokens unbudgeted
+   and 16 at ``layer_budget=1``, and the decode step's logits at position
+   S held against ``forward`` over S+1 tokens (qwen2-moe-a2.7b's on a copy
+   of the config whose expert capacity drops no token);
+   then yi-6b, glm4-9b, starcoder2-7b and llama4-maverick-400b-a17b at
+   their smoke widths: the card's forward against the host's on the same
+   parameters, decode against forward, and serving through the server;
 8. main path 5, the ``deadline_ms`` mode with the head as runtime jobs on
    the ``cuda`` backend, at the llama3-8b smoke width: an expired deadline
    releases resolution 0 only, a generous one all 2m-1;
@@ -93,6 +106,9 @@ KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul",
                   "ssd_scan_wgmma"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
+#: recurrentgemma-9b's local attention: MQA at head dim 256, window 2048
+RGEMMA_PREFILL = dict(B=4, S=1024, H=16, kv=1, dh=256, window=2048)
+QWEN_MOE_PREFILL = dict(B=4, S=1024, H=16, kv=16, dh=128)  # qwen2-moe, MHA
 MAMBA_PREFILL = dict(B=4, S=1024, H=32, P=64, N=128, chunk=256)
 SERVE = dict(batch=4, prompt=1024, gen=16)
 #: decode_step at position S against forward over S+1 tokens, in bf16:
@@ -101,6 +117,10 @@ SERVE = dict(batch=4, prompt=1024, gen=16)
 #: GEMM whose shape differs (one row against S+1), so a budget of about
 #: ten roundoffs of the largest logit.
 DECODE_TOL = 5e-2
+#: each flash-attention call of a served bf16 prefill against the plain
+#: version on the same inputs: max |diff| / max |plain|, the bf16 budget
+#: of the parity tests
+SERVED_FLASH_TOL = 2e-2
 
 SEED = 0
 HEAD = dict(K=4096, M=64, N=128256, m=2, d=7)      # llama3-8b LM head
@@ -443,6 +463,8 @@ def phase_flash_vs_plain(torch, dev):
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     L = LLAMA_PREFILL
+    R = RGEMMA_PREFILL
+    Q = QWEN_MOE_PREFILL
     bf, f32 = torch.bfloat16, torch.float32
     # name: (B, S, H, kv, dh, causal, window, dtype, tolerance, kernel)
     cases = {
@@ -456,6 +478,19 @@ def phase_flash_vs_plain(torch, dev):
                                fa.WGMMA),
         "bf16_noncausal_s8": (2, 8, 4, 4, 64, False, None, bf, 2e-2,
                               fa.WGMMA),
+        "qwen2_moe_a2_7b_prefill": (Q["B"], Q["S"], Q["H"], Q["kv"], Q["dh"],
+                                    True, None, bf, 2e-2, fa.WGMMA),
+        # head dim 256 with the window binding (S = 2 windows), MQA
+        "dh256_window2048_s4096_bf16": (1, 4096, 16, 1, 256, True, 2048, bf,
+                                        2e-2, fa.CUDA_CORE),
+        "dh256_window2048_s4096_fp32": (1, 4096, 16, 1, 256, True, 2048, f32,
+                                        3e-5, fa.CUDA_CORE),
+        "recurrentgemma_9b_prefill": (R["B"], R["S"], R["H"], R["kv"],
+                                      R["dh"], True, R["window"], bf, 2e-2,
+                                      fa.CUDA_CORE),
+        # head dim 8 (llama4-maverick's smoke config), padded to 16
+        "dh8_bf16": (2, 256, 8, 2, 8, True, None, bf, 2e-2, fa.CUDA_CORE),
+        "dh8_fp32": (2, 256, 8, 2, 8, True, None, f32, 3e-5, fa.CUDA_CORE),
     }
     rows = {}
     for name, (B, S, H, kv, dh, causal, window, dtype, tol,
@@ -529,6 +564,40 @@ def phase_flash_vs_plain(torch, dev):
                 share_differing_from_plain=(got != want).float().mean()
                 .item(), **core)
             del q32, k32, v32, exact, qt, kt, vt
+        elif name == "qwen2_moe_a2_7b_prefill":
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+            bound_ms, bound_by = flash_bound(B, S, S, H, kv, dh, causal,
+                                             window, 2, PEAK_BF16_FLOPS)
+            row.update(ms=cuda_ms(torch, call),
+                       kernel_device_ms=device_ms(
+                           torch, call, "flash_attention_wgmma_kernel"),
+                       plain_ms=cuda_ms(torch, plain, runs=5),
+                       library_ms=cuda_ms(torch, sdpa),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            del qt, kt, vt
+        elif name == "recurrentgemma_9b_prefill":
+            # the window (2048) does not bind at S = 1024, so causal SDPA
+            # computes the same function
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            sdpa_err = (sdpa().transpose(1, 2).float()
+                        - want.float()).abs().max().item()
+            bound_ms, bound_by = flash_bound(B, S, S, H, kv, dh, causal,
+                                             window, 2, PEAK_BF16_FLOPS)
+            ms = cuda_ms(torch, call)
+            dev_ms = device_ms(torch, call, "flash_attention_kernel")
+            row.update(
+                ms=ms, kernel_device_ms=dev_ms,
+                plain_ms=cuda_ms(torch, plain, runs=5),
+                library_ms=cuda_ms(torch, sdpa),
+                library_max_abs_err_vs_plain=sdpa_err,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms,
+                bound_share_of_device_ms=bound_ms / dev_ms)
+            del qt, kt, vt
         rows[name] = row
         del q, k, v, got, want
         torch.cuda.empty_cache()
@@ -706,21 +775,74 @@ def prefill_device_profile(torch, fn, kernel: str) -> dict:
                                e.device_time_total / 1e3) for e in top]}
 
 
+def served_flash_vs_plain(torch, fn, want_kernel: str) -> dict:
+    """Runs ``fn`` (a served prefill) with every flash-attention call of
+    the model held against the plain version on the inputs the path gives
+    it: the kernel each call launched must be ``want_kernel`` and its
+    output within :data:`SERVED_FLASH_TOL` of the largest plain value."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    real, errs, shapes = ops.flash_attention, [], set()
+
+    def checked(q, k, v, *, causal=True, window=None):
+        before = dict(fa.kernel_launches)
+        out = real(q, k, v, causal=causal, window=window)
+        launched = [n for n in fa.KERNELS
+                    if fa.kernel_launches[n] != before[n]]
+        if launched != [want_kernel]:
+            raise AssertionError(f"served flash launched {launched}, want "
+                                 f"{want_kernel}")
+        want = fa.flash_attention_gqa_plain(q, k, v, causal=causal,
+                                            window=window).float()
+        errs.append(((out.float() - want).abs().max()
+                     / want.abs().max()).item())
+        shapes.add((tuple(q.shape), tuple(k.shape), str(q.dtype), causal,
+                    window))
+        return out
+
+    ops.flash_attention = checked
+    try:
+        fn()
+    finally:
+        ops.flash_attention = real
+    if not errs or not max(errs) <= SERVED_FLASH_TOL:
+        raise AssertionError(f"served flash against plain: {errs} "
+                             f"(tolerance {SERVED_FLASH_TOL})")
+    return {"calls": len(errs), "kernel": want_kernel,
+            "max_rel_err": max(errs), "tolerance": SERVED_FLASH_TOL,
+            "shapes": sorted(shapes)}
+
+
 def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
            want_kernel: str, kernel_name: str):
     """Serve ``arch`` at full width: prefill (launches counted, all of
     them of ``want_kernel``; then a profiled prefill for the device time of
-    the kernels named ``kernel_name``), the decode step against forward, 16
-    tokens unbudgeted and 16 at budget 1."""
+    the kernels named ``kernel_name``), the decode step against forward,
+    16 tokens unbudgeted and 16 at budget 1.  Where the path runs flash
+    attention, one more prefill holds each of its calls against the plain
+    version (:func:`served_flash_vs_plain`).
+
+    An MoE config's decode-vs-forward check runs on
+    ``moe.lossless_capacity``'s copy of it in fp32, on the first prompt (as the JAX package's own
+    check, at fp32 and a capacity that drops nothing): in bf16 a token's
+    top-k choice flips between the two paths' roundings wherever two
+    experts' gates are within a rounding of each other, which changes
+    its whole expert output and says nothing of the cache or the mask.
+    One prompt keeps the fp32 dispatch tensors of the lossless prefill
+    (T x E x T) small."""
+    import dataclasses
+
     from repro_torch.configs import registry
     from repro_torch.core import progressive
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import layered_matmul as lm
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch.serve import ProgressiveServer
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     cfg = registry.get_config(arch)
     B, S, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=SEED, device=dev)
     server = ProgressiveServer(cfg, params, m=2, d=7, device=dev)
@@ -757,13 +879,32 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
             or not torch.isfinite(last_logits).all()):
         raise AssertionError(f"{arch}: bad prefill logits "
                              f"{tuple(last_logits.shape)}")
+    served_flash = None
+    if kernel_module is fa:
+        served_flash = served_flash_vs_plain(
+            torch, lambda: server.prefill(prompt, max_len=S + 1 + G),
+            want_kernel)
+        if served_flash["calls"] != want_launches:
+            raise AssertionError(f"{arch}: {served_flash['calls']} flash "
+                                 f"calls checked, want {want_launches}")
 
     # decode updates the caches in place, so each run below but the last
     # starts from its own copy of the prefill's caches.  First the plain
     # decode path against the kernel path: decode_step at position S
     # against forward over the S + 1 tokens
-    got, _ = T.decode_step(params, tokens[:, S:], _clone(caches), S, cfg)
-    full, _ = T.forward(params, tokens, cfg)
+    check_cfg, check_tokens = cfg, tokens
+    if cfg.moe is not None:
+        check_cfg = dataclasses.replace(moe.lossless_capacity(cfg),
+                                        compute_dtype="float32")
+        check_tokens = tokens[:1]
+        check_caches = T.prefill(params, check_tokens[:, :S], check_cfg,
+                                 max_len=S + 1)[1]
+    else:
+        check_caches = _clone(caches)
+    got, _ = T.decode_step(params, check_tokens[:, S:], check_caches, S,
+                           check_cfg)
+    del check_caches
+    full, _ = T.forward(params, check_tokens, check_cfg)
     want = full[:, -1].float()
     del full
     rel = ((got.float() - want).abs().max() / want.abs().max()).item()
@@ -800,7 +941,9 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
     head_ms = [cuda_ms(torch, lambda l=l: progressive.plane_step(
         server.lm_head, h32, l), runs=5) for l in range(server.m)]
     row = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "batch": B, "prompt": S, "gen": G,
+           "vocab": cfg.vocab_size,
+           "params_billion": T.count_params(params) / 1e9,
+           "batch": B, "prompt": S, "gen": G,
            "m": server.m, "d": server.d,
            "setup_seconds_init_params_and_head_planes": setup_s,
            "prefill_ms": prefill_ms, "launches_per_prefill": launches,
@@ -809,7 +952,13 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
                profiled, kernel=kernel_name,
                kernel_share_of_device=(profiled["kernel_device_ms"]
                                        / profiled["all_device_ms"])),
+           "served_flash_vs_plain": served_flash,
            "decode_vs_forward_rel_err": rel,
+           "decode_vs_forward_check": {
+               "batch": int(check_tokens.shape[0]),
+               "compute_dtype": check_cfg.compute_dtype,
+               "capacity_factor": (check_cfg.moe.capacity_factor
+                                   if check_cfg.moe else None)},
            "decode_vs_forward_tolerance": DECODE_TOL,
            "decode_vs_forward_argmax_agreement": argmax_agree,
            "decode": decode,
@@ -837,6 +986,107 @@ def phase_serve_mamba(torch, dev):
                  SSD_WGMMA_PROFILE)
     emit(dict(phase="serve_mamba2_370m", **row))
     return row
+
+
+def phase_serve_recurrentgemma(torch, dev):
+    from repro_torch.kernels import flash_attention as fa
+    # the 12 local-attention layers, head dim 256: the CUDA-core kernel
+    row = _serve(torch, dev, "recurrentgemma-9b", fa, 12, fa.CUDA_CORE,
+                 "flash_attention_kernel")
+    emit(dict(phase="serve_recurrentgemma_9b", **row))
+    return row
+
+
+def phase_serve_qwen2_moe(torch, dev):
+    from repro_torch.kernels import flash_attention as fa
+    row = _serve(torch, dev, "qwen2-moe-a2.7b", fa, 24, fa.WGMMA,
+                 "flash_attention_wgmma_kernel")
+    emit(dict(phase="serve_qwen2_moe_a2_7b", **row))
+    return row
+
+
+#: the smoke configs served on the card, with the flash launches of one
+#: forward (one per attention layer)
+SMOKE_ARCHS = {"yi-6b": 2, "glm4-9b": 2, "starcoder2-7b": 2,
+               "llama4-maverick-400b-a17b": 4}
+#: the card's fp32 forward against the host's: a few fp32 ulps of
+#: difference in summation order over the layers (the card tests' 1e-4)
+SMOKE_TOL = 1e-4
+#: decode_step against forward in fp32, within one package (the CPU
+#: tests' 2e-3 of the largest logit)
+SMOKE_DECODE_TOL = 2e-3
+
+
+def phase_serve_smoke_archs(torch, dev):
+    """yi-6b, glm4-9b, starcoder2-7b and llama4-maverick-400b-a17b at smoke
+    width on the card (the MoE config at a capacity that drops nothing):
+    the card's fp32 forward against the host's on the same parameters,
+    decode_step at S against forward over S+1 in fp32, and the server's
+    prefill (flash launches counted) and decode in the config's bf16."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import ProgressiveServer
+    from repro_torch.models import convert, moe
+    from repro_torch.models import transformer as T
+    B, S, G = 2, 32, 4
+    rows = {}
+    for arch, want_launches in SMOKE_ARCHS.items():
+        cfg = moe.lossless_capacity(registry.get_smoke_config(arch))
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        host = T.init_params(cfg32, seed=SEED, device="cpu")
+        params = convert.to_torch(host, dev)
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                             generator=torch.Generator().manual_seed(SEED))
+        want, _ = T.forward(host, toks, cfg32)
+        got, _ = T.forward(params, toks.to(dev), cfg32)
+        fwd_err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        if not torch.allclose(got.cpu(), want, atol=SMOKE_TOL,
+                              rtol=SMOKE_TOL):
+            raise AssertionError(f"{arch}: card forward differs from the "
+                                 f"host's by {fwd_err} relative")
+        _, caches = T.prefill(params, toks[:, :S].to(dev), cfg32,
+                              max_len=S + 1)
+        step, _ = T.decode_step(params, toks[:, S:].to(dev), caches, S,
+                                cfg32)
+        dec_err = ((step - got[:, -1]).abs().max()
+                   / got[:, -1].abs().max()).item()
+        if not dec_err <= SMOKE_DECODE_TOL:
+            raise AssertionError(f"{arch}: decode_step differs from forward "
+                                 f"by {dec_err} of the largest logit")
+        with ProgressiveServer(cfg, params, m=2, d=7, device=dev) as server:
+            fa.launches = 0
+            fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
+            last, caches = server.prefill(toks[:, :S], max_len=S + G)
+            torch.cuda.synchronize()
+            launches = dict(fa.kernel_launches)
+            if (fa.launches != want_launches
+                    or launches[fa.CUDA_CORE] != want_launches):
+                raise AssertionError(f"{arch}: prefill launched {launches}, "
+                                     f"want {want_launches} of "
+                                     f"{fa.CUDA_CORE}")
+            out, stats = server.decode(toks[:, S - 1:S].to(dev), caches, S,
+                                       G)
+        if (tuple(out.shape) != (B, G) or not torch.isfinite(last).all()
+                or stats.full_resolution != G):
+            raise AssertionError(f"{arch}: served {tuple(out.shape)}, "
+                                 f"{stats.full_resolution} of {G} steps at "
+                                 f"full resolution")
+        rows[arch] = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                      "head_dim": cfg.attention.head_dim,
+                      "capacity_factor": (cfg.moe.capacity_factor
+                                          if cfg.moe else None),
+                      "forward_vs_host_rel_err": fwd_err,
+                      "forward_vs_host_tolerance": SMOKE_TOL,
+                      "decode_vs_forward_rel_err": dec_err,
+                      "decode_vs_forward_tolerance": SMOKE_DECODE_TOL,
+                      "flash_launches_per_prefill": launches,
+                      "served_tokens": list(out.shape)}
+        del host, params, caches, server
+    emit({"phase": "serve_smoke_archs", "batch": B, "prompt": S, "gen": G,
+          "archs": rows})
+    return rows
 
 
 def phase_serve_deadline(torch, dev):
@@ -908,6 +1158,10 @@ def main() -> int:
                         ("ssd_scan_vs_plain", phase_ssd_vs_plain),
                         ("serve_llama3_8b", phase_serve_llama),
                         ("serve_mamba2_370m", phase_serve_mamba),
+                        ("serve_recurrentgemma_9b",
+                         phase_serve_recurrentgemma),
+                        ("serve_qwen2_moe_a2_7b", phase_serve_qwen2_moe),
+                        ("serve_smoke_archs", phase_serve_smoke_archs),
                         ("serve_deadline", phase_serve_deadline)):
         try:
             results[name] = phase(torch, dev)
@@ -931,24 +1185,35 @@ def main() -> int:
             "max_abs_err": max(errs), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None})
-    for name, cmp_phase, serve_phase, main_case, replaces in (
+    for name, cmp_phase, serve_phases, main_case, replaces in (
             ("flash_attention", "flash_attention_vs_plain",
-             "serve_llama3_8b", "llama3_8b_prefill",
+             ("serve_llama3_8b", "serve_recurrentgemma_9b",
+              "serve_qwen2_moe_a2_7b"), "llama3_8b_prefill",
              "src/repro/kernels/flash_attention.py:85"),
-            ("ssd_scan", "ssd_scan_vs_plain", "serve_mamba2_370m",
+            ("ssd_scan", "ssd_scan_vs_plain", ("serve_mamba2_370m",),
              "mamba2_370m_prefill", "src/repro/kernels/ssd_scan.py:84")):
-        if cmp_phase not in results or serve_phase not in results:
+        if cmp_phase not in results or not all(p in results
+                                               for p in serve_phases):
             continue
         row = results[cmp_phase][main_case]
-        by_source = results[serve_phase]["launches_per_prefill_by_source"]
-        # every source of the kernel, the one the main path launched first
-        sources = sorted(by_source[name], key=lambda s: -by_source[name][s])
+        # launches per prefill on each serve path, counted from 0 before it,
+        # in all and by source
+        by_path = {p: results[p]["launches_per_prefill"][name]
+                   for p in serve_phases}
+        by_source = {}
+        for p in serve_phases:
+            for src, n in results[p]["launches_per_prefill_by_source"][
+                    name].items():
+                by_source[src] = by_source.get(src, 0) + n
+        # every source of the kernel, the most launched first
+        sources = sorted(by_source, key=lambda s: -by_source[s])
         kernels.append({
             "name": name, "route": "cuda",
             "source": ", ".join(f"src/repro_torch/kernels/csrc/{src}.cu"
                                 for src in sources),
             "replaces": replaces,
-            "launches": results[serve_phase]["launches_per_prefill"][name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "launches_by_source": by_source,
             "max_abs_err": max(r["max_abs_err"]
                                for r in results[cmp_phase].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -8,8 +8,9 @@ published hyper-parameters) and ``smoke_config()`` (a reduced config of
 the same family for CPU tests); :mod:`repro_torch.configs.registry`
 resolves ``--arch <id>`` strings.
 
-The ``moe`` and ``rglru`` fields stay so that configs keep their shape,
-but the port's models run only the ``dense`` and ``ssm`` layer kinds.
+The port's models run the ``dense``, ``moe``, ``ssm``, ``rglru`` and
+``local_attn`` layer kinds; the encoder-decoder and vision extras raise
+(ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["AttentionConfig", "SSMConfig", "ModelConfig"]
+__all__ = ["AttentionConfig", "MoEConfig", "SSMConfig", "RGLRUConfig",
+           "ModelConfig"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -59,6 +61,19 @@ class AttentionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int                      # per-expert hidden size
+    d_ff_shared: int = 0                  # shared-expert hidden (0 = none)
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+    interleave_step: int = 1              # every n-th layer is MoE (1 = all)
+    dispatch_group: int = 4096            # tokens per dispatch group (G)
+    # 1 -> all layers MoE; 2 -> layers 1,3,5,... MoE (llama4-style)
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 128
     d_conv: int = 4
@@ -74,6 +89,14 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    d_rnn: Optional[int] = None           # None -> d_model
+    d_conv: int = 4
+    block_pattern: tuple[str, ...] = ("R", "R", "A")  # Griffin 2:1
+    window: int = 2048                    # local-attention window
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                           # dense|moe|ssm|hybrid|vlm|audio
@@ -82,9 +105,9 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
-    moe: Optional[object] = None          # MoEConfig: not ported yet
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    rglru: Optional[object] = None        # RGLRUConfig: not ported yet
+    rglru: Optional[RGLRUConfig] = None
     activation: str = "silu"              # silu (SwiGLU) | gelu (plain MLP)
     norm: str = "rmsnorm"                 # rmsnorm | layernorm
     tie_embeddings: bool = False

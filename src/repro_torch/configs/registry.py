@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Only the architectures whose layer kinds the port runs are listed; the
-JAX package's ``registry.py`` also builds ``jax.ShapeDtypeStruct`` input
-specs for dry runs, which wait for the port's mesh layer.
+Only the architectures whose layer kinds the port runs are listed
+(whisper-tiny and internvl2-1b wait for the encoder-decoder and vision
+extras, ROADMAP §1); the JAX package's ``registry.py`` also builds
+``jax.ShapeDtypeStruct`` input specs for dry runs, which wait for the
+port's mesh layer.
 """
 
 from __future__ import annotations
@@ -14,8 +16,14 @@ from repro_torch.configs.base import ModelConfig
 __all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
 
 ARCH_IDS: dict[str, str] = {
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "mamba2-370m": "mamba2_370m",
     "llama3-8b": "llama3_8b",
+    "yi-6b": "yi_6b",
+    "glm4-9b": "glm4_9b",
+    "starcoder2-7b": "starcoder2_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

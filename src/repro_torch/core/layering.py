@@ -210,9 +210,9 @@ def layered_matmul_torch(a: torch.Tensor, b: torch.Tensor, *, m: int,
     """Device-side layered matmul returning float32 resolutions (L, M, N).
 
     Runs on ``a``'s device.  Per-plane products are float64 matmuls cast
-    to int32 (PyTorch has no int32 CUDA matmul): exact while
+    to int32 through int64 (PyTorch has no int32 CUDA matmul): exact while
     ``K * (2**d - 1)**2 < 2**31``, the int32 range the reference
-    accumulates in.  The cross-plane combination ``* 2**((i+j)d)`` is
+    accumulates in, and past it wrapped as the reference's are.  The cross-plane combination ``* 2**((i+j)d)`` is
     float32, exact for results < 2**24 per plane-scale.
     """
     ca = decompose(a.to(torch.int32), m, d).to(torch.float64)
@@ -223,7 +223,7 @@ def layered_matmul_torch(a: torch.Tensor, b: torch.Tensor, *, m: int,
         acc = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float32,
                           device=a.device)
         for (i, j) in layer_minijobs(m, l):
-            prod = (ca[i].T @ cb[j]).to(torch.int32)
+            prod = (ca[i].T @ cb[j]).to(torch.int64).to(torch.int32)
             acc = acc + prod.to(torch.float32) * float(1 << ((i + j) * d))
         partials.append(acc)
     return torch.cumsum(torch.stack(partials, dim=0), dim=0)

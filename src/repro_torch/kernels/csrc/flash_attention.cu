@@ -29,8 +29,15 @@
 // the output in registers, with 16-byte shared-memory loads along dh for
 // Q K^T; row max and sum are reduced with warp shuffles inside a
 // half-warp.  Query tiles are scheduled longest first (causal tiles near
-// the end of the sequence have the most key tiles).  wgmma on bf16 tiles,
-// TMA staging and a pipelined ring are later work.
+// the end of the sequence have the most key tiles).
+//
+// Head dims 16..128 in steps of 16 stage at most 116,736 B; dh 256
+// (recurrentgemma-9b's local attention) stages 4 * (64*256 + 64*260 +
+// 64*256 + 64*68) = 215,040 B of fp32 tiles, under the 232,448 B a block
+// may opt into, so one CTA per SM, each thread holding a 4 x 16 output
+// block.  Head dim 8 arrives zero-padded to 16 by the wrapper.  This
+// kernel is the fp32 route and the bf16 route of every head dim the
+// tensor-core kernel (flash_attention_wgmma.cu, dh 64/128) does not take.
 //
 // Plain C interface (bound with ctypes): pointers and the stream are
 // passed as void*, and the entry returns cudaGetLastError() after launch.
@@ -259,6 +266,7 @@ cudaError_t dispatch(const Params& p, int dh, cudaStream_t s) {
     case 96: return launch<T, 96>(p, s);
     case 112: return launch<T, 112>(p, s);
     case 128: return launch<T, 128>(p, s);
+    case 256: return launch<T, 256>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,9 +19,13 @@ kernels, chosen by :func:`kernel_for` from ``(dtype, head_dim)``:
   version's), K and V come by TMA through two-stage rings; bounded by
   the tensor cores' bf16 rate.
 - ``flash_attention`` (``csrc/flash_attention.cu``): fp32 with head dims
-  16..128 in steps of 16, and bf16 with the other head dims.  Its math is
-  fp32 FMAs on the CUDA cores: fp32 inputs must hold the reference's 3e-5,
-  which TF32 would not, so fp32 never goes to the tensor cores.
+  16..128 in steps of 16 and 256, and bf16 with the other head dims of
+  those (recurrentgemma-9b's local attention has head dim 256).  Its math
+  is fp32 FMAs on the CUDA cores: fp32 inputs must hold the reference's
+  3e-5, which TF32 would not, so fp32 never goes to the tensor cores.
+  Head dim 8 (llama4-maverick's smoke config) reaches it zero-padded to
+  16 by the wrapper: the padded lanes add nothing to q k^T, their output
+  columns are dropped, and the scale stays 1/sqrt(8).
 
 Both read GQA K/V in place through their strides and take any
 ``Sq``/``Skv``; both are held against the same plain version.  On a CPU
@@ -38,6 +42,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -61,6 +66,10 @@ kernel_launches = dict.fromkeys(KERNELS, 0)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WGMMA_HEAD_DIMS = (64, 128)
+#: Head dims the CUDA-core kernel is built for; the wrapper pads the
+#: others of :data:`_PADDED_HEAD_DIMS` with zeros up to one of them.
+_CUDA_CORE_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
+_PADDED_HEAD_DIMS = {8: 16}
 _bound: dict = {}
 
 
@@ -88,16 +97,18 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes ``(dtype, head_dim)`` on the card.
 
     bf16 with head dim 64 or 128 -> :data:`WGMMA` (tensor cores); fp32
-    with head dims 16..128 in steps of 16, and bf16 with the other head
-    dims of that range -> :data:`CUDA_CORE`.  Raises ``TypeError`` for
-    another dtype and ``ValueError`` for another head dim.
+    with head dims 8, 16..128 in steps of 16 and 256, and bf16 with the
+    other head dims of those -> :data:`CUDA_CORE` (head dim 8 zero-padded
+    to 16).  Raises ``TypeError`` for another dtype and ``ValueError`` for
+    another head dim.
     """
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention kernels take float32 or bfloat16, "
                         f"got {dtype}")
-    if head_dim % 16 or not 16 <= head_dim <= 128:
-        raise ValueError(f"flash attention kernels take head dims 16..128 "
-                         f"in steps of 16, got {head_dim}")
+    if (head_dim not in _CUDA_CORE_HEAD_DIMS
+            and head_dim not in _PADDED_HEAD_DIMS):
+        raise ValueError(f"flash attention kernels take head dims 8, "
+                         f"16..128 in steps of 16 and 256, got {head_dim}")
     if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
         return WGMMA
     return CUDA_CORE
@@ -161,19 +172,23 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous along head_dim")
     _build.require_hopper(dev, kernel)
+    scale = 1.0 / math.sqrt(dh)
+    run_dh = _PADDED_HEAD_DIMS.get(dh, dh)
+    if run_dh != dh:
+        q, k, v = (F.pad(t, (0, run_dh - dh)) for t in (q, k, v))
     if kernel == WGMMA:
         q, k, v = (_tma_operand(t) for t in (q, k, v))
     fn = _entry(kernel)
-    out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=dev)
+    out = torch.empty((B, Sq, H, run_dh), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in _strides(t)))
     head = () if kernel == WGMMA else (_DTYPE_CODE[q.dtype],)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *head, B, Sq, Skv, H, n_kv, dh, strides,
+                 *head, B, Sq, Skv, H, n_kv, run_dh, strides,
                  int(causal), 0 if window is None else int(window),
-                 1.0 / math.sqrt(dh), stream)
+                 scale, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: error {err} "
                            f"(a CUDA error; 10000 + a CUresult: a TMA "
@@ -181,7 +196,7 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
                            f"Skv={Skv} H={H} n_kv={n_kv} dh={dh})")
     launches += 1
     kernel_launches[kernel] += 1
-    return out
+    return out[..., :dh] if run_dh != dh else out
 
 
 def _check(q, k, v, window):

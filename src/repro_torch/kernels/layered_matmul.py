@@ -74,9 +74,12 @@ def layered_matmul_plain(a_km: torch.Tensor, b_km: torch.Tensor, *,
                          m: int) -> torch.Tensor:
     """Plain PyTorch version on K-major planes ``(m, M, K)``, ``(m, N, K)``.
 
-    Each plane product is a float64 matmul cast to int32: exact while
+    Each plane product is a float64 matmul, exact while
     ``J(l) * K * (2**d - 1)**2 < 2**53``, which covers the kernel's whole
-    int32-exact range.  (PyTorch has no int32 CUDA matmul.)
+    int32-exact range.  (PyTorch has no int32 CUDA matmul.)  It goes to
+    int32 through int64, so a partial past 2**31 wraps as the reference's
+    int32 accumulation and the kernels' do, where a straight cast would
+    saturate.
     """
     _, M, _ = a_km.shape
     N = b_km.shape[1]
@@ -88,7 +91,7 @@ def layered_matmul_plain(a_km: torch.Tensor, b_km: torch.Tensor, *,
         part = torch.zeros((M, N), dtype=torch.float64, device=a_km.device)
         for (i, j) in layering.layer_minijobs(m, l):
             part += a64[i] @ b64[j].T
-        out[l] = part.to(torch.int32)
+        out[l] = part.to(torch.int64).to(torch.int32)
     return out
 
 

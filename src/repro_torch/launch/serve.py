@@ -31,6 +31,8 @@ plain PyTorch there.
         --prompt-len 1024 --gen 16                      # on the card
     python -m repro_torch.launch.serve --arch llama3-8b-smoke \\
         --device cpu --batch 2 --prompt-len 8 --gen 4   # on the host
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b-smoke \\
+        --device cpu                                    # hybrid, on the host
 """
 
 from __future__ import annotations
@@ -213,7 +215,10 @@ class ProgressiveServer:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Greedy serving with a layered LM head.")
-    ap.add_argument("--arch", default="llama3-8b-smoke")
+    ap.add_argument("--arch", default="llama3-8b-smoke",
+                    help=f"one of {sorted(registry.ARCH_IDS)}, at its "
+                         f"published widths, or with '-smoke' appended "
+                         f"its smoke config")
     ap.add_argument("--device", default="cuda",
                     help="where to serve: cuda (default) or cpu")
     ap.add_argument("--batch", type=int, default=4)

@@ -35,9 +35,9 @@ def array_to_tensor(arr, device: torch.device) -> torch.Tensor:
 
 
 def to_torch(tree, device: str | torch.device = "cuda"):
-    """A nested structure of dicts, lists and tuples of arrays -> the same
-    structure of tensors on ``device`` (the card unless the caller asks
-    for the CPU)."""
+    """A nested structure of dicts, lists and tuples of arrays or tensors
+    -> the same structure of tensors on ``device`` (the card unless the
+    caller asks for the CPU), each in memory of its own."""
     dev = resolve_device(device)
 
     def walk(node):
@@ -45,6 +45,8 @@ def to_torch(tree, device: str | torch.device = "cuda"):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
+        if isinstance(node, torch.Tensor):
+            return node.to(dev, copy=True)
         return array_to_tensor(node, dev)
 
     return walk(tree)

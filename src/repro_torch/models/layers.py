@@ -15,13 +15,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import AttentionConfig
 
 __all__ = [
     "rms_norm", "layer_norm", "apply_norm", "rope", "attention",
-    "decode_attention", "init_linear", "init_norm",
+    "decode_attention", "mlp_swiglu", "init_linear", "init_norm",
 ]
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -166,6 +167,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     bias = torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
     out = _attend(qg, k_cache, v_cache, bias, cfg.attn_logit_softcap)
     return out.reshape(B, 1, H, Dh)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
 
 
 # ---------------------------------------------------------------------------

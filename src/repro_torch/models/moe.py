@@ -1,0 +1,145 @@
+"""Mixture-of-Experts block: top-k router + GShard-style grouped dispatch.
+
+The JAX package's ``models/moe.py`` in PyTorch, with the same dispatch:
+tokens are split into groups of ``group_size``; each group dispatches
+into per-expert capacity buffers ``C = ceil(group_size / E * k *
+capacity_factor)`` (at least 2) through one-hot ``(G, Tg, E, C)``
+dispatch and combine tensors and einsums.  Tokens over a group's capacity
+are dropped (they pass through the residual).  A shared expert
+(Qwen2-MoE: 4x1408 fused; Llama4: one 8192) runs densely alongside the
+routed experts.  The reference has no kernel here, and neither has the
+port.
+
+The router's top-k breaks ties towards the lower expert index, as
+``jax.lax.top_k`` does (``torch.topk`` promises no order among ties).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.layers import init_linear, mlp_swiglu
+
+__all__ = ["DISPATCH_GROUP", "init_moe_params", "lossless_capacity",
+           "moe_block", "router_topk"]
+
+DISPATCH_GROUP = 4096  # tokens per dispatch group (GShard's G)
+
+
+def init_moe_params(gen: torch.Generator | None, d_model: int,
+                    cfg: MoEConfig, dtype: torch.dtype,
+                    extra_dims: tuple[int, ...] = (),
+                    device: torch.device | str = "cuda") -> dict:
+    """Router, experts stacked on an E axis (``we_*``) and the shared
+    expert, on ``device`` (the card unless the caller asks for the CPU;
+    ``gen`` must live there too)."""
+    device = resolve_device(device)
+    E, Fd = cfg.num_experts, cfg.d_ff_expert
+    lin = lambda a, b, extra=(): init_linear(gen, a, b, dtype,
+                                             extra_dims + extra, device)
+    params = {
+        "router": lin(d_model, E),
+        "we_gate": lin(d_model, Fd, (E,)),
+        "we_up": lin(d_model, Fd, (E,)),
+        "we_down": lin(Fd, d_model, (E,)),
+    }
+    if cfg.d_ff_shared:
+        params["shared"] = {"w_gate": lin(d_model, cfg.d_ff_shared),
+                            "w_up": lin(d_model, cfg.d_ff_shared),
+                            "w_down": lin(cfg.d_ff_shared, d_model)}
+    return params
+
+
+def router_topk(logits: torch.Tensor, k: int):
+    """Top-k gates (renormalised over the k picks) + expert indices.
+
+    logits: (..., E) -> gates (..., k) float32, idx (..., k) int64.  A
+    stable descending sort keeps tied experts in index order, so ties go
+    to the lower index as in ``jax.lax.top_k``.
+    """
+    gates_full = torch.softmax(logits.to(torch.float32), dim=-1)
+    gates, idx = torch.sort(gates_full, dim=-1, descending=True, stable=True)
+    gates, idx = gates[..., :k], idx[..., :k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, idx
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
+              group_size: int | None = None) -> torch.Tensor:
+    """Apply the routed-expert FFN to x (..., D); returns the same shape."""
+    orig_shape = x.shape
+    D = x.shape[-1]
+    xf = x.reshape(-1, D)                          # (T, D)
+    T = xf.shape[0]
+    E, k = cfg.num_experts, cfg.top_k
+
+    if group_size is None:
+        group_size = cfg.dispatch_group or DISPATCH_GROUP
+    Tg = min(group_size, T)
+    if T % Tg:
+        Tg = math.gcd(T, Tg)
+    G = T // Tg
+    capacity = max(int(math.ceil(Tg / E * k * cfg.capacity_factor)), 2)
+
+    dtype = x.dtype
+    xg = xf.reshape(G, Tg, D)
+    router_logits = xg @ params["router"].to(dtype)
+    gates, idx = router_topk(router_logits, k)     # (G, Tg, k)
+
+    # Position of each (token, choice) inside its expert's group buffer:
+    # a running count over the group's (token, choice) pairs per expert,
+    # taken along the innermost dim (a scan along an outer dim of a CUDA
+    # tensor runs one thread per column)
+    flat = F.one_hot(idx, E).to(torch.int32).reshape(G, Tg * k, E)
+    pos = torch.cumsum(flat.transpose(1, 2), dim=-1).transpose(1, 2) - 1
+    pos = (pos * flat).sum(-1).reshape(G, Tg, k)
+    keep = pos < capacity
+    gates = torch.where(keep, gates, 0.0)
+    # index == capacity one-hots to all zeros, so dropped tokens vanish
+    pos = torch.where(keep, pos, capacity)
+
+    # Accumulate over the k choices one at a time so only the
+    # (G, Tg, E, C) dispatch/combine pair is live.
+    dispatch = torch.zeros((G, Tg, E, capacity), dtype=dtype,
+                           device=x.device)
+    combine = torch.zeros_like(dispatch)
+    for kk in range(k):
+        oh = (F.one_hot(idx[..., kk], E).to(dtype)[..., None]
+              * F.one_hot(pos[..., kk], capacity + 1)[..., :capacity]
+              .to(dtype)[..., None, :])            # (G, Tg, E, C)
+        dispatch += oh
+        combine += oh * gates[..., kk, None, None].to(dtype)
+        del oh
+
+    expert_in = torch.einsum("gtd,gtec->gecd", xg, dispatch)  # (G,E,C,D)
+    wg, wu, wd = (params[n].to(dtype) for n in ("we_gate", "we_up",
+                                                "we_down"))
+    h = (F.silu(torch.einsum("gecd,edf->gecf", expert_in, wg))
+         * torch.einsum("gecd,edf->gecf", expert_in, wu))
+    expert_out = torch.einsum("gecf,efd->gecd", h, wd)
+    yg = torch.einsum("gecd,gtec->gtd", expert_out, combine)  # (G, Tg, D)
+
+    yf = yg.reshape(T, D)
+    if cfg.d_ff_shared:
+        sp = params["shared"]
+        yf = yf + mlp_swiglu(xf, sp["w_gate"].to(dtype),
+                             sp["w_up"].to(dtype), sp["w_down"].to(dtype))
+    return yf.reshape(orig_shape)
+
+
+def lossless_capacity(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with a capacity factor of E / k, at which no group can
+    overflow an expert, so prefill, decode and forward (whose dispatch
+    groups differ) drop nothing; the JAX package's decode-vs-forward test
+    does the same.  A config without experts is returned as it is."""
+    if cfg.moe is None:
+        return cfg
+    cf = cfg.moe.num_experts / cfg.moe.top_k
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))

@@ -1,8 +1,15 @@
 """Decoder-LM assembly: pattern-grouped layers, prefill and decode.
 
-The JAX package's ``models/transformer.py`` in PyTorch, for the ``dense``
-(GQA attention + SwiGLU or GELU MLP) and ``ssm`` (Mamba2 SSD block) layer
-kinds.  An architecture is a sequence of *block groups*, each a repeating
+The JAX package's ``models/transformer.py`` in PyTorch, for the layer
+kinds
+
+  dense       GQA attention + (SwiGLU | GELU) MLP
+  moe         GQA attention + routed-experts FFN (``models.moe``)
+  ssm         Mamba2 SSD block (``models.ssm``)
+  rglru       RG-LRU recurrent block + MLP (``models.rglru``)
+  local_attn  sliding-window GQA + MLP (recurrentgemma's attention layers)
+
+An architecture is a sequence of *block groups*, each a repeating
 unit of layer kinds; per-group parameters and caches are stacked on a
 leading ``repeats`` axis, and where the reference runs ``lax.scan`` over
 that axis the port runs a Python loop.  There is no ``constrain``: the
@@ -15,13 +22,21 @@ are the positions ``forward`` gives every layer), and the Mamba2 block
 runs the SSD scan kernel; decode stays plain PyTorch, as in the JAX
 package, which has no kernel for it.
 
-The ``moe``, ``rglru``, ``local_attn`` and ``cross`` kinds, the vlm and
-audio extras and attention logit softcaps raise ``NotImplementedError``:
-they are later slices of the port (ROADMAP §1).
+A ``local_attn`` layer's cache is a ring of ``W`` (the window) slots:
+position ``p`` lives in slot ``p % W`` and ``pos = -1`` marks an empty
+slot.  Where the prompt length is a multiple of ``W`` this is the JAX
+package's layout; where it is not, the reference keeps the last ``W``
+keys in prompt order and decode overwrites a key still in the window
+(ROADMAP R6), which the ring does not.
+
+The ``cross`` kind, the vlm and audio extras and attention logit
+softcaps raise ``NotImplementedError``: they are later slices of the port
+(ROADMAP §1).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -31,16 +46,18 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 
 __all__ = [
     "block_groups", "init_params", "init_cache", "forward", "prefill",
-    "decode_step", "hidden_step",
+    "decode_step", "hidden_step", "count_params", "active_params",
 ]
 
 # Static KV-cache quantization scale (int8 mode), as the reference's.
 _KV_SCALE = 24.0
-_PORTED_KINDS = ("dense", "ssm")
+_PORTED_KINDS = ("dense", "moe", "ssm", "rglru", "local_attn")
 
 
 def _unsupported(cfg: ModelConfig) -> None:
@@ -142,13 +159,20 @@ def _init_layer(gen, kind: str, cfg: ModelConfig, reps: tuple[int, ...],
                 dev) -> dict:
     norm = lambda: L.init_norm(cfg.d_model, cfg.pdtype(), cfg.norm, reps, dev)
     p: dict[str, Any] = {"ln1": norm()}
-    if kind == "dense":
+    if kind in ("dense", "moe", "local_attn"):
         p["attn"] = _init_attn(gen, cfg, reps, dev)
         p["ln2"] = norm()
-        p["ffn"] = _init_mlp(gen, cfg, reps, dev)
+        p["ffn"] = (moe_lib.init_moe_params(gen, cfg.d_model, cfg.moe,
+                                            cfg.pdtype(), reps, dev)
+                    if kind == "moe" else _init_mlp(gen, cfg, reps, dev))
     elif kind == "ssm":
         p["ssm"] = ssm_lib.init_ssm_params(gen, cfg.d_model, cfg.ssm,
                                            cfg.pdtype(), reps, dev)
+    elif kind == "rglru":
+        p["rglru"] = rglru_lib.init_rglru_params(gen, cfg.d_model, cfg.rglru,
+                                                 cfg.pdtype(), reps, dev)
+        p["ln2"] = norm()
+        p["ffn"] = _init_mlp(gen, cfg, reps, dev)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     return p
@@ -160,11 +184,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     the CPU), drawn from a ``torch.Generator`` seeded with ``seed``.
 
     The same nested dicts and lists as the JAX package's ``init_params``;
-    the numbers differ (``models.convert`` carries JAX weights over).
+    the numbers differ (``models.convert`` carries JAX weights over).  On
+    the ``meta`` device only the shapes exist, which is how
+    :func:`count_params` counts a config too large to build.
     """
     _unsupported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = cfg.pdtype()
     params: dict[str, Any] = {
         "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
@@ -200,7 +227,10 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return out, (k, v)
 
 
-def _ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               kind: str) -> torch.Tensor:
+    if kind == "moe":
+        return moe_lib.moe_block(p, x, cfg.moe)
     if cfg.activation == "gelu":
         h = F.gelu(x @ p["w_fc"].to(x.dtype) + p["b_fc"].to(x.dtype),
                    approximate="tanh")
@@ -213,17 +243,48 @@ def _layer_fwd(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor):
     """Full-sequence layer forward.  Returns (x, cache_entry)."""
     norm = lambda n, h: L.apply_norm(cfg.norm, h, n)
-    if kind == "dense":
+    if kind in ("dense", "moe", "local_attn"):
+        window = (_local_window(cfg) if kind == "local_attn"
+                  else cfg.attention.window)
         h, (k, v) = _attn_apply(p["attn"], norm(p["ln1"], x), cfg,
-                                positions, window=cfg.attention.window)
+                                positions, window=window)
         x = x + h
-        x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg)
+        x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, kind)
+        if kind == "local_attn":
+            return x, _ring(k, v, positions, window)
         return x, {"k": k, "v": v}
     if kind == "ssm":
         h, cache = ssm_lib.ssm_block(p["ssm"], norm(p["ln1"], x),
                                      cfg.d_model, cfg.ssm)
         return x + h, cache
+    if kind == "rglru":
+        h, cache = rglru_lib.rglru_block(p["rglru"], norm(p["ln1"], x),
+                                         cfg.rglru)
+        x = x + h
+        x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, "dense")
+        return x, cache
     raise ValueError(kind)
+
+
+def _local_window(cfg: ModelConfig) -> int:
+    return cfg.rglru.window if cfg.rglru else cfg.attention.window
+
+
+def _ring(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+          W: int) -> dict:
+    """A local-attention cache of ``W`` slots holding the last ``W`` keys
+    and values of a prompt (positions ``[max(0, S - W), S)``), position
+    ``p`` in slot ``p % W``; the other slots empty (``pos = -1``)."""
+    B, S = k.shape[:2]
+    lo = max(0, S - W)
+    slots = torch.arange(lo, S, device=k.device) % W
+    kc = k.new_zeros((B, W) + k.shape[2:])
+    vc = v.new_zeros((B, W) + v.shape[2:])
+    pc = torch.full((B, W), -1, dtype=torch.int32, device=k.device)
+    kc[:, slots] = k[:, lo:]
+    vc[:, slots] = v[:, lo:]
+    pc[:, slots] = positions[:, lo:].to(torch.int32)
+    return {"k": kc, "v": vc, "pos": pc}
 
 
 def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
@@ -237,7 +298,7 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
     norm = lambda n, h: L.apply_norm(cfg.norm, h, n)
     B = x.shape[0]
     pos_b = torch.full((B,), pos, dtype=torch.int64, device=x.device)
-    if kind == "dense":
+    if kind in ("dense", "moe", "local_attn"):
         a = cfg.attention
         hin = norm(p["ln1"], x)
         ap = p["attn"]
@@ -246,19 +307,44 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
         v = torch.einsum("bsd,dhk->bshk", hin, ap["wv"].to(x.dtype))
         q = L.rope(q, pos_b[:, None], a.rope_theta)
         k = L.rope(k, pos_b[:, None], a.rope_theta)
-        cache["k"][:, pos:pos + 1] = _quant_kv(k, cfg)
-        cache["v"][:, pos:pos + 1] = _quant_kv(v, cfg)
-        out = L.decode_attention(q, _dequant_kv(cache["k"], cfg),
-                                 _dequant_kv(cache["v"], cfg), pos_b, a,
-                                 cache_len=pos_b + 1)
+        if kind == "local_attn":
+            # the ring: position pos in slot pos % W; a slot is valid while
+            # its position is inside the window ending at pos, and an empty
+            # slot (pos -1) never is
+            W = _local_window(cfg)
+            slot = pos % W
+            cache["k"][:, slot:slot + 1] = _quant_kv(k, cfg)
+            cache["v"][:, slot:slot + 1] = _quant_kv(v, cfg)
+            cache["pos"][:, slot] = pos
+            pc = cache["pos"]
+            valid = (pc >= 0) & (pc <= pos) & (pc > pos - W)
+            bias = torch.where(valid, 0.0, L._NEG_INF)
+            qg = q.reshape(B, 1, a.num_kv_heads, a.group_size, a.head_dim)
+            out = L._attend(qg, _dequant_kv(cache["k"], cfg),
+                            _dequant_kv(cache["v"], cfg),
+                            bias[:, None, None, None, :],
+                            a.attn_logit_softcap)
+            out = out.reshape(B, 1, a.num_heads, a.head_dim)
+        else:
+            cache["k"][:, pos:pos + 1] = _quant_kv(k, cfg)
+            cache["v"][:, pos:pos + 1] = _quant_kv(v, cfg)
+            out = L.decode_attention(q, _dequant_kv(cache["k"], cfg),
+                                     _dequant_kv(cache["v"], cfg), pos_b, a,
+                                     cache_len=pos_b + 1)
         h = torch.einsum("bshk,hkd->bsd", out, ap["wo"].to(x.dtype))
         x = x + h
-        x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg)
+        x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, kind)
         return x, cache
     if kind == "ssm":
         h, new_cache = ssm_lib.ssm_decode_step(p["ssm"], norm(p["ln1"], x),
                                                cache, cfg.d_model, cfg.ssm)
         return x + h, new_cache
+    if kind == "rglru":
+        h, new_cache = rglru_lib.rglru_decode_step(
+            p["rglru"], norm(p["ln1"], x), cache, cfg.rglru)
+        x = x + h
+        x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, "dense")
+        return x, new_cache
     raise ValueError(kind)
 
 
@@ -281,6 +367,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             if kind == "ssm":
                 c = ssm_lib.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dt,
                                            dev)
+            elif kind == "rglru":
+                c = rglru_lib.init_rglru_cache(batch, cfg.d_model, cfg.rglru,
+                                               dt, dev)
+            elif kind == "local_attn":
+                shape = (batch, _local_window(cfg), a.num_kv_heads,
+                         a.head_dim)
+                c = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
+                     "v": torch.zeros(shape, dtype=kv_dt, device=dev),
+                     "pos": torch.full(shape[:2], -1, dtype=torch.int32,
+                                       device=dev)}
             else:
                 shape = (batch, max_len, a.num_kv_heads, a.head_dim)
                 c = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
@@ -297,7 +393,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _embed_inputs(params: dict, tokens: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.cdtype())
+    x = params["embed"][tokens].to(cfg.cdtype())
+    if cfg.family == "hybrid":  # gemma-style embedding scale
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -348,11 +448,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         unit_caches = []
         for u, kind in enumerate(unit):
             c = caches[g][u]
-            if kind == "dense":
+            if kind in ("dense", "moe"):
                 # (reps, B, S, n_kv, dh) -> (reps, B, max_len, n_kv, dh)
                 c = {n: F.pad(_quant_kv(c[n], cfg),
                               (0, 0, 0, 0, 0, max_len - S))
                      for n in ("k", "v")}
+            elif kind == "local_attn":
+                c = dict(c, k=_quant_kv(c["k"], cfg),
+                         v=_quant_kv(c["v"], cfg))
             unit_caches.append(c)
         padded.append(unit_caches)
     return logits[:, -1, :], padded
@@ -393,3 +496,29 @@ def decode_step(params: dict, token: torch.Tensor, caches: list, pos: int,
     """
     hidden, caches = hidden_step(params, token, caches, pos, cfg)
     return _head(params, hidden, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Parameter accounting
+# ---------------------------------------------------------------------------
+
+def count_params(params) -> int:
+    """Elements in a parameter tree (dicts and lists of tensors).  Built on
+    the ``meta`` device (``init_params(cfg, device="meta")``), the tree
+    holds shapes only, so a full config is counted without memory."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return params.numel()
+
+
+def active_params(cfg: ModelConfig, total: int) -> int:
+    """Active parameters per token (MoE: only top-k experts count)."""
+    if cfg.family != "moe":
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    n_moe_layers = cfg.num_layers // m.interleave_step
+    inactive = per_expert * (m.num_experts - m.top_k) * n_moe_layers
+    return total - inactive

@@ -27,7 +27,7 @@ historical mode — the full job list is known up front and arrivals are
 slept out on the master clock), while :meth:`Master.serve_queue` drains
 an open :class:`JobQueue` that other threads feed *while the loop runs* —
 continuous admission over one warm fleet, the serving-gateway substrate
-(the JAX package's ``runtime/gateway.py``, not ported yet).  Queued jobs
+(:mod:`repro_torch.runtime.gateway`).  Queued jobs
 carry their own absolute
 deadline (:attr:`~repro_torch.runtime.tasks.JobSpec.deadline_at`, an
 unconditional release instant), an optional guaranteed minimum

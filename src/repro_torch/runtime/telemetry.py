@@ -90,8 +90,8 @@ ARENA = "arena"            # instant: arena event; label = reclaim (slots
 #                            recycled at a purge; value = peak dispatch-
 #                            ring occupancy fraction) | fallback (ring
 #                            full, slice took the pickled pipe path)
-# Serving gateway (the JAX package's runtime/gateway.py, not ported yet;
-# one lifecycle per request):
+# Serving gateway (repro_torch.runtime.gateway; one lifecycle per
+# request):
 REQUEST = "request"        # span: submit -> client release; label =
 #                            admitted|down-resolved|rejected[/degraded],
 #                            value = released resolution (-1 = nothing)

@@ -120,6 +120,26 @@ def test_fused_wrapper_on_card_matches_oracle(rng, hopper):
         rtol=1e-6)
 
 
+@pytest.mark.parametrize("m,M,N,kernel", [(1, 4, 16, WGMMA),
+                                          (4, 4, 16, MMA_SYNC)])
+def test_kernels_wrap_past_int32_like_plain(hopper, m, M, N, kernel):
+    """Every digit 127 over K = 140288: each plane product is 127**2 K =
+    2262705152, past 2**31.  Both kernels accumulate in int32 without
+    saturation (no ``.satfinite``), so they wrap, as the reference's
+    int32 accumulation and the plain version do."""
+    K = 274 * 512
+    pa = torch.full((m, M, K), 127, dtype=torch.int8, device=hopper)
+    pb = torch.full((m, N, K), 127, dtype=torch.int8, device=hopper)
+    before = lm.kernel_launches[kernel]
+    got = lm.layered_matmul_kmajor(pa, pb, m=m)
+    torch.cuda.synchronize()
+    assert lm.kernel_launches[kernel] == before + 1
+    want = lm.layered_matmul_plain(pa, pb, m=m)
+    assert torch.equal(got, want)
+    if m == 1:
+        assert (got == -2032262144).all()
+
+
 def test_too_many_planes_raise(hopper):
     z = torch.zeros((5, 8, 16), dtype=torch.int8, device=hopper)
     with pytest.raises(ValueError, match="m <= 4"):
@@ -156,6 +176,14 @@ FLASH_CASES = [
     (1, 300, 130, 4, 2, 128, True, None, torch.bfloat16),  # Sq > Skv
     # bf16 with another head dim stays on the CUDA-core kernel
     (1, 100, 100, 4, 2, 32, True, None, torch.bfloat16),
+    # head dim 256 (recurrentgemma-9b: MQA, a window, ragged S) and head
+    # dim 8 (llama4-maverick's smoke config, padded to 16) on the CUDA-core
+    # kernel
+    (1, 300, 300, 16, 1, 256, True, 100, torch.bfloat16),
+    (1, 300, 300, 16, 1, 256, True, 100, torch.float32),
+    (2, 130, 130, 4, 2, 256, False, None, torch.float32),
+    (2, 100, 100, 8, 2, 8, True, None, torch.bfloat16),
+    (1, 77, 77, 8, 2, 8, True, 16, torch.float32),
 ]
 
 
@@ -444,34 +472,34 @@ def test_ssm_block_bf16_on_card_matches_host(rng, hopper, S):
                                atol=1e-2, rtol=1e-2)
 
 
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev)
-
-
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", [
+    "llama3-8b", "mamba2-370m", "yi-6b", "glm4-9b", "starcoder2-7b",
+    "recurrentgemma-9b", "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b"])
 def test_smoke_model_on_card_matches_host(rng, hopper, arch):
     """forward and prefill+decode of the smoke configs (fp32) on the card,
-    through the kernels, against the host's plain versions."""
+    through the kernels, against the host's plain versions.  Every
+    attention layer (dense, moe, local_attn) launches flash attention once
+    a forward, every ssm layer the SSD scan; the MoE configs run at a
+    capacity that drops nothing, so decode equals forward."""
     import dataclasses
 
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import convert, moe
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(registry.get_smoke_config(arch),
-                              compute_dtype="float32")
+    cfg = moe.lossless_capacity(dataclasses.replace(
+        registry.get_smoke_config(arch), compute_dtype="float32"))
+    layers = [k for unit, reps in T.block_groups(cfg) for k in unit * reps]
     params = T.init_params(cfg, seed=0, device="cpu")
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 21)))
     want, _ = T.forward(params, toks, cfg)
-    pc = _to(params, hopper)
+    pc = convert.to_torch(params, hopper)
     counts = (fa.launches, ss.launches)
     got, _ = T.forward(pc, toks.to(hopper), cfg)
     launched = (fa.launches - counts[0], ss.launches - counts[1])
-    assert launched == ((2, 0) if arch == "llama3-8b" else (0, 2))
+    assert launched == (sum(k != "ssm" and k != "rglru" for k in layers),
+                        layers.count("ssm"))
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     _, cache = T.prefill(pc, toks[:, :20].to(hopper), cfg, max_len=24)
     step, _ = T.decode_step(pc, toks[:, 20:].to(hopper), cache, 20, cfg)

@@ -48,6 +48,10 @@ def test_port_has_modules_and_smoke_script():
             "kernels/flash_attention.py", "kernels/ssd_scan.py",
             "configs/base.py", "configs/registry.py", "models/layers.py",
             "models/ssm.py", "models/transformer.py", "models/convert.py",
+            "models/rglru.py", "models/moe.py", "configs/yi_6b.py",
+            "configs/glm4_9b.py", "configs/starcoder2_7b.py",
+            "configs/recurrentgemma_9b.py", "configs/qwen2_moe_a2_7b.py",
+            "configs/llama4_maverick_400b_a17b.py",
             "runtime/master.py", "runtime/gateway.py",
             "runtime/transport/cuda_device.py", "launch/serve.py"} <= names
     for kernel in ("layered_matmul", "flash_attention", "ssd_scan"):
@@ -74,6 +78,9 @@ def test_entry_points_import_with_jax_and_reference_blocked():
         "import repro_torch.models, repro_torch.launch.serve\n"
         "import repro_torch.runtime.gateway, repro_torch.core.progressive\n"
         "import repro_torch.configs.registry\n"
+        "import repro_torch.models.rglru, repro_torch.models.moe\n"
+        "from repro_torch.configs import registry\n"
+        "[registry.get_config(a) for a in registry.ARCH_IDS]\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

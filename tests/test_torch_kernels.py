@@ -175,6 +175,29 @@ def test_out_of_range_operands_wrap_like_reference(rng):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_partials_past_int32_wrap_like_reference():
+    """A layer partial past 2**31 (m = 1, d = 7, K = 140288, every digit
+    127: 127**2 K = 2262705152) wraps in the port's plain partials as in
+    the reference's int32 accumulation, in its Pallas kernel (interpret
+    mode) and in ``layering.layered_matmul_jnp``; a straight float-to-int32
+    cast would saturate at -2**31."""
+    m, d, K, M, N = 1, 7, 274 * 512, 8, 8
+    A = np.full((K, M), 127, np.int32)
+    B = np.full((K, N), 127, np.int32)
+    wrapped = np.int64(127 * 127 * K - (1 << 32))
+    want = np.asarray(jops.layered_matmul_partials(
+        jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
+    assert (want == wrapped).all() and wrapped == -2032262144
+    got = ops.layered_matmul_partials(torch.from_numpy(A),
+                                      torch.from_numpy(B), m=m, d=d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = layering.layered_matmul_torch(torch.from_numpy(A),
+                                        torch.from_numpy(B), m=m, d=d)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jl.layered_matmul_jnp(
+            jnp.asarray(A), jnp.asarray(B), m=m, d=d)))
+
+
 def test_kernel_call_keeps_reference_layout_and_errors(rng):
     m, d, K, M, N = 2, 7, 48, 12, 20
     A, B = _operands(rng, m, d, K, M, N)
@@ -295,6 +318,8 @@ FLASH_CASES = [
     (2, 64, 4, 4, 16, False, None, jnp.float32),
     (1, 512, 2, 2, 128, True, None, jnp.float32),
     (1, 128, 2, 2, 64, True, None, jnp.bfloat16),
+    (1, 128, 4, 1, 256, True, 48, jnp.float32),  # recurrentgemma: MQA
+    (1, 64, 8, 2, 8, True, None, jnp.float32),   # llama4 smoke: dh 8
 ]
 
 
@@ -385,11 +410,15 @@ def test_flash_cpu_path_never_counts_a_launch(rng):
     (torch.float32, 64, "flash_attention"),
     (torch.float32, 128, "flash_attention"),
     (torch.float32, 16, "flash_attention"),
+    (torch.bfloat16, 256, "flash_attention"),
+    (torch.float32, 256, "flash_attention"),
+    (torch.bfloat16, 8, "flash_attention"),
+    (torch.float32, 8, "flash_attention"),
 ])
 def test_flash_routing_by_dtype_and_head_dim(dtype, dh, want):
     """bf16 with dh 64/128 goes to the tensor-core kernel; fp32 (whose 3e-5
-    TF32 would not hold) and the other bf16 head dims to the CUDA-core
-    kernel."""
+    TF32 would not hold) and the other bf16 head dims, 256 and 8 (padded
+    to 16) among them, to the CUDA-core kernel."""
     from repro_torch.kernels import flash_attention as fa
     assert fa.kernel_for(dtype, dh) == want
     assert want in fa.KERNELS
@@ -398,7 +427,7 @@ def test_flash_routing_by_dtype_and_head_dim(dtype, dh, want):
 @pytest.mark.parametrize("dtype,dh,error", [
     (torch.float16, 64, TypeError),
     (torch.float64, 128, TypeError),
-    (torch.bfloat16, 256, ValueError),
+    (torch.bfloat16, 512, ValueError),
     (torch.float32, 24, ValueError),
     (torch.bfloat16, 0, ValueError),
 ])

@@ -227,7 +227,10 @@ def test_server_defaults_to_cuda(monkeypatch):
         ProgressiveServer(cfg, params, device="meta")
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b-smoke", "mamba2-370m-smoke"])
+@pytest.mark.parametrize("arch", [
+    "llama3-8b-smoke", "mamba2-370m-smoke", "yi-6b-smoke", "glm4-9b-smoke",
+    "starcoder2-7b-smoke", "recurrentgemma-9b-smoke", "qwen2-moe-a2.7b-smoke",
+    "llama4-maverick-400b-a17b-smoke"])
 def test_main_serves_smoke_arch_on_cpu(capsys, arch):
     assert serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                        "--prompt-len", "12", "--gen", "3"]) == 0
