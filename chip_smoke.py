@@ -25,7 +25,7 @@ main paths and checks what comes out:
 4. main path 2, the coded runtime on the ``cuda`` worker backend: a
    verified run, then a full-width K=M=N=4096 run whose released final
    resolutions are held against the exact float64 product on the card;
-5. the two flash-attention kernels against their plain version: the
+5. the three flash-attention kernels against their plain version: the
    tensor-core kernel (bf16, dh 64/128) at the llama3-8b prefill shape
    (causal, GQA) and on bf16 twins of a ragged windowed case and a
    non-causal case, the CUDA-core kernel on the fp32 cases; each case
@@ -35,11 +35,14 @@ main paths and checks what comes out:
    route) and fp32, each held against the plain version before it is
    timed, the plain version's times, ``scaled_dot_product_attention``'s
    (``library_ms``, a yardstick the port never calls) and the bound.
-   The CUDA-core kernel at head dim 256 (recurrentgemma-9b: MQA, a
-   2048-token window that binds at S = 4096) and head dim 8 (padded to
-   16), in bf16 and fp32, and timed at recurrentgemma-9b's prefill shape
-   beside the plain version, SDPA and the bound; the tensor-core kernel
-   also at qwen2-moe-a2.7b's prefill shape (MHA, H = kv = 16), timed;
+   Head dim 256 (recurrentgemma-9b: MQA, a 2048-token window that binds
+   at S = 4096) on the dh-256 tensor-core kernel in bf16 and on the
+   CUDA-core kernel in fp32, the former timed at recurrentgemma-9b's
+   prefill shape beside the CUDA-core kernel in bf16 (its earlier route,
+   held against the plain version first), the plain version, SDPA and the
+   bound; head dim 8 (padded to 16) on the CUDA-core kernel; the
+   tensor-core kernel also at qwen2-moe-a2.7b's prefill shape (MHA,
+   H = kv = 16), timed;
 6. the two SSD chunk-scan kernels against their plain version, in bf16
    x/B/C as the model hands them over: the tensor-core kernel at the
    mamba2-370m prefill shape, at one prompt (B=1), with an initial state,
@@ -55,7 +58,7 @@ main paths and checks what comes out:
    qwen2-moe-a2.7b (all 24 layers), random weights from a seed: prefill
    4 x 1024 tokens (launch counts reset before it: 32 flash launches, all
    on the tensor-core kernel; 48 SSD launches, all on the tensor-core
-   kernel; 12 flash launches, all on the CUDA-core kernel at head dim 256;
+   kernel; 12 flash launches, all on the dh-256 tensor-core kernel;
    24 flash launches, all on the tensor-core kernel; then one more prefill
    under ``torch.profiler`` for the kernel's share of the prefill's device
    time and the kernels that take the most; then, on the flash paths, one
@@ -72,7 +75,7 @@ main paths and checks what comes out:
    releases resolution 0 only, a generous one all 2m-1;
 9. one ``{"kernels": [...]}`` line with every kernel's launches on its
    main path, its largest difference from its plain version, its times
-   and its bound.
+   and its bound (and those of its other timed main-path shapes).
 
 Each phase prints one JSON line.  The card's name and power limit follow,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -102,8 +105,8 @@ PEAK_BYTES = 3.35e12
 
 #: Every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu).
 KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul",
-                  "flash_attention", "flash_attention_wgmma", "ssd_scan",
-                  "ssd_scan_wgmma"]
+                  "flash_attention", "flash_attention_wgmma",
+                  "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 #: recurrentgemma-9b's local attention: MQA at head dim 256, window 2048
@@ -191,11 +194,12 @@ def random_ints(torch, gen, m: int, d: int, shape, dev):
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from ``nvcc -Xptxas -v``: the kernel's
-    name and mangled template arguments, registers and spill bytes (ptxas
-    prints a kernel's spills before its registers)."""
+    name (the last length-prefixed identifier of the mangled name) and
+    mangled template arguments, registers and spill bytes (ptxas prints a
+    kernel's spills before its registers)."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"entry function '.*?([a-z][a-z_]*_kernel)"
+        m = re.search(r"entry function '.*\d([a-z][a-z0-9_]*_kernel)"
                       r"(?:I(\w*?)E+v|E)", line)
         if m:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
@@ -482,12 +486,12 @@ def phase_flash_vs_plain(torch, dev):
                                     True, None, bf, 2e-2, fa.WGMMA),
         # head dim 256 with the window binding (S = 2 windows), MQA
         "dh256_window2048_s4096_bf16": (1, 4096, 16, 1, 256, True, 2048, bf,
-                                        2e-2, fa.CUDA_CORE),
+                                        2e-2, fa.WGMMA_D256),
         "dh256_window2048_s4096_fp32": (1, 4096, 16, 1, 256, True, 2048, f32,
                                         3e-5, fa.CUDA_CORE),
         "recurrentgemma_9b_prefill": (R["B"], R["S"], R["H"], R["kv"],
                                       R["dh"], True, R["window"], bf, 2e-2,
-                                      fa.CUDA_CORE),
+                                      fa.WGMMA_D256),
         # head dim 8 (llama4-maverick's smoke config), padded to 16
         "dh8_bf16": (2, 256, 8, 2, 8, True, None, bf, 2e-2, fa.CUDA_CORE),
         "dh8_fp32": (2, 256, 8, 2, 8, True, None, f32, 3e-5, fa.CUDA_CORE),
@@ -587,8 +591,23 @@ def phase_flash_vs_plain(torch, dev):
                         - want.float()).abs().max().item()
             bound_ms, bound_by = flash_bound(B, S, S, H, kv, dh, causal,
                                              window, 2, PEAK_BF16_FLOPS)
+            # the unrounded fp32 result, as at the llama3-8b shape
+            exact = fa.flash_attention_gqa_plain(
+                *(t.float() for t in (q, k, v)), causal=causal,
+                window=window).double()
+            rms = lambda t: (t.double() - exact).pow(2).mean().sqrt().item()
+            # the CUDA-core kernel in bf16 (this shape's route before the
+            # dh-256 tensor-core kernel), held against the plain version
+            # before it is timed
+            cuda_core = lambda: fa._launch(q, k, v, causal, window,
+                                           kernel=fa.CUDA_CORE)
+            core_err = (cuda_core().float() - want.float()).abs().max().item()
+            if not core_err <= tol:
+                raise AssertionError(f"{name}: {fa.CUDA_CORE} differs from "
+                                     f"plain by {core_err} (tolerance {tol})")
             ms = cuda_ms(torch, call)
-            dev_ms = device_ms(torch, call, "flash_attention_kernel")
+            dev_ms = device_ms(torch, call,
+                               "flash_attention_wgmma_d256_kernel")
             row.update(
                 ms=ms, kernel_device_ms=dev_ms,
                 plain_ms=cuda_ms(torch, plain, runs=5),
@@ -596,8 +615,14 @@ def phase_flash_vs_plain(torch, dev):
                 library_max_abs_err_vs_plain=sdpa_err,
                 bound_ms=bound_ms, bound_by=bound_by,
                 bound_share=bound_ms / ms,
-                bound_share_of_device_ms=bound_ms / dev_ms)
-            del qt, kt, vt
+                bound_share_of_device_ms=bound_ms / dev_ms,
+                rms_err_vs_fp32=rms(got), plain_rms_err_vs_fp32=rms(want),
+                cuda_core_bf16={
+                    "max_abs_err": core_err, "tolerance": tol,
+                    "ms": cuda_ms(torch, cuda_core, runs=5),
+                    "kernel_device_ms": device_ms(torch, cuda_core,
+                                                  "flash_attention_kernel")})
+            del qt, kt, vt, exact
         rows[name] = row
         del q, k, v, got, want
         torch.cuda.empty_cache()
@@ -990,9 +1015,10 @@ def phase_serve_mamba(torch, dev):
 
 def phase_serve_recurrentgemma(torch, dev):
     from repro_torch.kernels import flash_attention as fa
-    # the 12 local-attention layers, head dim 256: the CUDA-core kernel
-    row = _serve(torch, dev, "recurrentgemma-9b", fa, 12, fa.CUDA_CORE,
-                 "flash_attention_kernel")
+    # the 12 local-attention layers, head dim 256: the dh-256 tensor-core
+    # kernel
+    row = _serve(torch, dev, "recurrentgemma-9b", fa, 12, fa.WGMMA_D256,
+                 "flash_attention_wgmma_d256_kernel")
     emit(dict(phase="serve_recurrentgemma_9b", **row))
     return row
 
@@ -1185,13 +1211,14 @@ def main() -> int:
             "max_abs_err": max(errs), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None})
-    for name, cmp_phase, serve_phases, main_case, replaces in (
+    for name, cmp_phase, serve_phases, main_case, timed_cases, replaces in (
             ("flash_attention", "flash_attention_vs_plain",
              ("serve_llama3_8b", "serve_recurrentgemma_9b",
               "serve_qwen2_moe_a2_7b"), "llama3_8b_prefill",
+             ("recurrentgemma_9b_prefill", "qwen2_moe_a2_7b_prefill"),
              "src/repro/kernels/flash_attention.py:85"),
             ("ssd_scan", "ssd_scan_vs_plain", ("serve_mamba2_370m",),
-             "mamba2_370m_prefill", "src/repro/kernels/ssd_scan.py:84")):
+             "mamba2_370m_prefill", (), "src/repro/kernels/ssd_scan.py:84")):
         if cmp_phase not in results or not all(p in results
                                                for p in serve_phases):
             continue
@@ -1207,6 +1234,13 @@ def main() -> int:
                 by_source[src] = by_source.get(src, 0) + n
         # every source of the kernel, the most launched first
         sources = sorted(by_source, key=lambda s: -by_source[s])
+        # the timed rows of the kernel's other main-path shapes
+        others = {c: {k: results[cmp_phase][c][k]
+                      for k in ("kernel", "ms", "kernel_device_ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
+                  for c in timed_cases
+                  if "ms" in results[cmp_phase].get(c, {})}
         kernels.append({
             "name": name, "route": "cuda",
             "source": ", ".join(f"src/repro_torch/kernels/csrc/{src}.cu"
@@ -1218,7 +1252,7 @@ def main() -> int:
                                for r in results[cmp_phase].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"], "other_shapes": others})
     if kernels:
         emit({"kernels": kernels})
     if failed:

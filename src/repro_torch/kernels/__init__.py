@@ -7,10 +7,11 @@
                     mma.sync; replaces the TPU kernel in
                     repro/kernels/layered_matmul.py)
   flash_attention   online-softmax attention, causal skip, window, GQA
-                    (CUDA C++, two kernels routed by dtype and head dim:
-                    csrc/flash_attention_wgmma.cu, bf16 dh 64/128 on the
-                    tensor cores; csrc/flash_attention.cu, fp32 and the
-                    other head dims on the CUDA cores; replaces
+                    (CUDA C++, three kernels routed by dtype and head dim:
+                    csrc/flash_attention_wgmma.cu, bf16 dh 64/128, and
+                    csrc/flash_attention_wgmma_d256.cu, bf16 dh 256, on
+                    the tensor cores; csrc/flash_attention.cu, fp32 and
+                    the other head dims on the CUDA cores; replaces
                     repro/kernels/flash_attention.py)
   ssd_scan          the fused Mamba2 SSD chunk scan with carried state
                     (CUDA C++, two kernels routed by dtype and shape:

@@ -31,13 +31,15 @@
 // half-warp.  Query tiles are scheduled longest first (causal tiles near
 // the end of the sequence have the most key tiles).
 //
-// Head dims 16..128 in steps of 16 stage at most 116,736 B; dh 256
-// (recurrentgemma-9b's local attention) stages 4 * (64*256 + 64*260 +
-// 64*256 + 64*68) = 215,040 B of fp32 tiles, under the 232,448 B a block
-// may opt into, so one CTA per SM, each thread holding a 4 x 16 output
-// block.  Head dim 8 arrives zero-padded to 16 by the wrapper.  This
-// kernel is the fp32 route and the bf16 route of every head dim the
-// tensor-core kernel (flash_attention_wgmma.cu, dh 64/128) does not take.
+// Head dims 16..128 in steps of 16 stage at most 116,736 B; dh 256 stages
+// 4 * (64*256 + 64*260 + 64*256 + 64*68) = 215,040 B of fp32 tiles, under
+// the 232,448 B a block may opt into, so one CTA per SM, each thread
+// holding a 4 x 16 output block.  Head dim 8 arrives zero-padded to 16 by
+// the wrapper.  This kernel is the fp32 route (dh 256 among it: 3e-5
+// rules out TF32) and the bf16 route of dh 8 and 16..112 other than 64.
+// bf16 at dh 64/128 goes to flash_attention_wgmma.cu and bf16 at dh 256
+// (recurrentgemma-9b's local attention) to flash_attention_wgmma_d256.cu,
+// both on the tensor cores.
 //
 // Plain C interface (bound with ctypes): pointers and the stream are
 // passed as void*, and the entry returns cudaGetLastError() after launch.

@@ -1,4 +1,4 @@
-"""Flash attention: two CUDA kernels + plain version.
+"""Flash attention: three CUDA kernels + plain version.
 
 Port of the TPU kernel ``flash_attention_kernel_call``
 (``src/repro/kernels/flash_attention.py:85``): online-softmax attention
@@ -8,30 +8,34 @@ key blocks above the diagonal, an optional sliding window
 q's dtype.  Positions are the row indices: query ``i`` and key ``j`` sit
 at positions ``i`` and ``j``.
 
-On a CUDA tensor the wrappers launch one of two hand-written Hopper
+On a CUDA tensor the wrappers launch one of three hand-written Hopper
 kernels, chosen by :func:`kernel_for` from ``(dtype, head_dim)``:
 
 - ``flash_attention_wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16 with
-  head dims 64 and 128, the serving path (every published config the
-  kernel takes; the models compute in bf16).  Both products run on the
-  tensor cores (``wgmma``, fp32 accumulation; P V takes P as two bf16
-  halves, so the output is as close to the fp32 result as the plain
-  version's), K and V come by TMA through two-stage rings; bounded by
-  the tensor cores' bf16 rate.
+  head dims 64 and 128 (llama3-8b, qwen2-moe-a2.7b and every other
+  published config but recurrentgemma-9b; the models compute in bf16).
+  Both products run on the tensor cores (``wgmma``, fp32 accumulation;
+  P V takes P as two bf16 halves, so the output is as close to the fp32
+  result as the plain version's), K and V come by TMA through two-stage
+  rings; bounded by the tensor cores' bf16 rate.
+- ``flash_attention_wgmma_d256`` (``csrc/flash_attention_wgmma_d256.cu``):
+  bf16 with head dim 256, recurrentgemma-9b's local attention.  The same
+  products and precision rule; a producer warpgroup issues the TMA loads
+  and two consumer warpgroups share each K/V tile (two query heads of one
+  kv group, or two adjacent query tiles where the group size is odd).
 - ``flash_attention`` (``csrc/flash_attention.cu``): fp32 with head dims
-  16..128 in steps of 16 and 256, and bf16 with the other head dims of
-  those (recurrentgemma-9b's local attention has head dim 256).  Its math
-  is fp32 FMAs on the CUDA cores: fp32 inputs must hold the reference's
-  3e-5, which TF32 would not, so fp32 never goes to the tensor cores.
-  Head dim 8 (llama4-maverick's smoke config) reaches it zero-padded to
-  16 by the wrapper: the padded lanes add nothing to q k^T, their output
-  columns are dropped, and the scale stays 1/sqrt(8).
+  16..128 in steps of 16 and 256, and bf16 with head dims 16..112 other
+  than 64.  Its math is fp32 FMAs on the CUDA cores: fp32 inputs must
+  hold the reference's 3e-5, which TF32 would not, so fp32 never goes to
+  the tensor cores.  Head dim 8 (llama4-maverick's smoke config) reaches
+  it zero-padded to 16 by the wrapper: the padded lanes add nothing to
+  q k^T, their output columns are dropped, and the scale stays 1/sqrt(8).
 
-Both read GQA K/V in place through their strides and take any
-``Sq``/``Skv``; both are held against the same plain version.  On a CPU
+All three read GQA K/V in place through their strides and take any
+``Sq``/``Skv``; all are held against the same plain version.  On a CPU
 tensor the wrappers run :func:`flash_attention_plain`.  There is no
-fallback: a CUDA tensor that neither kernel takes raises, and so does a
-failed launch.  :data:`launches` counts every launch;
+fallback: a CUDA tensor that no kernel takes raises, and so does a
+failed build or launch.  :data:`launches` counts every launch;
 :data:`kernel_launches` counts them per kernel.
 """
 
@@ -53,19 +57,21 @@ __all__ = ["NEG_INF", "KERNELS", "kernel_for", "flash_attention_plain",
 #: The TPU kernel's finite mask value (a fully masked row stays finite).
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
-#: The two kernels, by source name (``csrc/<name>.cu``).
+#: The three kernels, by source name (``csrc/<name>.cu``).
 WGMMA = "flash_attention_wgmma"
+WGMMA_D256 = "flash_attention_wgmma_d256"
 CUDA_CORE = "flash_attention"
-KERNELS = (WGMMA, CUDA_CORE)
+KERNELS = (WGMMA, WGMMA_D256, CUDA_CORE)
 
-#: Kernel launches so far, of both kernels (incremented only where a CUDA
+#: Kernel launches so far, of all kernels (incremented only where a CUDA
 #: kernel is launched; a caller resets it to 0 to count one run).
 launches = 0
 #: The same count per kernel; a caller resets each entry to 0 with it.
 kernel_launches = dict.fromkeys(KERNELS, 0)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_WGMMA_HEAD_DIMS = (64, 128)
+#: The tensor-core kernels and the bf16 head dims each takes.
+_TENSOR_CORE_HEAD_DIMS = {WGMMA: (64, 128), WGMMA_D256: (256,)}
 #: Head dims the CUDA-core kernel is built for; the wrapper pads the
 #: others of :data:`_PADDED_HEAD_DIMS` with zeros up to one of them.
 _CUDA_CORE_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
@@ -96,10 +102,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes ``(dtype, head_dim)`` on the card.
 
-    bf16 with head dim 64 or 128 -> :data:`WGMMA` (tensor cores); fp32
-    with head dims 8, 16..128 in steps of 16 and 256, and bf16 with the
-    other head dims of those -> :data:`CUDA_CORE` (head dim 8 zero-padded
-    to 16).  Raises ``TypeError`` for another dtype and ``ValueError`` for
+    bf16 with head dim 64 or 128 -> :data:`WGMMA` and bf16 with head dim
+    256 -> :data:`WGMMA_D256` (tensor cores); fp32 with head dims 8,
+    16..128 in steps of 16 and 256, and bf16 with head dims 8 and 16..112
+    other than 64 -> :data:`CUDA_CORE` (head dim 8 zero-padded to 16).
+    Raises ``TypeError`` for another dtype and ``ValueError`` for
     another head dim.
     """
     if dtype not in _DTYPE_CODE:
@@ -109,8 +116,10 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
             and head_dim not in _PADDED_HEAD_DIMS):
         raise ValueError(f"flash attention kernels take head dims 8, "
                          f"16..128 in steps of 16 and 256, got {head_dim}")
-    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
-        return WGMMA
+    if dtype == torch.bfloat16:
+        for name, dims in _TENSOR_CORE_HEAD_DIMS.items():
+            if head_dim in dims:
+                return name
     return CUDA_CORE
 
 
@@ -166,9 +175,10 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     chosen = kernel_for(q.dtype, dh)
     kernel = kernel or chosen
-    if kernel == WGMMA and chosen != WGMMA:
-        raise ValueError(f"{WGMMA} takes bfloat16 with head dims "
-                         f"{_WGMMA_HEAD_DIMS}, got {q.dtype}, {dh}")
+    if kernel in _TENSOR_CORE_HEAD_DIMS and kernel != chosen:
+        raise ValueError(f"{kernel} takes bfloat16 with head dims "
+                         f"{_TENSOR_CORE_HEAD_DIMS[kernel]}, got {q.dtype}, "
+                         f"{dh}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous along head_dim")
     _build.require_hopper(dev, kernel)
@@ -176,13 +186,14 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
     run_dh = _PADDED_HEAD_DIMS.get(dh, dh)
     if run_dh != dh:
         q, k, v = (F.pad(t, (0, run_dh - dh)) for t in (q, k, v))
-    if kernel == WGMMA:
+    tensor_core = kernel in _TENSOR_CORE_HEAD_DIMS
+    if tensor_core:
         q, k, v = (_tma_operand(t) for t in (q, k, v))
     fn = _entry(kernel)
     out = torch.empty((B, Sq, H, run_dh), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in _strides(t)))
-    head = () if kernel == WGMMA else (_DTYPE_CODE[q.dtype],)
+    head = () if tensor_core else (_DTYPE_CODE[q.dtype],)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

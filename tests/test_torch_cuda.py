@@ -176,10 +176,21 @@ FLASH_CASES = [
     (1, 300, 130, 4, 2, 128, True, None, torch.bfloat16),  # Sq > Skv
     # bf16 with another head dim stays on the CUDA-core kernel
     (1, 100, 100, 4, 2, 32, True, None, torch.bfloat16),
-    # head dim 256 (recurrentgemma-9b: MQA, a window, ragged S) and head
-    # dim 8 (llama4-maverick's smoke config, padded to 16) on the CUDA-core
-    # kernel
+    # head dim 256 in bf16 on its tensor-core kernel: recurrentgemma-9b's
+    # MQA with a ragged S and a binding window, a GQA group of 2, H = n_kv
+    # (two row tiles of one head per CTA, the second past Sq), non-causal,
+    # Sq != Skv both ways (the second with rows that keep no key in their
+    # window), and S = 4096 with window 2048 (key tiles skipped on both
+    # sides)
     (1, 300, 300, 16, 1, 256, True, 100, torch.bfloat16),
+    (2, 200, 200, 4, 2, 256, True, None, torch.bfloat16),
+    (1, 257, 257, 2, 2, 256, True, None, torch.bfloat16),
+    (2, 130, 130, 4, 1, 256, False, None, torch.bfloat16),
+    (1, 77, 300, 4, 2, 256, True, None, torch.bfloat16),
+    (1, 300, 130, 4, 1, 256, False, 7, torch.bfloat16),
+    (1, 4096, 4096, 16, 1, 256, True, 2048, torch.bfloat16),
+    # head dim 256 in fp32 and head dim 8 (llama4-maverick's smoke config,
+    # padded to 16) on the CUDA-core kernel
     (1, 300, 300, 16, 1, 256, True, 100, torch.float32),
     (2, 130, 130, 4, 2, 256, False, None, torch.float32),
     (2, 100, 100, 8, 2, 8, True, None, torch.bfloat16),
@@ -199,10 +210,13 @@ def _flash_inputs(rng, B, Sq, Skv, H, kv, dh, dtype, dev, q_scale=1.0):
 
 def _want_kernel(dtype, dh):
     """The routing rule, written out: bf16 with dh 64/128 on the tensor
-    cores, everything else on the CUDA cores."""
+    cores, bf16 with dh 256 on the dh-256 tensor-core kernel, everything
+    else (fp32 at dh 256 among it) on the CUDA cores."""
     from repro_torch.kernels import flash_attention as fa
     if dtype == torch.bfloat16 and dh in (64, 128):
         return fa.WGMMA
+    if dtype == torch.bfloat16 and dh == 256:
+        return fa.WGMMA_D256
     return fa.CUDA_CORE
 
 
@@ -226,29 +240,33 @@ def test_flash_kernel_matches_plain(rng, hopper, B, Sq, Skv, H, kv, dh,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dh,window", [(128, None), (64, 7)])
+@pytest.mark.parametrize("dh,window", [(128, None), (64, 7), (256, None),
+                                       (256, 7)])
 def test_flash_wgmma_large_scores_rescale(rng, hopper, dh, window):
     """q scaled by 8: scores spread over a wide range, so the running max
     moves often and the online rescale carries the result."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _flash_inputs(rng, 2, 512, 512, 8, 2, dh, torch.bfloat16,
                             hopper, q_scale=8.0)
-    before = fa.kernel_launches[fa.WGMMA]
+    kernel = _want_kernel(torch.bfloat16, dh)
+    before = fa.kernel_launches[kernel]
     got = ops.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    assert fa.kernel_launches[fa.WGMMA] == before + 1
+    assert fa.kernel_launches[kernel] == before + 1
     want = fa.flash_attention_gqa_plain(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
 
 
-def test_flash_wgmma_takes_strided_views(rng, hopper):
+@pytest.mark.parametrize("dh", [128, 256])
+def test_flash_wgmma_takes_strided_views(rng, hopper, dh):
     """q, k, v as views of (B, heads, S, dh) tensors, and v at an offset
     that is no multiple of 16 bytes: the wrapper copies what TMA cannot
     read, and the result is the same."""
     from repro_torch.kernels import flash_attention as fa
-    B, S, H, kv, dh = 2, 200, 4, 2, 128
+    B, S, H, kv = 2, 200, 4, 2
     bf = torch.bfloat16
+    kernel = _want_kernel(bf, dh)
     q = torch.tensor(rng.normal(size=(B, H, S, dh)), dtype=bf,
                      device=hopper).transpose(1, 2)
     k = torch.tensor(rng.normal(size=(B, kv, S, dh)), dtype=bf,
@@ -257,10 +275,10 @@ def test_flash_wgmma_takes_strided_views(rng, hopper):
                         device=hopper)
     v = flat[1:].view(B, S, kv, dh)
     assert v.data_ptr() % 16 != 0
-    before = fa.kernel_launches[fa.WGMMA]
+    before = fa.kernel_launches[kernel]
     got = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert fa.kernel_launches[fa.WGMMA] == before + 1
+    assert fa.kernel_launches[kernel] == before + 1
     want = fa.flash_attention_gqa_plain(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
@@ -275,16 +293,18 @@ def test_flash_kernel_call_bhsd_layout(rng, hopper):
     torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
 
 
-def test_flash_wgmma_kernel_call_bhsd_layout(rng, hopper):
+@pytest.mark.parametrize("dh", [64, 256])
+def test_flash_wgmma_kernel_call_bhsd_layout(rng, hopper, dh):
     """The TPU kernel's (BH, S, dh) layout in bf16 reaches the tensor-core
-    kernel as H = n_kv = 1."""
+    kernels as H = n_kv = 1."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = (torch.tensor(rng.normal(size=(6, 96, 64)),
+    q, k, v = (torch.tensor(rng.normal(size=(6, 96, dh)),
                             dtype=torch.bfloat16, device=hopper)
                for _ in range(3))
-    before = fa.kernel_launches[fa.WGMMA]
+    kernel = _want_kernel(torch.bfloat16, dh)
+    before = fa.kernel_launches[kernel]
     got = fa.flash_attention_kernel_call(q, k, v, causal=True, window=40)
-    assert fa.kernel_launches[fa.WGMMA] == before + 1
+    assert fa.kernel_launches[kernel] == before + 1
     want = fa.flash_attention_plain(q, k, v, causal=True, window=40)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)

@@ -319,6 +319,7 @@ FLASH_CASES = [
     (1, 512, 2, 2, 128, True, None, jnp.float32),
     (1, 128, 2, 2, 64, True, None, jnp.bfloat16),
     (1, 128, 4, 1, 256, True, 48, jnp.float32),  # recurrentgemma: MQA
+    (1, 128, 4, 1, 256, True, 48, jnp.bfloat16),
     (1, 64, 8, 2, 8, True, None, jnp.float32),   # llama4 smoke: dh 8
 ]
 
@@ -345,6 +346,32 @@ def test_flash_attention_matches_jax_interpret(rng, B, S, H, kv, dh, causal,
     tol = 2e-2 if dtype == jnp.bfloat16 else 3e-5
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_rows_without_keys_take_the_mean_of_v(rng, dtype):
+    """Sq > Skv + window, not causal: rows from Skv + window - 1 on have no
+    key inside the window.  The reference's finite mask gives every key
+    the same weight there, so such a row is the mean of V (the dh-256
+    tensor-core kernel skips key tiles below the window only where no row
+    of its tile is like this)."""
+    B, Sq, Skv, H, kv, dh, window = 1, 96, 40, 4, 1, 256, 7
+    q = jnp.asarray(rng.normal(size=(B, Sq, H, dh)), dtype)
+    k = jnp.asarray(rng.normal(size=(B, Skv, kv, dh)), dtype)
+    v = jnp.asarray(rng.normal(size=(B, Skv, kv, dh)), dtype)
+    want = np.asarray(jops.flash_attention(q, k, v, causal=False,
+                                           window=window, interpret=True),
+                      np.float32)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=False,
+                              window=window).float().numpy()
+    tol = 2e-2 if dtype == jnp.bfloat16 else 3e-5
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    mean_v = np.asarray(v, np.float32).mean(axis=1)          # (B, kv, dh)
+    no_key = Skv + window - 1
+    np.testing.assert_allclose(got[:, no_key:],
+                               np.broadcast_to(mean_v[:, None],
+                                               got[:, no_key:].shape),
+                               atol=tol, rtol=tol)
 
 
 def test_flash_plain_matches_host_oracle(rng):
@@ -410,18 +437,48 @@ def test_flash_cpu_path_never_counts_a_launch(rng):
     (torch.float32, 64, "flash_attention"),
     (torch.float32, 128, "flash_attention"),
     (torch.float32, 16, "flash_attention"),
-    (torch.bfloat16, 256, "flash_attention"),
+    (torch.bfloat16, 256, "flash_attention_wgmma_d256"),
     (torch.float32, 256, "flash_attention"),
     (torch.bfloat16, 8, "flash_attention"),
     (torch.float32, 8, "flash_attention"),
 ])
 def test_flash_routing_by_dtype_and_head_dim(dtype, dh, want):
-    """bf16 with dh 64/128 goes to the tensor-core kernel; fp32 (whose 3e-5
-    TF32 would not hold) and the other bf16 head dims, 256 and 8 (padded
-    to 16) among them, to the CUDA-core kernel."""
+    """bf16 with dh 64/128 goes to the tensor-core kernel and bf16 with dh
+    256 to the dh-256 tensor-core kernel; fp32 (whose 3e-5 TF32 would not
+    hold) at every head dim, 256 among them, and the other bf16 head dims,
+    8 (padded to 16) among them, to the CUDA-core kernel."""
     from repro_torch.kernels import flash_attention as fa
     assert fa.kernel_for(dtype, dh) == want
     assert want in fa.KERNELS
+
+
+def test_flash_has_three_kernels_each_with_a_source_and_a_count():
+    """Three kernels, each built from ``csrc/<name>.cu`` and counted in
+    ``kernel_launches``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.KERNELS == (fa.WGMMA, fa.WGMMA_D256, fa.CUDA_CORE)
+    assert len(set(fa.KERNELS)) == 3
+    assert set(fa.kernel_launches) == set(fa.KERNELS)
+    for name in fa.KERNELS:
+        assert (_build.CSRC_DIR / f"{name}.cu").is_file()
+
+
+@pytest.mark.parametrize("kernel,dtype,dh", [
+    ("flash_attention_wgmma_d256", torch.bfloat16, 128),
+    ("flash_attention_wgmma_d256", torch.float32, 256),
+    ("flash_attention_wgmma", torch.bfloat16, 256),
+])
+def test_flash_forced_tensor_core_kernel_takes_only_its_head_dims(kernel,
+                                                                  dtype, dh):
+    """A tensor-core kernel named by the caller must be the one
+    :func:`kernel_for` picks: the wrapper refuses before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 8, 2, dh), dtype=dtype)
+    before = dict(fa.kernel_launches)
+    with pytest.raises(ValueError, match="takes bfloat16 with head dims"):
+        fa._launch(q, q, q, True, None, kernel=kernel)
+    assert fa.kernel_launches == before
 
 
 @pytest.mark.parametrize("dtype,dh,error", [
