@@ -42,7 +42,9 @@ main paths and checks what comes out:
    held against the plain version first), the plain version, SDPA and the
    bound; head dim 8 (padded to 16) on the CUDA-core kernel; the
    tensor-core kernel also at qwen2-moe-a2.7b's prefill shape (MHA,
-   H = kv = 16), timed;
+   H = kv = 16), at whisper-tiny's cross-attention (1024 queries against
+   1500 frames, non-causal) and at internvl2-1b's prefill (a GQA group of
+   7), each timed beside SDPA and the bound;
 6. the two SSD chunk-scan kernels against their plain version, in bf16
    x/B/C as the model hands them over: the tensor-core kernel at the
    mamba2-370m prefill shape, at one prompt (B=1), with an initial state,
@@ -53,13 +55,17 @@ main paths and checks what comes out:
    before it is timed, the plain version's times and the bounds at the
    bf16 tensor-core and the fp32 rates (no library call computes the
    scan);
-7. main paths 3 to 6, ``launch.serve.ProgressiveServer`` at the full
-   width of llama3-8b, mamba2-370m, recurrentgemma-9b (all 38 layers) and
-   qwen2-moe-a2.7b (all 24 layers), random weights from a seed: prefill
+7. main paths 3 to 8, ``launch.serve.ProgressiveServer`` at the full
+   width of llama3-8b, mamba2-370m, recurrentgemma-9b (all 38 layers),
+   qwen2-moe-a2.7b (all 24 layers), whisper-tiny (4 encoder and 4
+   decoder layers, seeded frame embeddings (4, 1500, 384)) and
+   internvl2-1b (all 24 layers, 256 seeded patch embeddings), random
+   weights from a seed: prefill
    4 x 1024 tokens (launch counts reset before it: 32 flash launches, all
    on the tensor-core kernel; 48 SSD launches, all on the tensor-core
    kernel; 12 flash launches, all on the dh-256 tensor-core kernel;
-   24 flash launches, all on the tensor-core kernel; then one more prefill
+   24 flash launches, all on the tensor-core kernel; 12 and 24 on the
+   tensor-core kernel; then one more prefill
    under ``torch.profiler`` for the kernel's share of the prefill's device
    time and the kernels that take the most; then, on the flash paths, one
    more prefill with every flash call held against the plain version on
@@ -70,12 +76,26 @@ main paths and checks what comes out:
    then yi-6b, glm4-9b, starcoder2-7b and llama4-maverick-400b-a17b at
    their smoke widths: the card's forward against the host's on the same
    parameters, decode against forward, and serving through the server;
-8. main path 5, the ``deadline_ms`` mode with the head as runtime jobs on
+8. the ``deadline_ms`` mode with the head as runtime jobs on
    the ``cuda`` backend, at the llama3-8b smoke width: an expired deadline
    releases resolution 0 only, a generous one all 2m-1;
-9. one ``{"kernels": [...]}`` line with every kernel's launches on its
-   main path, its largest difference from its plain version, its times
+9. training (``launch.train.train_loop``, AdamW, lr 3e-4, warmup 2, on
+   ``SyntheticLM`` at 4 x 1024 tokens, full width): internvl2-1b 20 steps
+   (flash attention in the forward pass), mamba2-370m 20 (the SSD scan)
+   and whisper-tiny 10 (flash attention, cross-attention among it).  For
+   each, one step with launch counts reset before it (24, 48 and 12
+   launches, all on the tensor-core kernels), every gradient finite and
+   those of the attention and SSD parameters nonzero in every layer, the
+   step's loss and gradient norm against the same step through the
+   kernels' plain versions, falling loss over the run, and one step under
+   ``torch.profiler``;
+10. one ``{"kernels": [...]}`` line with every kernel's launches on its
+   main paths, its largest difference from its plain version, its times
    and its bound (and those of its other timed main-path shapes).
+
+After every phase the dh-256 flash kernel's fault word is read
+(``kernels.flash_attention.check_faults``): a ring wait that gave up
+fails the phase.
 
 Each phase prints one JSON line.  The card's name and power limit follow,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -86,6 +106,7 @@ without the repository beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -112,6 +133,11 @@ LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 #: recurrentgemma-9b's local attention: MQA at head dim 256, window 2048
 RGEMMA_PREFILL = dict(B=4, S=1024, H=16, kv=1, dh=256, window=2048)
 QWEN_MOE_PREFILL = dict(B=4, S=1024, H=16, kv=16, dh=128)  # qwen2-moe, MHA
+#: whisper-tiny's cross-attention (a 4 x 1024-token prompt against the
+#: 1500 encoder frames, MHA, non-causal) and internvl2-1b's prefill (GQA
+#: with a group of 7)
+WHISPER_CROSS = dict(B=4, S=1024, Skv=1500, H=6, kv=6, dh=64)
+INTERNVL_PREFILL = dict(B=4, S=1024, H=14, kv=2, dh=64)
 MAMBA_PREFILL = dict(B=4, S=1024, H=32, P=64, N=128, chunk=256)
 SERVE = dict(batch=4, prompt=1024, gen=16)
 #: decode_step at position S against forward over S+1 tokens, in bf16:
@@ -124,6 +150,18 @@ DECODE_TOL = 5e-2
 #: version on the same inputs: max |diff| / max |plain|, the bf16 budget
 #: of the parity tests
 SERVED_FLASH_TOL = 2e-2
+#: a train step's loss and gradient norm through the kernels against the
+#: same step with every kernel replaced by its plain version: relative
+#: difference, the bf16 budget of the parity tests
+TRAIN_VS_PLAIN_TOL = 2e-2
+#: the trained configs: steps of train_loop (batch 4 x 1024, AdamW, lr
+#: 3e-4, warmup 2), the kernel module and kernel of the forward pass, and
+#: its launches in one step's forward
+TRAIN = {"internvl2-1b": (20, "flash_attention", "flash_attention_wgmma",
+                          24),
+         "mamba2-370m": (20, "ssd_scan", "ssd_scan_wgmma", 48),
+         "whisper-tiny": (10, "flash_attention", "flash_attention_wgmma",
+                          12)}
 
 SEED = 0
 HEAD = dict(K=4096, M=64, N=128256, m=2, d=7)      # llama3-8b LM head
@@ -212,6 +250,36 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
+def sass_summary(lib) -> dict:
+    """Per device function of a built library (``cuobjdump -sass``): the
+    highest register it names (R0..R254; a warpgroup that ``setmaxnreg``
+    gives 240 registers may name up to R239), its local-memory stores
+    and loads (``STL``/``LDL``: spills) and its ``setmaxnreg``
+    instructions (``USETMAXREG``, with their register counts)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, row = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            row = out.setdefault(m.group(1), {"max_register": -1, "STL": 0,
+                                              "LDL": 0, "USETMAXREG": []})
+            continue
+        if row is None:
+            continue
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+        if regs:
+            row["max_register"] = max(row["max_register"], max(regs))
+        for op in ("STL", "LDL"):
+            row[op] += len(re.findall(rf"\b{op}\b", line))
+        m = re.search(r"(USETMAXREG[^;]*)", line)
+        if m and m.group(1).strip() not in row["USETMAXREG"]:
+            row["USETMAXREG"].append(m.group(1).strip())
+    return out
+
+
 def phase_environment(torch, dev):
     from repro_torch.kernels import _build
     smi = subprocess.run(
@@ -219,7 +287,7 @@ def phase_environment(torch, dev):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build_all(KERNEL_SOURCES)
+    libs = _build.build_all(KERNEL_SOURCES)
     wall = time.perf_counter() - t0
     emit({"phase": "environment", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(dev),
@@ -233,7 +301,11 @@ def phase_environment(torch, dev):
           # ptxas's performance notes, e.g. C7520: every wgmma serialized
           "ptxas_notes": [line.strip() for n in KERNEL_SOURCES
                           for line in _build.build_log[n]["ptxas"].splitlines()
-                          if "(C75" in line]})
+                          if "(C75" in line],
+          # the warp-specialised kernel: registers the raised consumers use
+          # and spills, which -Xptxas -v does not show per warpgroup
+          "sass_flash_attention_wgmma_d256": sass_summary(
+              libs["flash_attention_wgmma_d256"])})
     return smi
 
 
@@ -469,8 +541,11 @@ def phase_flash_vs_plain(torch, dev):
     L = LLAMA_PREFILL
     R = RGEMMA_PREFILL
     Q = QWEN_MOE_PREFILL
+    W = WHISPER_CROSS
+    IV = INTERNVL_PREFILL
     bf, f32 = torch.bfloat16, torch.float32
-    # name: (B, S, H, kv, dh, causal, window, dtype, tolerance, kernel)
+    # name: (B, S or (Sq, Skv), H, kv, dh, causal, window, dtype, tolerance,
+    # kernel)
     cases = {
         "llama3_8b_prefill": (L["B"], L["S"], L["H"], L["kv"], L["dh"], True,
                               None, bf, 2e-2, fa.WGMMA),
@@ -495,13 +570,20 @@ def phase_flash_vs_plain(torch, dev):
         # head dim 8 (llama4-maverick's smoke config), padded to 16
         "dh8_bf16": (2, 256, 8, 2, 8, True, None, bf, 2e-2, fa.CUDA_CORE),
         "dh8_fp32": (2, 256, 8, 2, 8, True, None, f32, 3e-5, fa.CUDA_CORE),
+        # whisper-tiny's cross-attention: Skv = 1500 is no multiple of the
+        # 64-key tile; internvl2-1b's GQA group of 7
+        "whisper_tiny_cross": (W["B"], (W["S"], W["Skv"]), W["H"], W["kv"],
+                               W["dh"], False, None, bf, 2e-2, fa.WGMMA),
+        "internvl2_1b_prefill": (IV["B"], IV["S"], IV["H"], IV["kv"],
+                                 IV["dh"], True, None, bf, 2e-2, fa.WGMMA),
     }
     rows = {}
     for name, (B, S, H, kv, dh, causal, window, dtype, tol,
                kernel) in cases.items():
-        q = torch.randn((B, S, H, dh), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, S, kv, dh), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, S, kv, dh), generator=gen, device=dev).to(dtype)
+        Sq, Skv = S if isinstance(S, tuple) else (S, S)
+        q = torch.randn((B, Sq, H, dh), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, Skv, kv, dh), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, Skv, kv, dh), generator=gen, device=dev).to(dtype)
         call = lambda: ops.flash_attention(q, k, v, causal=causal,
                                            window=window)
         plain = lambda: fa.flash_attention_gqa_plain(q, k, v, causal=causal,
@@ -518,8 +600,8 @@ def phase_flash_vs_plain(torch, dev):
         if not err <= tol or not torch.isfinite(got).all():
             raise AssertionError(f"{name}: kernel differs from plain by "
                                  f"{err} (tolerance {tol})")
-        row = {"shape": dict(B=B, S=S, H=H, kv=kv, dh=dh, causal=causal,
-                             window=window, dtype=str(dtype)),
+        row = {"shape": dict(B=B, S=Sq, Skv=Skv, H=H, kv=kv, dh=dh,
+                             causal=causal, window=window, dtype=str(dtype)),
                "kernel": kernel, "max_abs_err": err, "tolerance": tol}
         if name == "llama3_8b_prefill":
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -623,6 +705,24 @@ def phase_flash_vs_plain(torch, dev):
                     "kernel_device_ms": device_ms(torch, cuda_core,
                                                   "flash_attention_kernel")})
             del qt, kt, vt, exact
+        elif name in ("whisper_tiny_cross", "internvl2_1b_prefill"):
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            sdpa_err = (sdpa().transpose(1, 2).float()
+                        - want.float()).abs().max().item()
+            bound_ms, bound_by = flash_bound(B, Sq, Skv, H, kv, dh, causal,
+                                             window, 2, PEAK_BF16_FLOPS)
+            ms = cuda_ms(torch, call)
+            dev_ms = device_ms(torch, call, "flash_attention_wgmma_kernel")
+            row.update(ms=ms, kernel_device_ms=dev_ms,
+                       plain_ms=cuda_ms(torch, plain, runs=5),
+                       library_ms=cuda_ms(torch, sdpa),
+                       library_max_abs_err_vs_plain=sdpa_err,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       bound_share=bound_ms / ms,
+                       bound_share_of_device_ms=bound_ms / dev_ms)
+            del qt, kt, vt
         rows[name] = row
         del q, k, v, got, want
         torch.cuda.empty_cache()
@@ -845,7 +945,9 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
     the kernels named ``kernel_name``), the decode step against forward,
     16 tokens unbudgeted and 16 at budget 1.  Where the path runs flash
     attention, one more prefill holds each of its calls against the plain
-    version (:func:`served_flash_vs_plain`).
+    version (:func:`served_flash_vs_plain`).  A vlm or encoder-decoder
+    config gets seeded stub frontend inputs with its prompt
+    (``models.transformer.stub_extras``).
 
     An MoE config's decode-vs-forward check runs on
     ``moe.lossless_capacity``'s copy of it in fp32, on the first prompt (as the JAX package's own
@@ -877,6 +979,8 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                            device=dev)
     prompt = tokens[:, :S]
+    extras = T.stub_extras(cfg, B, dev, seed=SEED + 6)
+    prefill = lambda: server.prefill(prompt, max_len=S + 1 + G, **extras)
 
     fa.launches = ss.launches = lm.launches = 0
     fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
@@ -884,7 +988,7 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
     ss.kernel_launches.update(dict.fromkeys(ss.KERNELS, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last_logits, caches = server.prefill(prompt, max_len=S + 1 + G)
+    last_logits, caches = prefill()
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches,
@@ -897,18 +1001,14 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
             or dict(mine).get(want_kernel) != want_launches):
         raise AssertionError(f"{arch}: prefill launched {by_source}, want "
                              f"{want_launches} of {want_kernel}")
-    profiled = prefill_device_profile(
-        torch, lambda: server.prefill(prompt, max_len=S + 1 + G),
-        kernel_name)
+    profiled = prefill_device_profile(torch, prefill, kernel_name)
     if (last_logits.shape != (B, cfg.vocab_size)
             or not torch.isfinite(last_logits).all()):
         raise AssertionError(f"{arch}: bad prefill logits "
                              f"{tuple(last_logits.shape)}")
     served_flash = None
     if kernel_module is fa:
-        served_flash = served_flash_vs_plain(
-            torch, lambda: server.prefill(prompt, max_len=S + 1 + G),
-            want_kernel)
+        served_flash = served_flash_vs_plain(torch, prefill, want_kernel)
         if served_flash["calls"] != want_launches:
             raise AssertionError(f"{arch}: {served_flash['calls']} flash "
                                  f"calls checked, want {want_launches}")
@@ -929,7 +1029,7 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
     got, _ = T.decode_step(params, check_tokens[:, S:], check_caches, S,
                            check_cfg)
     del check_caches
-    full, _ = T.forward(params, check_tokens, check_cfg)
+    full, _ = T.forward(params, check_tokens, check_cfg, **extras)
     want = full[:, -1].float()
     del full
     rel = ((got.float() - want).abs().max() / want.abs().max()).item()
@@ -966,7 +1066,8 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
     head_ms = [cuda_ms(torch, lambda l=l: progressive.plane_step(
         server.lm_head, h32, l), runs=5) for l in range(server.m)]
     row = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size,
+           "vocab": cfg.vocab_size, "encoder_layers": cfg.encoder_layers,
+           "stub_inputs": {k: list(v.shape) for k, v in extras.items()},
            "params_billion": T.count_params(params) / 1e9,
            "batch": B, "prompt": S, "gen": G,
            "m": server.m, "d": server.d,
@@ -991,6 +1092,7 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     server.close()
     del params, server, caches, tokens, prompt, got, want, hidden, series
+    del extras, prefill
     torch.cuda.empty_cache()
     return row
 
@@ -1029,6 +1131,211 @@ def phase_serve_qwen2_moe(torch, dev):
                  "flash_attention_wgmma_kernel")
     emit(dict(phase="serve_qwen2_moe_a2_7b", **row))
     return row
+
+
+def phase_serve_whisper(torch, dev):
+    from repro_torch.kernels import flash_attention as fa
+    # 4 encoder self-attentions (non-causal, 1500 frames), 4 decoder
+    # self-attentions (causal) and 4 cross-attentions (1024 queries
+    # against the 1500 frames), all on the tensor-core kernel
+    row = _serve(torch, dev, "whisper-tiny", fa, 12, fa.WGMMA,
+                 "flash_attention_wgmma_kernel")
+    emit(dict(phase="serve_whisper_tiny", **row))
+    return row
+
+
+def phase_serve_internvl(torch, dev):
+    from repro_torch.kernels import flash_attention as fa
+    # 24 causal GQA attentions with a group of 7 (H = 14, kv = 2), the
+    # first 256 positions the stub patch embeddings
+    row = _serve(torch, dev, "internvl2-1b", fa, 24, fa.WGMMA,
+                 "flash_attention_wgmma_kernel")
+    emit(dict(phase="serve_internvl2_1b", **row))
+    return row
+
+
+class plain_kernels:
+    """While open, the differentiable wrappers of ``kernels.ops`` run the
+    plain versions of the flash and SSD kernels on the card (a check only,
+    like :func:`served_flash_vs_plain`): the same step without the
+    kernels."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ssd_scan as ss
+        self.saved = fa.flash_attention_gqa, ss.ssd_scan_kernel_call
+        fa.flash_attention_gqa = fa.flash_attention_gqa_plain
+        ss.ssd_scan_kernel_call = (
+            lambda x, dt, A, Bm, Cm, *, init_state=None:
+            ss.ssd_scan_plain(x, dt, A, Bm, Cm, init_state))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ssd_scan as ss
+        fa.flash_attention_gqa, ss.ssd_scan_kernel_call = self.saved
+
+
+#: the gradients that a dropped autograd graph through a kernel would
+#: zero: every attention projection (self, cross and encoder) and the SSD
+#: block's input projections, A_log and dt_bias
+NONZERO_GRADS = ("wq", "wk", "wv", "wo", "gate_proj", "x_proj", "B_proj",
+                 "C_proj", "dt_proj", "A_log", "dt_bias")
+
+
+def check_grads(torch, arch: str, grads) -> dict:
+    """Every gradient finite; each of :data:`NONZERO_GRADS` nonzero in
+    every layer of its stack.  Returns counts of what was checked."""
+    from repro_torch import tree
+    checked = nonzero = 0
+    bad = [("/".join(map(str, path)), (~torch.isfinite(g)).sum().item(),
+            g.numel()) for path, g in tree.leaves_with_path(grads)
+           if not torch.isfinite(g).all()]
+    if bad:
+        raise AssertionError(f"{arch}: gradients not finite (name, count, "
+                             f"of): {bad}")
+    for path, g in tree.leaves_with_path(grads):
+        name = "/".join(map(str, path))
+        checked += 1
+        if path[-1] in NONZERO_GRADS:
+            per_layer = g.reshape(g.shape[0], -1).abs().amax(dim=1)
+            if not (per_layer > 0).all():
+                raise AssertionError(f"{arch}: gradient of {name} is zero "
+                                     f"in layers "
+                                     f"{(per_layer == 0).nonzero().tolist()}")
+            nonzero += 1
+    return {"finite": checked, "nonzero_in_every_layer": nonzero}
+
+
+def _train(torch, dev, arch: str) -> dict:
+    """Train ``arch`` at full width (remat off: the step fits without it,
+    and the kernel's launches are the forward's alone).  ``train_loop``'s
+    first step (its batch and seeded stub inputs) has its gradients
+    checked (:func:`check_grads`) and its loss and gradient norm held
+    against the same step through the kernels' plain versions; then
+    ``train_loop`` runs, and one more step runs under
+    ``torch.profiler``."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import global_norm
+    n_steps, module, kernel, want = TRAIN[arch]
+    mod = {"flash_attention": fa, "ssd_scan": ss}[module]
+    cfg = dataclasses.replace(registry.get_config(arch), remat_policy="none")
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=3e-4, warmup_steps=2)
+    B, S = SERVE["batch"], SERVE["prompt"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                       seed=SEED, device=str(dev))
+    b = data.batch_at(0)
+    # train_loop's stub inputs (seeded; ROADMAP R7)
+    batch = dict(T.stub_extras(cfg, B, dev, seed=SEED), tokens=b.tokens,
+                 targets=b.targets)
+    grad_fn = steps.make_grad_fn(cfg, tcfg)
+
+    mod.launches = 0
+    mod.kernel_launches.update(dict.fromkeys(mod.KERNELS, 0))
+    loss, metrics, grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(mod.kernel_launches)
+    if mod.launches != want or launches[kernel] != want:
+        raise AssertionError(f"{arch}: one step launched {launches}, want "
+                             f"{want} of {kernel}")
+    if metrics["params_without_grad"]:
+        raise AssertionError(f"{arch}: {metrics['params_without_grad']} "
+                             f"parameters got no gradient")
+    if not math.isfinite(loss.item()):
+        raise AssertionError(f"{arch}: step 1 loss {loss.item()}")
+    grad_counts = check_grads(torch, arch, grads)
+    gnorm = global_norm(grads).item()
+    del grads
+    with plain_kernels():
+        before = dict(mod.kernel_launches)
+        plain_loss, _, plain_grads = grad_fn(params, batch)
+        if dict(mod.kernel_launches) != before:
+            raise AssertionError(f"{arch}: the plain step launched a kernel")
+        plain_gnorm = global_norm(plain_grads).item()
+    del plain_grads
+    vs_plain = {"loss": loss.item(), "plain_loss": plain_loss.item(),
+                "grad_norm": gnorm, "plain_grad_norm": plain_gnorm}
+    for key in ("loss", "grad_norm"):
+        rel = abs(vs_plain[key] - vs_plain[f"plain_{key}"]) / abs(
+            vs_plain[f"plain_{key}"])
+        vs_plain[f"{key}_rel_diff"] = rel
+        if not rel <= TRAIN_VS_PLAIN_TOL:
+            raise AssertionError(f"{arch}: step 1 {key} {vs_plain[key]} "
+                                 f"against plain {vs_plain[f'plain_{key}']}")
+    del params, batch, b
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train.train_loop(cfg, tcfg, batch=B, seq=S, steps=n_steps,
+                               log_every=1, seed=SEED, device=dev)
+    losses = [l for _, l in out["losses"]]
+    if (len(losses) != n_steps or not all(math.isfinite(l) for l in losses)
+            or not statistics.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"{arch}: losses {losses} do not fall")
+
+    # one more step under the profiler: device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+    train_step, _ = steps.make_train_step(cfg, tcfg)
+    b = data.batch_at(n_steps)
+    batch = dict(T.stub_extras(cfg, B, dev, seed=SEED), tokens=b.tokens,
+                 targets=b.targets)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = train_step(out["params"], out["opt_state"], batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+    name = {"flash_attention": "flash_attention_wgmma_kernel",
+            "ssd_scan": SSD_WGMMA_PROFILE}[module]
+    kernel_ms = sum(e.device_time_total for e in rows if name in e.key) / 1e3
+    all_ms = sum(e.device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.device_time_total)[:8]
+    row = {"arch": arch, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "remat_policy": cfg.remat_policy,
+           "batch": B, "seq": S, "steps": n_steps,
+           "optimizer": tcfg.optimizer, "learning_rate": tcfg.learning_rate,
+           "warmup_steps": tcfg.warmup_steps,
+           "schedule_total_steps": tcfg.total_steps,
+           "launches_per_step": launches, "kernel": kernel,
+           "grads_checked": grad_counts, "step1_vs_plain": vs_plain,
+           "step1_vs_plain_tolerance": TRAIN_VS_PLAIN_TOL,
+           "losses": losses,
+           "first_loss": losses[0], "mean_last5_loss":
+               statistics.mean(losses[-5:]),
+           "step_wall_ms_median_after_first": 1e3 * statistics.median(
+               out["step_seconds"][1:]),
+           "step_wall_ms": [1e3 * t for t in out["step_seconds"]],
+           "profiled_step": {"wall_ms": profiled_wall_ms,
+                             "all_device_ms": all_ms,
+                             "kernel_device_ms": kernel_ms,
+                             "kernel_share_of_device": kernel_ms / all_ms,
+                             "top_device_ms": [(e.key[:100], e.count,
+                                                e.device_time_total / 1e3)
+                                               for e in top]},
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del out, batch, b, m
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train(torch, dev):
+    rows = {arch: _train(torch, dev, arch) for arch in TRAIN}
+    emit({"phase": "train", "archs": rows})
+    return rows
 
 
 #: the smoke configs served on the card, with the flash launches of one
@@ -1173,6 +1480,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import flash_attention as fa
 
     failed = []
     results = {}
@@ -1187,10 +1495,16 @@ def main() -> int:
                         ("serve_recurrentgemma_9b",
                          phase_serve_recurrentgemma),
                         ("serve_qwen2_moe_a2_7b", phase_serve_qwen2_moe),
+                        ("serve_whisper_tiny", phase_serve_whisper),
+                        ("serve_internvl2_1b", phase_serve_internvl),
                         ("serve_smoke_archs", phase_serve_smoke_archs),
-                        ("serve_deadline", phase_serve_deadline)):
+                        ("serve_deadline", phase_serve_deadline),
+                        ("train", phase_train)):
         try:
             results[name] = phase(torch, dev)
+            # the dh-256 flash kernel's ring waits record a give-up in a
+            # device word: a phase that launched it fails if one did
+            fa.check_faults()
         except Exception:      # reported, and the run fails below
             traceback.print_exc()
             emit({"phase": name, "ok": False})
@@ -1214,8 +1528,10 @@ def main() -> int:
     for name, cmp_phase, serve_phases, main_case, timed_cases, replaces in (
             ("flash_attention", "flash_attention_vs_plain",
              ("serve_llama3_8b", "serve_recurrentgemma_9b",
-              "serve_qwen2_moe_a2_7b"), "llama3_8b_prefill",
-             ("recurrentgemma_9b_prefill", "qwen2_moe_a2_7b_prefill"),
+              "serve_qwen2_moe_a2_7b", "serve_whisper_tiny",
+              "serve_internvl2_1b"), "llama3_8b_prefill",
+             ("recurrentgemma_9b_prefill", "qwen2_moe_a2_7b_prefill",
+              "whisper_tiny_cross", "internvl2_1b_prefill"),
              "src/repro/kernels/flash_attention.py:85"),
             ("ssd_scan", "ssd_scan_vs_plain", ("serve_mamba2_370m",),
              "mamba2_370m_prefill", (), "src/repro/kernels/ssd_scan.py:84")):
@@ -1223,14 +1539,17 @@ def main() -> int:
                                                for p in serve_phases):
             continue
         row = results[cmp_phase][main_case]
-        # launches per prefill on each serve path, counted from 0 before it,
-        # in all and by source
-        by_path = {p: results[p]["launches_per_prefill"][name]
-                   for p in serve_phases}
+        # launches on each main path, counted from 0 before it, by source:
+        # per served prefill, and per train step (its forward pass)
+        paths = {p: results[p]["launches_per_prefill_by_source"][name]
+                 for p in serve_phases}
+        for arch, trow in results.get("train", {}).items():
+            if TRAIN[arch][1] == name:
+                paths[f"train_{arch}"] = trow["launches_per_step"]
+        by_path = {p: sum(n.values()) for p, n in paths.items()}
         by_source = {}
-        for p in serve_phases:
-            for src, n in results[p]["launches_per_prefill_by_source"][
-                    name].items():
+        for counts in paths.values():
+            for src, n in counts.items():
                 by_source[src] = by_source.get(src, 0) + n
         # every source of the kernel, the most launched first
         sources = sorted(by_source, key=lambda s: -by_source[s])

@@ -1,4 +1,5 @@
-"""Model configs: the attention, SSM and model dataclasses.
+"""Configs: the attention, SSM and model dataclasses, shape cells and the
+training config.
 
 Carried over from the JAX package's ``configs/base.py`` with the same
 fields and defaults, so a config reads the same in both packages.  Only
@@ -8,9 +9,12 @@ published hyper-parameters) and ``smoke_config()`` (a reduced config of
 the same family for CPU tests); :mod:`repro_torch.configs.registry`
 resolves ``--arch <id>`` strings.
 
-The port's models run the ``dense``, ``moe``, ``ssm``, ``rglru`` and
-``local_attn`` layer kinds; the encoder-decoder and vision extras raise
-(ROADMAP §1).
+The port's models run every layer kind of the JAX package (``dense``,
+``moe``, ``ssm``, ``rglru``, ``local_attn``, ``cross``) and its audio
+and vision extras.  ``TrainConfig`` keeps the reference's fields; the
+two that need more than one device (``coded_dp``,
+``layered_grad_planes``) raise in ``launch.train`` (ROADMAP §1 items 7
+and 9).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Optional
 import torch
 
 __all__ = ["AttentionConfig", "MoEConfig", "SSMConfig", "RGLRUConfig",
-           "ModelConfig"]
+           "ModelConfig", "ShapeConfig", "SHAPES", "TrainConfig"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -120,7 +124,9 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     kv_cache_dtype: str = ""              # "" = compute dtype; "int8" packs
-    # scan/remat (the JAX package's; the port runs eagerly and ignores them)
+    # scan/remat: the port runs eagerly and ignores scan_layers; a
+    # remat_policy other than "none" recomputes each layer in backward
+    # (models.transformer.forward_train)
     remat_policy: str = "minimal"         # none|minimal|full
     scan_layers: bool = True
     # layered-resolution serving (the paper's technique)
@@ -142,3 +148,42 @@ class ModelConfig:
 
     def pdtype(self) -> torch.dtype:
         return _torch_dtype(self.param_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                             # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"              # adamw | adafactor
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    # coded data parallelism across pods (ROADMAP §1 item 9)
+    coded_dp: bool = False
+    coded_dp_k: int = 0                   # 0 -> n_pods (no redundancy)
+    # layered gradient all-reduce (ROADMAP §1 item 7)
+    layered_grad_planes: int = 0          # 0 = off
+    # cast fp32 master weights to the compute dtype before use (the
+    # reference's FSDP all-gathers then move bf16)
+    bf16_weight_gather: bool = False
+    # differentiate with respect to the compute-dtype weight copy; the
+    # gradients are cast to fp32 for the optimizer update
+    bf16_grads: bool = False

@@ -89,7 +89,8 @@
 // Plain C interface (bound with ctypes).  The entry returns 0, a
 // cudaError_t from the launch, kErrNoEncoder if the driver has no
 // cuTensorMapEncodeTiled, or kErrTensorMap + CUresult if a tensor map was
-// refused.
+// refused.  flash_attention_wgmma_d256_faults reads (and clears) the word
+// that records a ring wait that gave up.
 
 #include <float.h>
 
@@ -140,13 +141,19 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Set (never cleared by a launch) when a wait_phase gave up; read and
+// cleared by flash_attention_wgmma_d256_faults.
+__device__ unsigned int g_wait_gave_up = 0;
+
 // Wait until the phase of `bar` with this parity has completed.  Unlike
 // the header's mbar_wait, a wait that outlasts any load by orders of
 // magnitude gives up instead of trapping: with a trap anywhere in the
 // kernel, ptxas allocated the consumers' registers as if `setmaxnreg` had
-// not raised them (spills and its note C7512).  A fault in the rings then
-// ends the launch with a wrong output, which every check compares, never
-// with a hang.
+// not raised them (spills and its note C7512).  A give-up is recorded in
+// g_wait_gave_up, a plain global atomic, so that a fault in the rings ends
+// the launch with an error the wrapper raises
+// (kernels/flash_attention.py, `check_faults`), never with a hang and
+// never with a wrong output that passes unseen.
 __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
   for (uint32_t tries = 0; tries < (1u << 26); ++tries) {
     uint32_t done;
@@ -157,6 +164,7 @@ __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (done) return;
   }
+  atomicOr(&g_wait_gave_up, 1u);
 }
 
 // Online softmax statistics of one score tile in place: mask (only where
@@ -511,4 +519,18 @@ extern "C" int flash_attention_wgmma_d256_fwd(const void* q, const void* k,
                          static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The give-up word of every launch since the last read, into *word; with
+// `clear`, reset to 0.  Synchronous: the copy from the symbol waits for the
+// launches queued before it on the legacy default stream.
+extern "C" int flash_attention_wgmma_d256_faults(unsigned int* word,
+                                                 int clear) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(word, g_wait_gave_up, sizeof(unsigned int));
+  if (err == cudaSuccess && clear && *word != 0) {
+    const unsigned int zero = 0;
+    err = cudaMemcpyToSymbol(g_wait_gave_up, &zero, sizeof(unsigned int));
+  }
+  return (int)err;
 }

@@ -23,6 +23,9 @@ kernels, chosen by :func:`kernel_for` from ``(dtype, head_dim)``:
   products and precision rule; a producer warpgroup issues the TMA loads
   and two consumer warpgroups share each K/V tile (two query heads of one
   kv group, or two adjacent query tiles where the group size is odd).
+  Its ring waits give up rather than trap (a trap breaks its
+  ``setmaxnreg``); a give-up sets a device word that :func:`check_faults`
+  reads, and raises for.
 - ``flash_attention`` (``csrc/flash_attention.cu``): fp32 with head dims
   16..128 in steps of 16 and 256, and bf16 with head dims 16..112 other
   than 64.  Its math is fp32 FMAs on the CUDA cores: fp32 inputs must
@@ -52,7 +55,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["NEG_INF", "KERNELS", "kernel_for", "flash_attention_plain",
            "flash_attention_kernel_call", "flash_attention_gqa",
-           "flash_attention_gqa_plain", "launches", "kernel_launches"]
+           "flash_attention_gqa_plain", "check_faults", "KernelFault",
+           "launches", "kernel_launches"]
 
 #: The TPU kernel's finite mask value (a fully masked row stays finite).
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -77,6 +81,12 @@ _TENSOR_CORE_HEAD_DIMS = {WGMMA: (64, 128), WGMMA_D256: (256,)}
 _CUDA_CORE_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
 _PADDED_HEAD_DIMS = {8: 16}
 _bound: dict = {}
+#: Devices with dh-256 launches whose give-up word has not been read yet.
+_unchecked: set = set()
+
+
+class KernelFault(RuntimeError):
+    """A kernel reported a fault of its own after it ran."""
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -207,7 +217,39 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
                            f"Skv={Skv} H={H} n_kv={n_kv} dh={dh})")
     launches += 1
     kernel_launches[kernel] += 1
+    if kernel == WGMMA_D256:
+        _unchecked.add(dev)
     return out[..., :dh] if run_dh != dh else out
+
+
+def check_faults() -> None:
+    """Raise :class:`KernelFault` if a ring wait of a
+    :data:`WGMMA_D256` launch gave up since the last check (its output is
+    then wrong); the word is cleared either way.
+
+    Synchronizes the devices that ran such a launch since the last check,
+    and does nothing when none did.
+    """
+    while _unchecked:
+        dev = _unchecked.pop()
+        fn = _bound.get(f"{WGMMA_D256}_faults")
+        if fn is None:
+            fn = getattr(_build.load(WGMMA_D256), f"{WGMMA_D256}_faults")
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            fn.restype = ctypes.c_int
+            _bound[f"{WGMMA_D256}_faults"] = fn
+        word = ctypes.c_uint(0)
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize(dev)
+            err = fn(ctypes.byref(word), 1)
+        if err != 0:
+            raise RuntimeError(f"{WGMMA_D256}: reading its fault word "
+                               f"failed: CUDA error {err}")
+        if word.value:
+            raise KernelFault(
+                f"{WGMMA_D256}: an mbarrier wait gave up on {dev} (a TMA "
+                f"ring fault); the outputs of its launches since the last "
+                f"check are wrong")
 
 
 def _check(q, k, v, window):

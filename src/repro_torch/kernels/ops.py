@@ -2,6 +2,19 @@
 
 Functions on tensors follow the tensor's device: CUDA tensors launch the
 hand-written kernels, CPU tensors run their plain PyTorch versions.
+
+:func:`flash_attention` and :func:`ssd_scan_fused` are differentiable,
+each through one ``torch.autograd.Function``, on every device.  Its
+forward runs the dispatching wrapper under ``no_grad`` (the kernel on the
+card, the plain version on the CPU).  Its backward recomputes the same
+function with grad enabled through the port's counterpart of the JAX
+package's jnp code and differentiates that: query-chunked
+``models.layers.attention`` for attention, the plain chunked
+``models.ssm.ssd_scan`` for the scan.  This is what the JAX package's
+autodiff does (its Pallas kernels have no VJP; it trains through those jnp
+twins), so the card's forward values are the kernels' and its gradients
+the reference's function's.  The kernels take no part in backward: the
+forward's launch counts are the whole step's.
 """
 
 from __future__ import annotations
@@ -11,12 +24,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core import layering
-# flash_attention(q, k, v, *, causal=True, window=None) for (B, S, H, dh)
-# tensors with GQA: kv head h // (H // n_kv) is read in place, no repeat
-from repro_torch.kernels.flash_attention import \
-    flash_attention_gqa as flash_attention
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.layered_matmul import K_ALIGN, layered_matmul_kmajor
-from repro_torch.kernels.ssd_scan import ssd_scan_kernel_call
 
 __all__ = ["layered_matmul", "layered_matmul_partials", "flash_attention",
            "ssd_scan_fused"]
@@ -82,24 +92,131 @@ def layered_matmul(a: torch.Tensor, b: torch.Tensor, *, m: int = 2,
     return torch.cumsum(scaled, dim=0)
 
 
+#: The largest query block of the attention recompute in backward: the
+#: reference trains with 1024-query chunks (``launch/steps.py:_QCHUNK``),
+#: which bound the fp32 scores held at once.
+_BACKWARD_Q_CHUNK = 1024
+
+
+def _q_chunk(Sq: int) -> int:
+    """The largest divisor of ``Sq`` up to :data:`_BACKWARD_Q_CHUNK`
+    (``layers.attention`` takes whole chunks)."""
+    return next(c for c in range(min(Sq, _BACKWARD_Q_CHUNK), 0, -1)
+                if Sq % c == 0)
+
+
+def _attention_twin(q, k, v, causal: bool, window: Optional[int]):
+    """The function the flash kernel computes, as the reference's jnp twin
+    (``models.layers.attention``) at the kernel's positions: query ``i``
+    and key ``j`` at positions ``i`` and ``j``."""
+    from repro_torch.configs.base import AttentionConfig
+    from repro_torch.models.layers import attention
+    B, Sq, H, dh = q.shape
+    Skv, n_kv = k.shape[1], k.shape[2]
+    cfg = AttentionConfig(num_heads=H, num_kv_heads=n_kv, head_dim=dh,
+                          causal=causal, window=window)
+    pos_q = torch.arange(Sq, device=q.device).expand(B, Sq)
+    pos_k = torch.arange(Skv, device=q.device).expand(B, Skv)
+    return attention(q, k, v, pos_q, pos_k, cfg, q_chunk=_q_chunk(Sq))
+
+
+def _recompute_grads(ctx, fn, grads_out):
+    """Gradients of ``fn(*inputs)`` (the saved inputs, recomputed with grad
+    enabled) for the inputs that need one; ``None`` for the others."""
+    inputs = ctx.saved_tensors
+    wanted = [i for i, t in enumerate(inputs)
+              if t is not None and ctx.needs_input_grad[i]]
+    grads = [None] * len(inputs)
+    if not wanted or all(g is None for g in grads_out):
+        return grads
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach() for t in inputs]
+        for i in wanted:
+            leaves[i].requires_grad_(True)
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+        found = torch.autograd.grad([o for o, _ in pairs],
+                                    [leaves[i] for i in wanted],
+                                    [g for _, g in pairs], allow_unused=True)
+    for i, g in zip(wanted, found):
+        grads[i] = g if g is not None else torch.zeros_like(inputs[i])
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash wrapper (kernel on the card); backward: the
+    gradient of :func:`_attention_twin` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.set_materialize_grads(False)
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v)
+        with torch.no_grad():
+            return fa.flash_attention_gqa(q, k, v, causal=causal,
+                                          window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _recompute_grads(
+            ctx, lambda q, k, v: _attention_twin(q, k, v, ctx.causal,
+                                                 ctx.window), (dout,))
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Attention for ``(B, Sq, H, dh)`` q and ``(B, Skv, n_kv, dh)`` k/v
+    with GQA (kv head ``h // (H // n_kv)`` is read in place, no repeat):
+    ``kernels.flash_attention.flash_attention_gqa``, differentiable (see
+    the module docstring)."""
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: the SSD scan wrapper on chunked inputs (kernel on the
+    card); backward: the gradient of the plain chunked ``ssd_scan`` on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        nc = S // chunk
+        with torch.no_grad():
+            y, state = ss.ssd_scan_kernel_call(
+                x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H),
+                A, Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
+                init_state=init_state)
+        return y.reshape(B, S, H, P), state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        from repro_torch.models.ssm import ssd_scan
+        grads = _recompute_grads(
+            ctx, lambda x, dt, A, Bm, Cm, s0: ssd_scan(x, dt, A, Bm, Cm,
+                                                        ctx.chunk, s0),
+            (dy, dstate))
+        return (*grads, None)
+
+
 def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
                    init_state: Optional[torch.Tensor] = None):
-    """Fused-SSD twin of ``repro_torch.models.ssm.ssd_scan`` (G = 1 only).
+    """Fused-SSD twin of ``repro_torch.models.ssm.ssd_scan`` (G = 1 only),
+    differentiable (see the module docstring).
 
     x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm (B, S, 1, N), init_state
     (B, H, P, N) or None -> (y (B, S, H, P) fp32, final_state (B, H, P, N)
     fp32).
     """
-    B, S, H, P = x.shape
-    N = Bm.shape[-1]
     if Bm.shape[-2] != 1 or Cm.shape[-2] != 1:
         raise ValueError(f"one B/C group only, got Bm {tuple(Bm.shape)}")
-    if S % chunk:
-        raise ValueError(f"S={S} not divisible by chunk={chunk}")
-    nc = S // chunk
-    y, state = ssd_scan_kernel_call(
-        x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H), A,
-        Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
-        init_state=init_state)
-    return y.reshape(B, S, H, P), state
+    if x.shape[1] % chunk:
+        raise ValueError(f"S={x.shape[1]} not divisible by chunk={chunk}")
+    return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk)

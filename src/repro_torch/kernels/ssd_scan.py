@@ -95,8 +95,11 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         xdt = x[:, c] * dt[:, c, :, :, None]                 # (B, l, H, P)
         acum = torch.cumsum(A * dt[:, c], dim=1)             # (B, l, H)
         diff = acum[:, :, None, :] - acum[:, None, :, :]     # (B, l, l, H)
-        Lmat = torch.where(causal[None, :, :, None], torch.exp(diff),
-                           torch.zeros((), dtype=f32, device=x.device))
+        # masked before the exp, as the reference's _segsum: above the
+        # diagonal diff > 0 overflows exp, and where(mask, exp(diff), 0)
+        # would carry 0 * inf = NaN into the gradient
+        Lmat = torch.exp(torch.where(causal[None, :, :, None], diff,
+                                     float("-inf")))
         scores = torch.einsum("bin,bjn->bij", Cm[:, c], Bm[:, c])
         y_diag = torch.einsum("bij,bijh,bjhp->bihp", scores, Lmat, xdt)
         y_off = (torch.einsum("bin,bhpn->bihp", Cm[:, c], state)

@@ -25,7 +25,10 @@ Two budget modes, one release contract:
 
 The server runs where its parameters are: the prefill runs the model's
 kernels (flash attention, the SSD scan) there, and decode steps are
-plain PyTorch there.
+plain PyTorch there, both with autograd off.  A vlm config's prefill
+takes its stub patch embeddings (``extra_embeds``), an encoder-decoder's
+its stub frame embeddings (``audio_embeds``); the encoder's K/V ride in
+the caches (``(caches, enc_kvs)``) through every decode step.
 
     python -m repro_torch.launch.serve --arch llama3-8b --batch 4 \\
         --prompt-len 1024 --gen 16                      # on the card
@@ -33,6 +36,8 @@ plain PyTorch there.
         --device cpu --batch 2 --prompt-len 8 --gen 4   # on the host
     python -m repro_torch.launch.serve --arch recurrentgemma-9b-smoke \\
         --device cpu                                    # hybrid, on the host
+    python -m repro_torch.launch.serve --arch whisper-tiny-smoke \\
+        --device cpu                                    # encoder-decoder
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import progressive
+from repro_torch.kernels import flash_attention
 from repro_torch.models import transformer as T
 from repro_torch.runtime import RuntimeConfig, ServingGateway
 
@@ -160,9 +166,19 @@ class ProgressiveServer:
         del exc
         self.close()
 
-    def prefill(self, tokens: torch.Tensor, max_len: int):
-        return T.prefill(self.params, tokens.to(self.device), self.cfg,
-                         max_len=max_len)
+    def prefill(self, tokens: torch.Tensor, max_len: int, **extras):
+        """(last logits, caches) of the prompt; ``extras`` are the
+        model's ``extra_embeds`` / ``audio_embeds``.  Raises
+        ``flash_attention.KernelFault`` if a kernel of the prefill
+        reported a fault of its own."""
+        extras = {k: v.to(self.device) for k, v in extras.items()}
+        with torch.no_grad():
+            out = T.prefill(self.params, tokens.to(self.device), self.cfg,
+                            max_len=max_len, **extras)
+        # synchronizes only after a launch of a kernel that reports
+        # faults (the dh-256 flash kernel)
+        flash_attention.check_faults()
+        return out
 
     def head_series(self, hidden: torch.Tensor) -> torch.Tensor:
         """All ``m`` weight-only head resolutions of ``hidden`` (B, D)."""
@@ -190,8 +206,9 @@ class ProgressiveServer:
         tok = tokens.to(self.device)
         out = []
         for i in range(num_tokens):
-            hidden, caches = T.hidden_step(self.params, tok, caches,
-                                           start_pos + i, self.cfg)
+            with torch.no_grad():
+                hidden, caches = T.hidden_step(self.params, tok, caches,
+                                               start_pos + i, self.cfg)
             if deadline_ms is not None:
                 head = self._runtime_head(int(hidden.shape[0]))
                 logits_np, rel, svc = head.step(
@@ -243,7 +260,9 @@ def main(argv=None) -> int:
     max_len = args.prompt_len + args.gen
     with ProgressiveServer(cfg, params, m=args.planes,
                            device=args.device) as server:
-        _, caches = server.prefill(tokens, max_len)
+        _, caches = server.prefill(tokens, max_len,
+                                   **T.stub_extras(cfg, args.batch,
+                                                   server.device))
         out, stats = server.decode(tokens[:, -1:], caches, args.prompt_len,
                                    args.gen, layer_budget=args.layer_budget,
                                    deadline_ms=args.deadline_ms)

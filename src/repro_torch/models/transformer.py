@@ -1,4 +1,4 @@
-"""Decoder-LM assembly: pattern-grouped layers, prefill and decode.
+"""Decoder-LM assembly: pattern-grouped layers, train, prefill and decode.
 
 The JAX package's ``models/transformer.py`` in PyTorch, for the layer
 kinds
@@ -8,6 +8,7 @@ kinds
   ssm         Mamba2 SSD block (``models.ssm``)
   rglru       RG-LRU recurrent block + MLP (``models.rglru``)
   local_attn  sliding-window GQA + MLP (recurrentgemma's attention layers)
+  cross       encoder-decoder layer: causal self-attn + cross-attn + MLP
 
 An architecture is a sequence of *block groups*, each a repeating
 unit of layer kinds; per-group parameters and caches are stacked on a
@@ -16,11 +17,23 @@ that axis the port runs a Python loop.  There is no ``constrain``: the
 port runs on one device, where the reference's sharding constraints are
 no-ops too.
 
-Prefill's full-sequence self-attention runs the flash kernel
+Full-sequence attention runs the flash kernel
 (``kernels.ops.flash_attention``: its positions are ``arange(S)``, which
 are the positions ``forward`` gives every layer), and the Mamba2 block
-runs the SSD scan kernel; decode stays plain PyTorch, as in the JAX
-package, which has no kernel for it.
+runs the SSD scan kernel; both wrappers are differentiable, so
+:func:`forward_train` trains through them.  Decode stays plain PyTorch, as
+in the JAX package, which has no kernel for it.
+
+The encoder-decoder family (whisper-tiny) runs a non-causal encoder of
+``dense`` layers over stub frame embeddings (``audio_embeds``) once per
+forward; each ``cross`` layer attends to its own K/V projection of the
+encoder output, non-causally, with q not roped (the reference ropes only
+self-attention).  On that attention the kernel's row-index positions are
+exact: nothing is masked, as the reference's all-zero encoder positions
+mask nothing.  An encoder-decoder cache is the pair ``(caches,
+enc_kvs)``.  The vision-language family (internvl2-1b) replaces the first
+``num_image_tokens`` embeddings with stub patch embeddings
+(``extra_embeds``).
 
 A ``local_attn`` layer's cache is a ring of ``W`` (the window) slots:
 position ``p`` lives in slot ``p % W`` and ``pos = -1`` marks an empty
@@ -29,18 +42,19 @@ package's layout; where it is not, the reference keeps the last ``W``
 keys in prompt order and decode overwrites a key still in the window
 (ROADMAP R6), which the ring does not.
 
-The ``cross`` kind, the vlm and audio extras and attention logit
-softcaps raise ``NotImplementedError``: they are later slices of the port
-(ROADMAP §1).
+Attention logit softcaps raise ``NotImplementedError``: the flash kernel,
+like the TPU kernel, has none, and no config sets one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -51,27 +65,17 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 
 __all__ = [
-    "block_groups", "init_params", "init_cache", "forward", "prefill",
-    "decode_step", "hidden_step", "count_params", "active_params",
+    "block_groups", "init_params", "init_cache", "forward", "forward_train",
+    "prefill", "decode_step", "hidden_step", "stub_extras", "count_params",
+    "active_params",
 ]
 
 # Static KV-cache quantization scale (int8 mode), as the reference's.
 _KV_SCALE = 24.0
-_PORTED_KINDS = ("dense", "moe", "ssm", "rglru", "local_attn")
 
 
 def _unsupported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
-    kinds = {k for unit, _ in block_groups(cfg) for k in unit}
-    missing = sorted(kinds - set(_PORTED_KINDS))
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {missing} are not ported yet "
-            f"(ROADMAP §1); the port runs {list(_PORTED_KINDS)}")
-    if cfg.num_image_tokens or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm and audio extras are not ported yet "
-            f"(ROADMAP §1)")
+    """Raise for what the port does not run."""
     if cfg.attention is not None and cfg.attention.attn_logit_softcap:
         raise NotImplementedError(
             f"{cfg.name}: attention logit softcap is not supported (the "
@@ -159,12 +163,15 @@ def _init_layer(gen, kind: str, cfg: ModelConfig, reps: tuple[int, ...],
                 dev) -> dict:
     norm = lambda: L.init_norm(cfg.d_model, cfg.pdtype(), cfg.norm, reps, dev)
     p: dict[str, Any] = {"ln1": norm()}
-    if kind in ("dense", "moe", "local_attn"):
+    if kind in ("dense", "moe", "local_attn", "cross"):
         p["attn"] = _init_attn(gen, cfg, reps, dev)
         p["ln2"] = norm()
         p["ffn"] = (moe_lib.init_moe_params(gen, cfg.d_model, cfg.moe,
                                             cfg.pdtype(), reps, dev)
                     if kind == "moe" else _init_mlp(gen, cfg, reps, dev))
+        if kind == "cross":
+            p["xattn"] = _init_attn(gen, cfg, reps, dev)
+            p["ln_x"] = norm()
     elif kind == "ssm":
         p["ssm"] = ssm_lib.init_ssm_params(gen, cfg.d_model, cfg.ssm,
                                            cfg.pdtype(), reps, dev)
@@ -205,7 +212,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     params["groups"] = [[_init_layer(gen, kind, cfg, (reps,), dev)
                          for kind in unit]
                         for unit, reps in block_groups(cfg)]
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "layers": _init_layer(gen, "dense", _encoder_cfg(cfg),
+                                  (cfg.encoder_layers,), dev),
+            "final_norm": L.init_norm(cfg.d_model, dt, cfg.norm, (), dev)}
     return params
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's config: the decoder's, with non-causal attention."""
+    return dataclasses.replace(
+        cfg, attention=dataclasses.replace(cfg.attention, causal=False))
 
 
 # ---------------------------------------------------------------------------
@@ -213,16 +231,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 # ---------------------------------------------------------------------------
 
 def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, window=None):
-    """Projection + flash self-attention + output projection over a full
-    sequence at ``positions = arange(S)``.  Returns (out, (k, v))."""
+                positions: torch.Tensor, window=None, kv=None):
+    """Projection + flash attention + output projection over a full
+    sequence at ``positions = arange(S)``.  Returns (out, (k, v)).
+
+    With ``kv`` (cross-attention: K/V precomputed from the encoder output)
+    q is not roped and attends non-causally to those keys.
+    """
     a = cfg.attention
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
-    q = L.rope(q, positions, a.rope_theta)
-    k = L.rope(k, positions, a.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=a.causal, window=window)
+    if kv is None:
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        q = L.rope(q, positions, a.rope_theta)
+        k = L.rope(k, positions, a.rope_theta)
+        causal = a.causal
+    else:
+        k, v = kv
+        causal = False
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, (k, v)
 
@@ -240,15 +267,23 @@ def _ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _layer_fwd(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor):
-    """Full-sequence layer forward.  Returns (x, cache_entry)."""
+               positions: torch.Tensor, enc_kv=None):
+    """Full-sequence layer forward.  Returns (x, cache_entry).
+
+    A ``cross`` layer takes its precomputed encoder K/V as ``enc_kv``.
+    """
     norm = lambda n, h: L.apply_norm(cfg.norm, h, n)
-    if kind in ("dense", "moe", "local_attn"):
+    if kind in ("dense", "moe", "local_attn", "cross"):
         window = (_local_window(cfg) if kind == "local_attn"
                   else cfg.attention.window)
         h, (k, v) = _attn_apply(p["attn"], norm(p["ln1"], x), cfg,
                                 positions, window=window)
         x = x + h
+        if kind == "cross":
+            h, _ = _attn_apply(p["xattn"], norm(p["ln_x"], x), cfg,
+                               positions, window=cfg.attention.window,
+                               kv=enc_kv)
+            x = x + h
         x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, kind)
         if kind == "local_attn":
             return x, _ring(k, v, positions, window)
@@ -287,18 +322,31 @@ def _ring(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
     return {"k": kc, "v": vc, "pos": pc}
 
 
+def _cross_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                  pos_b: torch.Tensor, enc_kv) -> torch.Tensor:
+    """One token's cross-attention to the encoder K/V, in plain PyTorch
+    (``layers.attention``) at the reference's positions: the query at
+    ``pos``, the encoder keys all at 0, non-causal; q not roped."""
+    ek, ev = enc_kv
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    acfg = dataclasses.replace(cfg.attention, causal=False)
+    enc_pos = torch.zeros(ek.shape[:2], dtype=torch.int64, device=x.device)
+    out = L.attention(q, ek, ev, pos_b[:, None], enc_pos, acfg)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
 def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
-                  cfg: ModelConfig, pos: int):
+                  cfg: ModelConfig, pos: int, enc_kv=None):
     """Single-token layer step against a cache.  Returns (x, new_cache).
 
     The attention KV cache is written in place at slot ``pos`` (the
     reference's ``dynamic_update_slice``); the returned cache holds the
-    same tensors.
+    same tensors.  A ``cross`` layer takes its encoder K/V as ``enc_kv``.
     """
     norm = lambda n, h: L.apply_norm(cfg.norm, h, n)
     B = x.shape[0]
     pos_b = torch.full((B,), pos, dtype=torch.int64, device=x.device)
-    if kind in ("dense", "moe", "local_attn"):
+    if kind in ("dense", "moe", "local_attn", "cross"):
         a = cfg.attention
         hin = norm(p["ln1"], x)
         ap = p["attn"]
@@ -333,6 +381,9 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
                                      cache_len=pos_b + 1)
         h = torch.einsum("bshk,hkd->bsd", out, ap["wo"].to(x.dtype))
         x = x + h
+        if kind == "cross":
+            x = x + _cross_decode(p["xattn"], norm(p["ln_x"], x), cfg,
+                                  pos_b, enc_kv)
         x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, kind)
         return x, cache
     if kind == "ssm":
@@ -354,7 +405,9 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: str | torch.device = "cuda") -> list:
-    """Stacked zero caches aligned with params['groups']."""
+    """Stacked zero caches aligned with params['groups'] (an
+    encoder-decoder's decoder caches only: its encoder K/V come from
+    :func:`prefill`)."""
     _unsupported(cfg)
     dev = resolve_device(device)
     a = cfg.attention
@@ -391,12 +444,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # Full passes
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params: dict, tokens: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                  extra_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     x = params["embed"][tokens].to(cfg.cdtype())
     if cfg.family == "hybrid":  # gemma-style embedding scale
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if cfg.num_image_tokens and extra_embeds is not None:
+        n = cfg.num_image_tokens
+        x = torch.cat([extra_embeds.to(x.dtype), x[:, n:]], dim=1)
     return x
 
 
@@ -407,27 +464,89 @@ def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ w
 
 
-def _layer_params(group_params: dict, r: int) -> dict:
-    """Layer ``r`` of a group's stacked parameters (views)."""
-    return {n: (_layer_params(v, r) if isinstance(v, dict) else v[r])
-            for n, v in group_params.items()}
+def _unstack(group_params: dict) -> list:
+    """A group's stacked parameters as one dict of views per layer.
+
+    ``torch.unbind``: under autograd its backward stacks the layers'
+    gradients once, where taking layer ``r`` by indexing would fill and
+    add a full-size gradient of the stack for every layer.
+    """
+    per_name = {n: (_unstack(v) if isinstance(v, dict) else torch.unbind(v))
+                for n, v in group_params.items()}
+    reps = len(next(iter(per_name.values())))
+    return [{n: v[r] for n, v in per_name.items()} for r in range(reps)]
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            want_cache: bool = False):
-    """Full-sequence forward.  Returns (logits, cache-or-None)."""
+def _run_layer(remat: bool, kind: str, p: dict, x: torch.Tensor,
+               cfg: ModelConfig, positions: torch.Tensor, enc_kv=None):
+    """One layer's forward; with ``remat`` under grad, its activations
+    are recomputed in backward (``torch.utils.checkpoint``, the
+    reference's ``_remat``) and no cache is kept."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(lambda h: _layer_fwd(kind, p, h, cfg, positions,
+                                               enc_kv)[0],
+                          x, use_reentrant=False), None
+    return _layer_fwd(kind, p, x, cfg, positions, enc_kv)
+
+
+def _encoder_fwd(params: dict, audio_embeds: torch.Tensor, cfg: ModelConfig,
+                 remat: bool = False) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings (B, S_enc, D)."""
+    if audio_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                         f"audio_embeds (B, {cfg.encoder_seq}, "
+                         f"{cfg.d_model})")
+    x = audio_embeds.to(cfg.cdtype())
+    B, S = x.shape[:2]
+    pos = torch.arange(S, dtype=torch.int64, device=x.device).expand(B, S)
+    ecfg = _encoder_cfg(cfg)
+    enc = params["encoder"]
+    for p in _unstack(enc["layers"]):
+        x, _ = _run_layer(remat, "dense", p, x, ecfg, pos)
+    return L.apply_norm(cfg.norm, x, enc["final_norm"])
+
+
+def _enc_cross_kv(params: dict, enc_out: torch.Tensor,
+                  cfg: ModelConfig) -> list:
+    """Per decoder group and unit: the cross-attention K/V of the encoder
+    output, stacked over the group's repeats ``(reps, B, S_enc, n_kv,
+    dh)``."""
+    kvs = []
+    for unit_params in params["groups"]:
+        for p in unit_params:
+            xp = p["xattn"]
+            kvs.append(tuple(
+                torch.einsum("bsd,rdhk->rbshk", enc_out,
+                             xp[w].to(enc_out.dtype)) for w in ("wk", "wv")))
+    return kvs
+
+
+def _forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+             extra_embeds=None, audio_embeds=None, want_cache: bool = False,
+             remat: bool = False):
+    """(logits, caches or None, encoder K/V or None): the encoder runs
+    once, and :func:`prefill` keeps its K/V for decode."""
     _unsupported(cfg)
     B, S = tokens.shape
-    x = _embed_inputs(params, tokens, cfg)
+    x = _embed_inputs(params, tokens, cfg, extra_embeds)
     positions = torch.arange(S, dtype=torch.int64,
                              device=x.device).expand(B, S)
+    enc_kvs = None
+    if cfg.is_encdec:
+        enc_kvs = _enc_cross_kv(
+            params, _encoder_fwd(params, audio_embeds, cfg, remat), cfg)
     caches = []
     for g, (unit, reps) in enumerate(block_groups(cfg)):
         per_layer = [[] for _ in unit]
+        layers = [_unstack(p) for p in params["groups"][g]]
+        cross = [tuple(zip(*map(torch.unbind, enc_kvs[g * len(unit) + u])))
+                 if kind == "cross" else None
+                 for u, kind in enumerate(unit)]
         for r in range(reps):
             for u, kind in enumerate(unit):
-                x, c = _layer_fwd(kind, _layer_params(params["groups"][g][u],
-                                                      r), x, cfg, positions)
+                enc_kv = cross[u][r] if cross[u] else None
+                x, c = _run_layer(remat, kind, layers[u][r], x, cfg,
+                                  positions, enc_kv)
                 if want_cache:
                     per_layer[u].append(c)
         if want_cache:
@@ -435,20 +554,64 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                             for n in cs[0]} for cs in per_layer])
     logits = _head(params, L.apply_norm(cfg.norm, x, params["final_norm"]),
                    cfg)
-    return logits, (caches if want_cache else None)
+    return logits, (caches if want_cache else None), enc_kvs
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            extra_embeds: Optional[torch.Tensor] = None,
+            audio_embeds: Optional[torch.Tensor] = None,
+            want_cache: bool = False):
+    """Full-sequence forward.  Returns (logits, cache-or-None).
+
+    ``extra_embeds`` (B, num_image_tokens, D) replace the first embeddings
+    of a vlm config; ``audio_embeds`` (B, encoder_seq, D) feed an
+    encoder-decoder's encoder.
+    """
+    logits, caches, _ = _forward(params, tokens, cfg,
+                                 extra_embeds=extra_embeds,
+                                 audio_embeds=audio_embeds,
+                                 want_cache=want_cache)
+    return logits, caches
+
+
+def forward_train(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+                  cfg: ModelConfig, *, loss_mask=None, extra_embeds=None,
+                  audio_embeds=None):
+    """Token-mean cross-entropy (fp32 logsumexp).  Returns (loss,
+    metrics).
+
+    A vlm config's image positions carry no loss unless ``loss_mask``
+    says otherwise.  With ``cfg.remat_policy`` other than ``"none"`` every
+    layer is recomputed in backward (``torch.utils.checkpoint``, in place
+    of the reference's ``jax.checkpoint`` policies).
+    """
+    from repro_torch.models.loss import cross_entropy
+    logits, _, _ = _forward(params, tokens, cfg, extra_embeds=extra_embeds,
+                            audio_embeds=audio_embeds,
+                            remat=cfg.remat_policy != "none")
+    if loss_mask is None and cfg.num_image_tokens:
+        B, S = tokens.shape
+        pos = torch.arange(S, device=tokens.device)[None, :]
+        loss_mask = (pos >= cfg.num_image_tokens).expand(B, S)
+    return cross_entropy(logits, targets, loss_mask)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: int):
-    """Run the prompt; returns (last-position logits, caches @ max_len)."""
-    logits, caches = forward(params, tokens, cfg, want_cache=True)
+            max_len: int, *, extra_embeds=None, audio_embeds=None):
+    """Run the prompt; returns (last-position logits, caches @ max_len).
+
+    An encoder-decoder's caches are the pair ``(caches, enc_kvs)``.
+    """
+    logits, caches, enc_kvs = _forward(
+        params, tokens, cfg, extra_embeds=extra_embeds,
+        audio_embeds=audio_embeds, want_cache=True)
     S = tokens.shape[1]
     padded = []
     for g, (unit, _) in enumerate(block_groups(cfg)):
         unit_caches = []
         for u, kind in enumerate(unit):
             c = caches[g][u]
-            if kind in ("dense", "moe"):
+            if kind in ("dense", "moe", "cross"):
                 # (reps, B, S, n_kv, dh) -> (reps, B, max_len, n_kv, dh)
                 c = {n: F.pad(_quant_kv(c[n], cfg),
                               (0, 0, 0, 0, 0, max_len - S))
@@ -458,44 +621,89 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                          v=_quant_kv(c["v"], cfg))
             unit_caches.append(c)
         padded.append(unit_caches)
+    if cfg.is_encdec:
+        return logits[:, -1, :], (padded, enc_kvs)
     return logits[:, -1, :], padded
 
 
-def hidden_step(params: dict, token: torch.Tensor, caches: list, pos: int,
-                cfg: ModelConfig):
+def hidden_step(params: dict, token: torch.Tensor, caches, pos: int,
+                cfg: ModelConfig, *, enc_kvs=None):
     """One decode step up to the final norm: token (B, 1) at position
     ``pos``.  Returns (normed hidden (B, D), caches).
 
     Caches are updated in place: the stacked tensors of ``caches`` hold the
     new entries when this returns (the reference donates them instead).
+    An encoder-decoder's ``caches`` are the pair ``(caches, enc_kvs)``
+    unless ``enc_kvs`` is passed apart; they are returned as given.
     """
     _unsupported(cfg)
     pos = int(pos)
+    given = caches
+    if cfg.is_encdec and enc_kvs is None:
+        caches, enc_kvs = caches
     x = _embed_inputs(params, token, cfg)
     for g, (unit, reps) in enumerate(block_groups(cfg)):
+        layers = [_unstack(p) for p in params["groups"][g]]
         for r in range(reps):
             for u, kind in enumerate(unit):
                 stacked = caches[g][u]
                 layer_cache = {n: t[r] for n, t in stacked.items()}
-                x, new = _layer_decode(
-                    kind, _layer_params(params["groups"][g][u], r), x,
-                    layer_cache, cfg, pos)
+                enc_kv = None
+                if kind == "cross":
+                    ek, ev = enc_kvs[g * len(unit) + u]
+                    enc_kv = (ek[r], ev[r])
+                x, new = _layer_decode(kind, layers[u][r], x, layer_cache,
+                                       cfg, pos, enc_kv)
                 for n, t in new.items():
                     if t is not layer_cache[n]:
                         stacked[n][r].copy_(t)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
-    return x[:, 0, :], caches
+    return x[:, 0, :], given
 
 
-def decode_step(params: dict, token: torch.Tensor, caches: list, pos: int,
-                cfg: ModelConfig):
+def decode_step(params: dict, token: torch.Tensor, caches, pos: int,
+                cfg: ModelConfig, *, enc_kvs=None):
     """One serving step: token (B, 1) at position ``pos``.
 
     Returns (logits (B, V), caches), the caches updated in place (see
     :func:`hidden_step`).
     """
-    hidden, caches = hidden_step(params, token, caches, pos, cfg)
+    hidden, caches = hidden_step(params, token, caches, pos, cfg,
+                                 enc_kvs=enc_kvs)
     return _head(params, hidden, cfg), caches
+
+
+def stub_extras(cfg: ModelConfig, batch: int,
+                device: str | torch.device = "cuda",
+                seed: Optional[int] = None) -> dict:
+    """The frontends' stub inputs: patch embeddings (batch,
+    num_image_tokens, D) for a vlm config, frame embeddings (batch,
+    encoder_seq, D) for an encoder-decoder.
+
+    Zeros, as the reference's drivers give them, unless ``seed`` is given:
+    then standard normal draws from a ``torch.Generator`` on ``device``
+    seeded with it.  Training needs the draws (ROADMAP R7): on zero patch
+    embeddings internvl2-1b's image positions stay exactly zero through
+    every layer, each RMS norm's backward there multiplies the gradient by
+    ``rsqrt(eps) = 1000``, and at 24 layers it overflows.
+    """
+    dev = resolve_device(device)
+    gen = (None if seed is None
+           else torch.Generator(device=dev).manual_seed(seed))
+
+    def stub(*shape):
+        if gen is None:
+            return torch.zeros(shape, dtype=cfg.cdtype(), device=dev)
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=dev).to(cfg.cdtype())
+
+    extras = {}
+    if cfg.num_image_tokens:
+        extras["extra_embeds"] = stub(batch, cfg.num_image_tokens,
+                                      cfg.d_model)
+    if cfg.is_encdec:
+        extras["audio_embeds"] = stub(batch, cfg.encoder_seq, cfg.d_model)
+    return extras
 
 
 # ---------------------------------------------------------------------------

@@ -195,6 +195,13 @@ FLASH_CASES = [
     (2, 130, 130, 4, 2, 256, False, None, torch.float32),
     (2, 100, 100, 8, 2, 8, True, None, torch.bfloat16),
     (1, 77, 77, 8, 2, 8, True, 16, torch.float32),
+    # whisper-tiny: the encoder's non-causal self-attention (Skv = 1500,
+    # no multiple of the 64-key tile) and the decoder's cross-attention
+    # to it; internvl2-1b's GQA group of 7 (H = 14, kv = 2), causal
+    (1, 1500, 1500, 6, 6, 64, False, None, torch.bfloat16),
+    (4, 1024, 1500, 6, 6, 64, False, None, torch.bfloat16),
+    (4, 1024, 1024, 14, 2, 64, True, None, torch.bfloat16),
+    (1, 300, 300, 14, 2, 64, True, None, torch.bfloat16),
 ]
 
 
@@ -525,3 +532,117 @@ def test_smoke_model_on_card_matches_host(rng, hopper, arch):
     step, _ = T.decode_step(pc, toks[:, 20:].to(hopper), cache, 20, cfg)
     torch.testing.assert_close(step.cpu(), want[:, -1], atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-1b"])
+def test_encdec_vlm_smoke_on_card_matches_host(rng, hopper, arch):
+    """The encoder-decoder and vlm smoke configs (fp32) on the card
+    against the host: forward with the stub inputs (every encoder, self-
+    and cross-attention layer launching flash attention once), and
+    prefill + decode, the encoder K/V riding in the caches."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 21)))
+    kw = {}
+    if cfg.is_encdec:
+        kw["audio_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    if cfg.num_image_tokens:
+        kw["extra_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+    want, _ = T.forward(params, toks, cfg, **kw)
+    pc = convert.to_torch(params, hopper)
+    kwc = {k: v.to(hopper) for k, v in kw.items()}
+    before = fa.launches
+    got, _ = T.forward(pc, toks.to(hopper), cfg, **kwc)
+    assert fa.launches - before == (cfg.encoder_layers
+                                    + cfg.num_layers * (2 if cfg.is_encdec
+                                                        else 1))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    _, cache = T.prefill(pc, toks[:, :20].to(hopper), cfg, max_len=24,
+                         **kwc)
+    step, _ = T.decode_step(pc, toks[:, 20:].to(hopper), cache, 20, cfg)
+    torch.testing.assert_close(step.cpu(), want[:, -1], atol=1e-4,
+                               rtol=1e-4)
+
+
+def _grads(fn, args, seed):
+    """Gradients of ``fn`` on ``args`` for a seeded random cotangent."""
+    args = [a.detach().clone().requires_grad_() for a in args]
+    outs = fn(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator(device=outs[0].device).manual_seed(seed)
+    cot = [torch.randn(o.shape, generator=gen, device=o.device,
+                       dtype=o.dtype) for o in outs]
+    return torch.autograd.grad(outs, args, cot)
+
+
+@pytest.mark.parametrize("dtype,dh,causal,window", [
+    (torch.bfloat16, 64, True, None), (torch.bfloat16, 64, False, None),
+    (torch.bfloat16, 128, True, 7), (torch.bfloat16, 256, True, 100),
+    (torch.float32, 32, True, None)])
+def test_flash_gradients_on_card_equal_the_plain_paths(rng, hopper, dtype,
+                                                       dh, causal, window):
+    """Training through ``ops.flash_attention`` on the card: its forward
+    launches the kernel once (and backward none), and its gradients are
+    those of the plain path differentiated directly, on the same inputs
+    (the same function, recomputed with grad enabled), within
+    ``assert_close``'s default tolerance for the dtype."""
+    from repro_torch.configs.base import AttentionConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import attention
+    q, k, v = _flash_inputs(rng, 2, 200, 260, 4, 2, dh, dtype, hopper)
+    before = fa.launches
+    got = _grads(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=causal, window=window), (q, k, v), 1)
+    assert fa.launches == before + 1
+    cfg = AttentionConfig(num_heads=4, num_kv_heads=2, head_dim=dh,
+                          causal=causal, window=window)
+    pos = lambda n: torch.arange(n, device=hopper).expand(2, n)
+    want = _grads(lambda q, k, v: attention(q, k, v, pos(200), pos(260),
+                                            cfg), (q, k, v), 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype
+        torch.testing.assert_close(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_gradients_on_card_equal_the_plain_paths(rng, hopper, dtype):
+    """Training through ``ops.ssd_scan_fused`` on the card: one launch in
+    forward, and the gradients of the plain chunked scan."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.ssm import ssd_scan
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(rng, 2, 512, 4, 64, 128, hopper,
+                                       True)
+    x, Bm, Cm = (t.to(dtype) for t in (x, Bm, Cm))
+    args = (x, dt, A, Bm, Cm, s0)
+    before = ss.launches
+    got = _grads(lambda *a: ops.ssd_scan_fused(*a[:5], chunk=256,
+                                               init_state=a[5]), args, 2)
+    assert ss.launches == before + 1
+    want = _grads(lambda *a: ssd_scan(*a[:5], 256, a[5]), args, 2)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w)
+
+
+def test_check_faults_clear_after_a_d256_launch(rng, hopper):
+    """A dh-256 launch that ran to its end leaves the give-up word clear;
+    ``check_faults`` reads it (and returns) once per batch of launches."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(rng, 1, 300, 300, 16, 1, 256, torch.bfloat16,
+                            hopper)
+    before = fa.kernel_launches[fa.WGMMA_D256]
+    ops.flash_attention(q, k, v, causal=True, window=100)
+    assert fa.kernel_launches[fa.WGMMA_D256] == before + 1
+    assert fa._unchecked
+    fa.check_faults()
+    assert not fa._unchecked
+    fa.check_faults()
+

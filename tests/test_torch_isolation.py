@@ -53,7 +53,11 @@ def test_port_has_modules_and_smoke_script():
             "configs/recurrentgemma_9b.py", "configs/qwen2_moe_a2_7b.py",
             "configs/llama4_maverick_400b_a17b.py",
             "runtime/master.py", "runtime/gateway.py",
-            "runtime/transport/cuda_device.py", "launch/serve.py"} <= names
+            "runtime/transport/cuda_device.py", "launch/serve.py",
+            "configs/whisper_tiny.py", "configs/internvl2_1b.py",
+            "models/loss.py", "optim/optimizers.py", "data/pipeline.py",
+            "checkpoint/store.py", "launch/steps.py", "launch/train.py",
+            "tree.py"} <= names
     for kernel in ("layered_matmul", "flash_attention", "ssd_scan"):
         assert (PORT / "kernels" / "csrc" / f"{kernel}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
@@ -79,6 +83,9 @@ def test_entry_points_import_with_jax_and_reference_blocked():
         "import repro_torch.runtime.gateway, repro_torch.core.progressive\n"
         "import repro_torch.configs.registry\n"
         "import repro_torch.models.rglru, repro_torch.models.moe\n"
+        "import repro_torch.launch.train, repro_torch.launch.steps\n"
+        "import repro_torch.checkpoint.store, repro_torch.data.pipeline\n"
+        "import repro_torch.optim.optimizers, repro_torch.models.loss\n"
         "from repro_torch.configs import registry\n"
         "[registry.get_config(a) for a in registry.ARCH_IDS]\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"

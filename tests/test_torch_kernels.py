@@ -428,6 +428,37 @@ def test_flash_cpu_path_never_counts_a_launch(rng):
         ops.flash_attention(q, q, q, window=0)
 
 
+@pytest.mark.parametrize("word", [0, 1])
+def test_check_faults_reads_the_d256_give_up_word_once(monkeypatch, word):
+    """``check_faults`` reads the dh-256 kernel's give-up word only after a
+    launch of that kernel, clears it, and raises ``KernelFault`` where a
+    ring wait gave up (the device calls faked: this host has no card)."""
+    import contextlib
+
+    from repro_torch.kernels import flash_attention as fa
+    reads = []
+
+    def faults(ref, clear):
+        reads.append(clear)
+        ref._obj.value = word
+        return 0
+
+    monkeypatch.setitem(fa._bound, f"{fa.WGMMA_D256}_faults", faults)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(fa, "_unchecked", set())
+    fa.check_faults()
+    assert reads == []
+    fa._unchecked.add(torch.device("cuda", 0))
+    if word:
+        with pytest.raises(fa.KernelFault, match="gave up"):
+            fa.check_faults()
+    else:
+        fa.check_faults()
+    assert reads == [1] and not fa._unchecked
+
+
 @pytest.mark.parametrize("dtype,dh,want", [
     (torch.bfloat16, 64, "flash_attention_wgmma"),
     (torch.bfloat16, 128, "flash_attention_wgmma"),

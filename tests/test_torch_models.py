@@ -301,22 +301,23 @@ def test_block_groups_and_configs_match_jax():
             assert jd == td, arch
     assert treg.get_config("llama3-8b").cdtype() == torch.bfloat16
     assert treg.get_config("llama3-8b").pdtype() == torch.float32
-    assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS) - {"whisper-tiny",
-                                                       "internvl2-1b"}
+    assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS)
     with pytest.raises(KeyError):
-        treg.get_config("whisper-tiny")
+        treg.get_config("whisper-base")
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-1b"])
 def test_unported_kinds_raise(arch):
-    """Layer kinds and extras of later slices raise, naming ROADMAP."""
-    jcfg = jreg.get_smoke_config(arch)
-    from repro_torch.configs.base import ModelConfig
-    fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    cfg = ModelConfig(**{k: v for k, v in vars(jcfg).items()
-                         if k in fields and k not in ("attention", "ssm")})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(cfg, device="cpu")
+    """The layer kinds and extras that raised before they were ported (the
+    ``cross`` kind, the audio and vlm inputs) now build: the published
+    config's parameters, on the ``meta`` device, count what the JAX
+    package's count, and nothing raises ``NotImplementedError``."""
+    jcfg = jreg.get_config(arch)
+    shapes = jax.eval_shape(lambda k: JT.init_params(k, jcfg),
+                            jax.random.PRNGKey(0))
+    want = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+    params = TT.init_params(treg.get_config(arch), device="meta")
+    assert TT.count_params(params) == want
 
 
 def test_softcap_config_raises():
