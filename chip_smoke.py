@@ -25,6 +25,21 @@ main paths and checks what comes out:
 4. main path 2, the coded runtime on the ``cuda`` worker backend: a
    verified run, then a full-width K=M=N=4096 run whose released final
    resolutions are held against the exact float64 product on the card;
+   then the same path through its command line, ``launch.runctl`` with
+   ``--backend cuda`` in-process: 3 jobs at K=M=N=4096 with a Chrome
+   trace (task spans from every worker) and the per-resolution delay
+   table, the final resolutions against the card's float64 product, and
+   a second run with a deadline halfway between the mean res-0 and final
+   service times (release success per resolution, never rising with it);
+   ``runctl serve-gateway --backend cuda`` at K=M=N=1024 (a calibration
+   run, then 40 requests at half the measured service rate with a
+   deadline between the res-0 and final service times, every admitted
+   request verified); and the host backends beside this CUDA-initialised
+   process at K=M=N=512 (``process`` with the shared-memory arena on and
+   off and with the hierarchical family, ``socket`` on a LocalCluster of
+   five worker hosts), each verified, with the arena's leak sweep and the
+   worker hosts' start-up time.  None of these runs a kernel of the
+   port: their launch counts are read and printed (0);
 5. the three flash-attention kernels against their plain version: the
    tensor-core kernel (bf16, dh 64/128) at the llama3-8b prefill shape
    (causal, GQA) and on bf16 twins of a ragged windowed case and a
@@ -476,20 +491,7 @@ def phase_runtime(torch, dev):
     device_ms = sum(r[2] for r in device_rows)
     if fres.backend != "cuda" or fres.tasks_done <= 0:
         raise AssertionError(f"backend={fres.backend}")
-    final_errs = []
-    for job, lr in zip(jobs, futures):
-        if lr.released_resolution != fcfg.num_layers - 1:
-            raise AssertionError(f"job {job.job_id} released "
-                                 f"{lr.released_resolution}")
-        a = torch.from_numpy(job.a).to(dev, torch.float64)
-        b = torch.from_numpy(job.b).to(dev, torch.float64)
-        exact = a.T @ b        # exact: 4096 * 2^28 < 2^53
-        got = torch.from_numpy(np.asarray(lr.result())).to(dev)
-        rel = ((got - exact).abs().max() / exact.abs().max()).item()
-        final_errs.append(rel)
-        if rel > 1e-9:
-            raise AssertionError(f"job {job.job_id} final resolution off by "
-                                 f"{rel} relative")
+    final_errs = final_vs_card_product(torch, dev, fcfg, jobs, futures)
     emit({"phase": "runtime_cuda_backend",
           "verified": {"jobs": 4, "K": 1024, "M": 512, "N": 512,
                        "backend": res.backend, "tasks_done": res.tasks_done,
@@ -509,6 +511,335 @@ def phase_runtime(torch, dev):
                          "mean_delay_by_resolution": [
                              row["mean_delay"] for row in delay_table(fres)]},
           "launches": {"layered_matmul": lm.launches}})
+
+
+#: runctl at full width on the card: the runtime path's shape, 3 jobs
+RUNCTL_FULL = ["--backend", "cuda", "--jobs", "3", "--K", "4096", "--M",
+               "4096", "--N", "4096", "--planes", "2", "--d", "8", "--n1",
+               "2", "--n2", "2", "--omega", "1.5", "--straggler", "exp",
+               "--seed", str(SEED)]
+#: the host backends next to the card: reduced, since they compute on host
+#: BLAS (and verify against the host oracle)
+HOST_BACKENDS = {"process_shm_on": ["--backend", "process", "--shm", "on"],
+                 "process_shm_off": ["--backend", "process", "--shm", "off"],
+                 "process_hierarchical": ["--backend", "process", "--shm",
+                                          "off", "--code-family",
+                                          "hierarchical", "--levels", "2"],
+                 "socket_local_cluster": ["--backend", "socket",
+                                          "--local-cluster"]}
+HOST_SIZE = ["--jobs", "4", "--K", "512", "--M", "512", "--N", "512",
+             "--seed", str(SEED)]
+
+
+class observe:
+    """Wrap ``getattr(owner, name)`` while the block runs: each call goes
+    through ``wrap(real, *args, **kw)``; the original is put back after.
+    The script reads what the entry points built (the run's futures, the
+    gateway) without changing what they do."""
+
+    def __init__(self, owner, name, wrap):
+        self.owner, self.name, self.wrap = owner, name, wrap
+
+    def __enter__(self):
+        real = self.real = getattr(self.owner, self.name)
+        wrap = self.wrap
+        setattr(self.owner, self.name,
+                lambda *a, **kw: wrap(real, *a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+def kernel_launch_counts() -> dict:
+    from repro_torch.kernels import flash_attention, layered_matmul, ssd_scan
+    return {m.__name__.rsplit(".", 1)[1]: m.launches
+            for m in (layered_matmul, flash_attention, ssd_scan)}
+
+
+def reset_kernel_launches() -> None:
+    from repro_torch.kernels import flash_attention, layered_matmul, ssd_scan
+    for m in (layered_matmul, flash_attention, ssd_scan):
+        m.launches = 0
+        m.kernel_launches.update(dict.fromkeys(m.KERNELS, 0))
+
+
+def final_vs_card_product(torch, dev, cfg, jobs, futures) -> list[float]:
+    """Each job released its final resolution, and it is the exact product
+    (float64 on the card: exact while K * 2^(2md-4) < 2^53, as at
+    K = 4096, m = 2, d = 8: 2^40)."""
+    import numpy as np
+    errs = []
+    for job, lr in zip(jobs, futures):
+        if lr.released_resolution != cfg.num_layers - 1:
+            raise AssertionError(f"job {job.job_id} released "
+                                 f"{lr.released_resolution}")
+        a = torch.from_numpy(job.a).to(dev, torch.float64)
+        b = torch.from_numpy(job.b).to(dev, torch.float64)
+        exact = a.T @ b
+        got = torch.from_numpy(np.asarray(lr.result())).to(dev)
+        rel = ((got - exact).abs().max() / exact.abs().max()).item()
+        errs.append(rel)
+        if rel > 1e-9:
+            raise AssertionError(f"job {job.job_id} final resolution off by "
+                                 f"{rel} relative")
+    return errs
+
+
+def phase_runctl_full_width(torch, dev):
+    """``runctl --backend cuda`` in-process at K = M = N = 4096: the
+    paper's per-resolution delay table and, with a deadline, its release
+    success (Fig. 5) through the system's own entry point."""
+    import tempfile
+
+    from repro_torch.launch import runctl
+    from repro_torch.runtime import make_jobs
+    runs = []
+
+    def keep(real, *a, **kw):
+        out = real(*a, **kw)
+        runs.append(out)
+        return out
+
+    from torch.profiler import ProfilerActivity, profile
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        reset_kernel_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                observe(runctl, "run_jobs", keep):
+            t0 = time.perf_counter()
+            rc = runctl.main(RUNCTL_FULL + [
+                "--no-verify", "--json", str(tmp / "run.json"),
+                "--trace", str(tmp / "trace.json")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernel_launch_counts()
+        if rc != 0:
+            raise AssertionError(f"runctl exited {rc}")
+        summary = json.loads((tmp / "run.json").read_text())
+        chrome = json.loads((tmp / "trace.json").read_text())
+    # device time summed over every kernel and copy (all worker streams)
+    device_ms = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    res, futures = runs[0]
+    # the jobs run_jobs made inside runctl, from the same flags
+    args = runctl_args(runctl, RUNCTL_FULL)
+    cfg = runctl.build_config(args)
+    jobs = make_jobs(cfg, args.jobs, K=args.K, M=args.M, N=args.N)
+    if summary["backend"] != "cuda" or res.backend != "cuda":
+        raise AssertionError(f"backend {summary['backend']}")
+    final_errs = final_vs_card_product(torch, dev, cfg, jobs, futures)
+    # the trace: task spans from every worker (pid 1 + worker)
+    task_pids = {e["pid"] for e in chrome["traceEvents"]
+                 if e.get("cat") == "task" and e["ph"] == "X"}
+    want_pids = set(range(1, cfg.num_workers + 1))
+    if task_pids != want_pids:
+        raise AssertionError(f"trace holds task spans of pids {task_pids}, "
+                             f"want {want_pids}")
+
+    # the deadline between the mean res-0 and final times from service
+    # start (what the deadline is measured from)
+    compute = res.layer_compute
+    res0, final = float(compute[:, 0].mean()), float(compute[:, -1].mean())
+    deadline = 0.5 * (res0 + final)
+    runs.clear()
+    reset_kernel_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "deadline.json"
+        t0 = time.perf_counter()
+        with observe(runctl, "run_jobs", keep):
+            rc = runctl.main(RUNCTL_FULL + [
+                "--no-verify", "--deadline", repr(deadline),
+                "--json", str(path)])
+        dwall = time.perf_counter() - t0
+        dlaunches = kernel_launch_counts()
+        if rc != 0:
+            raise AssertionError(f"runctl --deadline exited {rc}")
+        dsummary = json.loads(path.read_text())
+    success = [row["success_rate"] for row in dsummary["delay_per_resolution"]]
+    if any(b > a for a, b in zip(success, success[1:])):
+        raise AssertionError(f"success rises with resolution: {success}")
+    dres, dfutures = runs[0]
+    # every resolution a deadline run released is a prefix of the exact
+    # product's layers: the released final ones are exact
+    done = [(j, lr) for j, lr in zip(jobs, dfutures)
+            if lr.released_resolution == cfg.num_layers - 1]
+    if done:
+        final_vs_card_product(torch, dev, cfg, [j for j, _ in done],
+                              [lr for _, lr in done])
+    emit({"phase": "runctl_cuda_full_width",
+          "argv": RUNCTL_FULL,
+          "backend": summary["backend"], "workers": cfg.num_workers,
+          "final_rel_err_vs_card_product": final_errs,
+          "wall_seconds": wall, "runtime_wall_elapsed":
+              summary["wall_elapsed"], "device_ms_summed": device_ms,
+          "device_busy_share": device_ms / (wall * 1e3),
+          "stage_seconds": summary["stage_seconds"],
+          "delay_per_resolution": summary["delay_per_resolution"],
+          "layer_compute_mean": [float(x) for x in compute.mean(axis=0)],
+          "release_histogram": summary["release_histogram"],
+          "trace_events": len(chrome["traceEvents"]),
+          "trace_task_pids": sorted(task_pids),
+          "launches": launches,
+          "deadline_run": {
+              "deadline": deadline, "wall_seconds": dwall,
+              "delay_per_resolution": dsummary["delay_per_resolution"],
+              "success_rate": success,
+              "release_histogram": dsummary["release_histogram"],
+              "terminated_jobs": dsummary["terminated_jobs"],
+              "released": [int(lr.released_resolution)
+                           for lr in dfutures],
+              "launches": dlaunches}})
+    return {"delay_per_resolution": summary["delay_per_resolution"],
+            "deadline": deadline, "success_rate": success}
+
+
+def runctl_args(module, argv):
+    """The namespace ``module.main(argv)`` parses, without running it."""
+    got = {}
+
+    def grab(args, cfg):
+        got["args"] = args
+        return 0
+
+    with observe(module, "_run", lambda real, args, cfg: grab(args, cfg)):
+        module.main(list(argv))
+    return got["args"]
+
+
+def phase_serve_gateway(torch, dev):
+    """``runctl serve-gateway --backend cuda`` in-process at K = M = N =
+    1024: a calibration run measures the service time, then 40 requests
+    at half the service rate with a deadline between the res-0 and final
+    service times, every admitted request decode-verified."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import runctl, serve_gateway
+    gateways = []
+
+    def keep(real, *a, **kw):
+        gateways.append(real(*a, **kw))
+        return gateways[-1]
+
+    size = ["--backend", "cuda", "--K", "1024", "--M", "1024", "--N",
+            "1024", "--verify", "--seed", str(SEED)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        with observe(serve_gateway, "ServingGateway", keep):
+            t0 = time.perf_counter()
+            rc = runctl.main(["serve-gateway", "--requests", "6", "--rate",
+                              "1", "--deadline", "600", "--admission",
+                              "none", "--json", str(tmp / "cal.json")]
+                             + size)
+            cal_wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"calibration run exited {rc}")
+            cal = gateways[-1].result
+            res0 = float(cal.layer_compute[:, 0].mean())
+            final = float(cal.layer_compute[:, -1].mean())
+            rate = 0.5 / final
+            deadline = 0.5 * (res0 + final)
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            rc = runctl.main(["serve-gateway", "--requests", "40", "--rate",
+                              repr(rate), "--deadline", repr(deadline),
+                              "--json", str(tmp / "run.json")] + size)
+            wall = time.perf_counter() - t0
+            launches = kernel_launch_counts()
+        if rc != 0:
+            raise AssertionError(f"serve-gateway exited {rc}")
+        out = json.loads((tmp / "run.json").read_text())
+    gw = gateways[-1]
+    res = gw.result
+    stats = out["gateway"]
+    if out["fleet"]["backend"] != "cuda" or res.backend != "cuda":
+        raise AssertionError(f"fleet backend {out['fleet']['backend']}")
+    # every admitted request is a job of the fleet's run, verified at every
+    # resolution it released against the layered oracle
+    if len(res.arrivals) != stats["admitted"]:
+        raise AssertionError(f"{len(res.arrivals)} jobs for "
+                             f"{stats['admitted']} admitted requests")
+    errs = res.verify_errors
+    released = res.released >= 0
+    if released.any() and not np.all(np.isfinite(errs[released, 0])):
+        raise AssertionError("a released request was not verified")
+    worst = float(np.nanmax(errs)) if np.isfinite(errs).any() else None
+    if worst is None or worst > 1e-9:
+        raise AssertionError(f"verify error {worst}")
+    succ = [stats["deadline_success"][str(l)]
+            for l in range(stats["num_layers"])]
+    emit({"phase": "serve_gateway_cuda",
+          "calibration": {"requests": 6, "service_res0_s": res0,
+                          "service_final_s": final, "wall_seconds":
+                              cal_wall},
+          "requests": 40, "rate": rate, "deadline": deadline,
+          "K": 1024, "M": 1024, "N": 1024,
+          "gateway": {k: v for k, v in stats.items() if k != "records"},
+          "deadline_success": succ,
+          "max_verify_rel_error": worst,
+          "fleet": out["fleet"], "wall_seconds": wall,
+          "launches": launches})
+    return {"deadline_success": succ}
+
+
+def phase_runtime_process_socket(torch, dev):
+    """The host backends beside a CUDA-initialised parent: ``process``
+    (forked workers, shm arena on and off, the hierarchical family) and
+    ``socket`` (a LocalCluster of five worker-host interpreters), each
+    verified against the host oracle."""
+    import os
+    import tempfile
+
+    from repro_torch.launch import runctl
+    from repro_torch.runtime.transport import shm, socket_host
+    if not torch.cuda.is_initialized():
+        raise AssertionError("CUDA is not initialised in the parent")
+    startups = []
+
+    def timed_cluster(real, *a, **kw):
+        t0 = time.perf_counter()
+        cluster = real(*a, **kw)
+        startups.append(time.perf_counter() - t0)
+        return cluster
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags in HOST_BACKENDS.items():
+            path = pathlib.Path(tmp) / f"{name}.json"
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            with observe(socket_host, "LocalCluster", timed_cluster):
+                rc = runctl.main(HOST_SIZE + flags + ["--json", str(path)])
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"{name}: runctl exited {rc}")
+            out = json.loads(path.read_text())
+            if out["backend"] != flags[1]:
+                raise AssertionError(f"{name}: backend {out['backend']}")
+            err = out.get("max_verify_rel_error")
+            if err is None or err > 1e-9:
+                raise AssertionError(f"{name}: verify error {err}")
+            stats = out["transport_stats"] or {}
+            if flags[1] == "socket" and not stats:
+                raise AssertionError(f"{name}: no transport_stats")
+            if name == "process_shm_on" and not stats.get("shm_active"):
+                raise AssertionError(f"{name}: the arena never ran")
+            rows[name] = {"backend": out["backend"],
+                          "max_verify_rel_error": err,
+                          "release_histogram": out["release_histogram"],
+                          "mean_delay": [r["mean_delay"] for r in
+                                         out["delay_per_resolution"]],
+                          "wall_seconds": wall,
+                          "transport_stats": stats,
+                          "launches": kernel_launch_counts()}
+    leaked = shm.leaked_segments(f"lrt-{os.getpid():x}-")
+    if leaked:
+        raise AssertionError(f"shm segments left behind: {leaked}")
+    emit({"phase": "runtime_process_socket", "cuda_initialised": True,
+          "argv": HOST_SIZE, "runs": rows, "shm_leak_sweep": leaked,
+          "worker_host_startup_seconds": startups})
+    return rows
 
 
 def roofline(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -1488,6 +1819,10 @@ def main() -> int:
                         ("kernel_vs_plain", phase_kernel_vs_plain),
                         ("layered_main_path", phase_layered_main_path),
                         ("runtime", phase_runtime),
+                        ("runctl_cuda_full_width", phase_runctl_full_width),
+                        ("serve_gateway_cuda", phase_serve_gateway),
+                        ("runtime_process_socket",
+                         phase_runtime_process_socket),
                         ("flash_attention_vs_plain", phase_flash_vs_plain),
                         ("ssd_scan_vs_plain", phase_ssd_vs_plain),
                         ("serve_llama3_8b", phase_serve_llama),

@@ -178,6 +178,24 @@ def _np_decompose(x: np.ndarray, m: int, d: int) -> np.ndarray:
     return np.stack(chunks, axis=0)
 
 
+def _np_plane_product(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """``x.T @ y`` of two int64 digit planes, exactly.
+
+    Through float64 BLAS when every partial sum fits float64's 53-bit
+    significand (``max|x| * max|y| * K < 2**53``: then every sum of a
+    subset of the products is an integer below that bound, whatever order
+    BLAS adds them in), else through NumPy's int64 matmul, which has no
+    BLAS and is orders of magnitude slower at the runtime's sizes.  The
+    result is the same int64 matrix either way.
+    """
+    bound = (int(np.abs(x).max(initial=0)) * int(np.abs(y).max(initial=0))
+             * x.shape[0])
+    if bound < 2 ** 53:
+        return (x.T.astype(np.float64) @ y.astype(np.float64)).astype(
+            np.int64)
+    return x.T @ y
+
+
 def layered_matmul_reference(a, b, *, m: int, d: int) -> np.ndarray:
     """Exact layered computation of ``a.T @ b`` for integer a (K, M), b (K, N).
 
@@ -199,7 +217,7 @@ def layered_matmul_reference(a, b, *, m: int, d: int) -> np.ndarray:
     for l in range(L):
         acc = np.zeros((a.shape[1], b.shape[1]), dtype=np.int64)
         for (i, j) in layer_minijobs(m, l):
-            prod = ca[i].T.astype(np.int64) @ cb[j].astype(np.int64)
+            prod = _np_plane_product(ca[i], cb[j])
             acc = acc + prod * (1 << ((i + j) * d))
         partials.append(acc)
     return np.cumsum(np.stack(partials, axis=0), axis=0)

@@ -35,12 +35,19 @@ from repro_torch.runtime.metrics import (STAGES, RuntimeResult, delay_table,
                                          format_delay_table,
                                          format_stage_table)
 from repro_torch.runtime.tasks import (BACKEND_NAMES, CODE_FAMILIES,
-                                       FAULT_POLICIES, JobSpec, RoundBatch,
+                                       FAULT_POLICIES, FRAME_PROTOS,
+                                       SHM_MODES, JobSpec, RoundBatch,
                                        RoundContext, RuntimeConfig,
                                        TaskResult, WireBatch)
 from repro_torch.runtime.telemetry import TraceEvent, Tracer
-# The concrete backend classes (ThreadTransport / CudaDeviceTransport) are
-# reached via `repro_torch.runtime.transport.<Name>` (lazy, PEP 562) or
+from repro_torch.runtime.trace_export import (chrome_trace, format_timeline,
+                                              jsonl_lines,
+                                              prometheus_snapshot,
+                                              write_chrome_trace,
+                                              write_jsonl)
+# The concrete backend classes (ThreadTransport / ProcessTransport /
+# CudaDeviceTransport / SocketTransport) are reached via
+# `repro_torch.runtime.transport.<Name>` (lazy, PEP 562) or
 # `BACKENDS[name]`, so importing the runtime builds no backend.
 from repro_torch.runtime.transport import (BACKENDS, WorkerTransport,
                                            make_transport)
@@ -49,7 +56,8 @@ from repro_torch.runtime.worker import (BatchRunner, StragglerModel, Worker,
 
 __all__ = [
     "RuntimeConfig", "JobSpec", "RoundContext", "RoundBatch", "TaskResult",
-    "WireBatch", "BACKEND_NAMES", "FAULT_POLICIES", "CODE_FAMILIES",
+    "WireBatch", "BACKEND_NAMES", "FAULT_POLICIES", "SHM_MODES",
+    "FRAME_PROTOS", "CODE_FAMILIES",
     "FaultSupervisor", "TransportDeadError", "FusionStateError",
     "Worker", "WorkerPool", "StragglerModel", "BatchRunner", "make_compute",
     "WorkerTransport", "BACKENDS", "make_transport",
@@ -60,5 +68,6 @@ __all__ = [
     "FixedPolicy", "AIMDPolicy", "DeadlineMarginPolicy", "margin_ratio",
     "RuntimeResult", "delay_table", "format_delay_table",
     "format_stage_table", "format_controller_trace", "STAGES",
-    "Tracer", "TraceEvent",
+    "Tracer", "TraceEvent", "chrome_trace", "write_chrome_trace",
+    "jsonl_lines", "write_jsonl", "prometheus_snapshot", "format_timeline",
 ]

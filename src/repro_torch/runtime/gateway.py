@@ -38,8 +38,8 @@ parts:
   released below its admitted resolution is marked ``degraded``.
 
 Per-request outcomes (decision, release resolution, slack, queue wait)
-accumulate in a :class:`GatewayStats` artifact (``to_json``) whose
-always-on event log reconciles
+accumulate in a :class:`GatewayStats` artifact — surfaced by
+``runctl serve-gateway --json`` — whose always-on event log reconciles
 exactly with the counters (and is mirrored into the runtime tracer as
 ``request``/``admit``/``release`` events when ``cfg.trace`` is on).
 """

@@ -5,8 +5,9 @@ models: jobs arrive (Poisson or trace), are served FIFO one at a time
 (the paper's single-master discipline), and each job's ``m**2`` coded
 mini-job rounds run MSB-first on an abstract
 :class:`~repro_torch.runtime.transport.base.WorkerTransport` — host thread
-workers or CUDA-device workers, selected by ``RuntimeConfig.backend``; the
-loop below is identical over both:
+workers, multiprocessing workers, CUDA-device workers or TCP worker hosts,
+selected by ``RuntimeConfig.backend``; the loop below is identical over
+all of them:
 
 1. service start — operands are quantized (floats) and digit-decomposed;
 2. per round, the mini-job's plane pair is polynomial-encoded
@@ -242,7 +243,7 @@ class Master:
     Single-threaded loop: :meth:`run` (fixed trace) or
     :meth:`serve_queue` (open queue) is meant to be called once, from one
     thread — it starts the configured worker transport (``cfg.backend``:
-    thread / cuda, via
+    thread / process / cuda / socket, via
     :func:`repro_torch.runtime.transport.make_transport`), blocks until every
     job is served, and shuts the transport down (purge-mode: every
     submitted round is already fused or terminated by then).  The

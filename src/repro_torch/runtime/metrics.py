@@ -59,8 +59,8 @@ class RuntimeResult(simulator.SimResult):
                          omega and T, new kappa, reason, prime seconds);
                          empty list when omega never moved.
     ``backend``          the worker transport that executed the run
-                         (``thread`` / ``cuda``), for bench/JSON
-                         provenance.
+                         (``thread`` / ``process`` / ``cuda`` /
+                         ``socket``), for bench/JSON provenance.
     ``transport_stats``  wire-level counters for transports that cross a
                          network (socket backend: frames, dispatch/result
                          raw-vs-wire bytes, compression ratio); None for

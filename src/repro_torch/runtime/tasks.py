@@ -19,10 +19,15 @@ Wire forms: :class:`RoundBatch` and :class:`TaskResult` are the *local*
 threading primitives, only primitives + contiguous ndarrays — used by any
 backend that crosses a process (or host) boundary.  The cancel event does
 not serialize; remote purging is a transport concern (a purge message
-against the batch's monotonic ``seq``).  The port's backends (``thread``,
-``cuda``) are in-process, so the reference's process and socket transport
-fields (``hosts``, ``compress``, ``shm``, ``frame_proto``, heartbeats,
-reconnects) wait for those transports.
+against the batch's monotonic ``seq``, see
+:mod:`repro_torch.runtime.transport.process`).
+
+Four backends carry the rounds (:data:`BACKEND_NAMES`): ``thread`` and
+``cuda`` are in-process (host BLAS, or a CUDA device per worker thread);
+``process`` runs OS-process workers over pipes and shared-memory arenas
+(the :class:`ArenaSlice` descriptors below); ``socket`` runs TCP worker
+hosts (``hosts``, ``compress``, ``frame_proto``, the heartbeat and
+reconnect fields).  The process and socket workers compute on host BLAS.
 """
 
 from __future__ import annotations
@@ -38,12 +43,14 @@ from repro_torch.core import coding, layering, scheduling
 
 __all__ = ["RuntimeConfig", "JobSpec", "RoundContext", "RoundBatch",
            "GroupBatch", "TaskResult", "WireBatch", "WireGroup",
-           "BACKEND_NAMES", "CODE_FAMILIES", "FAULT_POLICIES"]
+           "ArenaSlice", "ArenaBatchRef", "ArenaResultRef",
+           "BACKEND_NAMES", "CODE_FAMILIES", "COMPRESS_MODES",
+           "FAULT_POLICIES", "SHM_MODES", "FRAME_PROTOS"]
 
 #: Worker-transport backends the runtime can dispatch over (see
-#: :mod:`repro_torch.runtime.transport`): host threads, or threads whose
-#: coded products run on CUDA devices.
-BACKEND_NAMES = ("thread", "cuda")
+#: :mod:`repro_torch.runtime.transport`): host threads, OS processes,
+#: threads whose coded products run on CUDA devices, or TCP worker hosts.
+BACKEND_NAMES = ("thread", "process", "cuda", "socket")
 
 #: Coded-task families: ``polynomial`` is the paper's flat §II-A code
 #: (one codeword per round, a purge discards a straggler's whole task);
@@ -58,6 +65,26 @@ CODE_FAMILIES = ("polynomial", "hierarchical")
 #: to survivors, and releases jobs at a degraded resolution when the
 #: fleet drops below the recovery threshold ``k``.
 FAULT_POLICIES = ("fail-fast", "degrade")
+
+#: Result/batch compression modes for the socket transport's frame
+#: protocol (see :mod:`repro_torch.runtime.transport.socket_host`): ``auto``
+#: compresses payloads above a size threshold with the best available
+#: codec, ``zlib``/``lz4`` force one codec, ``none`` disables.
+COMPRESS_MODES = ("auto", "none", "zlib", "lz4")
+
+#: Shared-memory arena modes for the process backend (see
+#: :mod:`repro_torch.runtime.transport.shm`): ``auto`` uses the zero-copy block
+#: arena when the platform supports it and silently falls back to the
+#: pickled pipe path otherwise; ``on`` requires it (construction fails
+#: where shared memory is unavailable); ``off`` disables it.
+SHM_MODES = ("auto", "on", "off")
+
+#: Socket frame protocol selection: ``0`` negotiates the highest version
+#: both ends speak (LRF2 against a current worker host, LRF1 against an
+#: older one); ``1``/``2`` pin the offered protocol (``1`` = the pickled
+#: LRF1 frames every release speaks, ``2`` = zero-copy LRF2 ndarray
+#: frames).
+FRAME_PROTOS = (0, 1, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +126,18 @@ class RuntimeConfig:
     omega_min: float = 1.0         # adaptive omega lower bound
     omega_max: float = 3.0         # adaptive omega upper bound
     backend: str = "cuda"          # worker transport: BACKEND_NAMES key
+    hosts: tuple[str, ...] = ()    # socket backend: "host:port" per worker
+    compress: str = "auto"         # socket frame codec: COMPRESS_MODES key
+    shm: str = "auto"              # process backend arena: SHM_MODES key
+    frame_proto: int = 0           # socket frame protocol: FRAME_PROTOS key
     code_family: str = "polynomial"   # coded-task family: CODE_FAMILIES key
     levels: int = 1                # hierarchical: sub-tasks per dispatch
     fault_policy: str = "fail-fast"   # worker loss: FAULT_POLICIES key
+    heartbeat_interval: float = 1.0   # socket: seconds between pings
+    heartbeat_timeout: float = 15.0   # socket: silence -> worker dead
+    reconnect_attempts: int = 2       # socket: re-dials before giving up
+    reconnect_backoff: float = 0.05   # socket: base re-dial backoff (s)
+    reconnect_backoff_cap: float = 2.0  # socket: exp backoff ceiling (s)
     trace: bool = False            # structured tracing (telemetry module);
     #                                off by default and free when off
     seed: int = 0
@@ -112,6 +148,48 @@ class RuntimeConfig:
         if self.backend not in BACKEND_NAMES:
             raise ValueError(f"unknown worker backend {self.backend!r}; "
                              f"known: {BACKEND_NAMES}")
+        if self.compress not in COMPRESS_MODES:
+            raise ValueError(f"unknown compress mode {self.compress!r}; "
+                             f"known: {COMPRESS_MODES}")
+        if self.backend == "socket":
+            if len(self.hosts) != self.num_workers:
+                raise ValueError(
+                    f"backend='socket' needs one host:port per worker: got "
+                    f"{len(self.hosts)} hosts for {self.num_workers} "
+                    f"workers (mu has {self.num_workers} entries)")
+            for h in self.hosts:
+                host, sep, port = h.rpartition(":")
+                if not sep or not host or not port.isdigit():
+                    raise ValueError(
+                        f"socket host {h!r} is not of the form 'host:port'")
+        elif self.hosts:
+            # hosts with a non-socket backend would be silently ignored —
+            # reject the contradiction
+            raise ValueError(
+                f"hosts= is only meaningful with backend='socket' "
+                f"(got backend={self.backend!r})")
+        if self.shm not in SHM_MODES:
+            raise ValueError(f"unknown shm mode {self.shm!r}; "
+                             f"known: {SHM_MODES}")
+        if self.shm == "on" and self.backend != "process":
+            # "on" is a hard requirement for the shared-memory arena,
+            # which only the process backend implements; with any other
+            # backend it would be silently ignored — reject the
+            # contradiction, mirroring the hosts= rule ("auto"/"off" are
+            # fine anywhere: no-ops off the process backend)
+            raise ValueError(
+                f"shm='on' is only meaningful with backend='process' "
+                f"(got backend={self.backend!r})")
+        if self.frame_proto not in FRAME_PROTOS:
+            raise ValueError(f"unknown frame_proto {self.frame_proto!r}; "
+                             f"known: {FRAME_PROTOS}")
+        if self.frame_proto and self.backend != "socket":
+            # a pinned frame protocol with a non-socket backend would be
+            # silently ignored — reject the contradiction (0 = negotiate
+            # is the anywhere-safe default)
+            raise ValueError(
+                f"frame_proto={self.frame_proto} is only meaningful with "
+                f"backend='socket' (got backend={self.backend!r})")
         if self.code_family not in CODE_FAMILIES:
             raise ValueError(f"unknown code family {self.code_family!r}; "
                              f"known: {CODE_FAMILIES}")
@@ -120,9 +198,18 @@ class RuntimeConfig:
                 raise ValueError(
                     f"code_family='hierarchical' needs levels >= 2 (one "
                     f"level IS the polynomial family); got {self.levels}")
+            if self.shm == "on":
+                # group dispatches carry per-level slices over the pickled
+                # pipe path — the block arena's seq-keyed ring reclamation
+                # is level-blind, so requiring it would silently degrade
+                # to pickling anyway; reject the contradiction
+                raise ValueError(
+                    "shm='on' is incompatible with "
+                    "code_family='hierarchical': group dispatch bypasses "
+                    "the block arena (use shm='auto' or 'off')")
         elif self.levels != 1:
             # a level count with the flat family would be silently
-            # ignored — reject the contradiction
+            # ignored — reject the contradiction, mirroring hosts=
             raise ValueError(
                 f"levels={self.levels} is only meaningful with "
                 f"code_family='hierarchical' (got "
@@ -130,6 +217,21 @@ class RuntimeConfig:
         if self.fault_policy not in FAULT_POLICIES:
             raise ValueError(f"unknown fault policy {self.fault_policy!r}; "
                              f"known: {FAULT_POLICIES}")
+        if self.heartbeat_interval <= 0.0:
+            raise ValueError(f"heartbeat_interval must be > 0, got "
+                             f"{self.heartbeat_interval}")
+        if self.heartbeat_timeout <= self.heartbeat_interval:
+            raise ValueError(
+                f"heartbeat_timeout ({self.heartbeat_timeout}) must exceed "
+                f"heartbeat_interval ({self.heartbeat_interval}): a timeout "
+                f"shorter than one ping period declares every worker dead")
+        if self.reconnect_attempts < 0:
+            raise ValueError(f"reconnect_attempts must be >= 0, got "
+                             f"{self.reconnect_attempts}")
+        if not 0.0 < self.reconnect_backoff <= self.reconnect_backoff_cap:
+            raise ValueError(
+                f"need 0 < reconnect_backoff <= reconnect_backoff_cap, got "
+                f"{self.reconnect_backoff} / {self.reconnect_backoff_cap}")
         if self.omega < 1.0:
             raise ValueError(f"redundancy ratio must be >= 1, got {self.omega}")
         if any(not 0 <= w < len(self.mu) for w in self.stall_workers):
@@ -468,3 +570,79 @@ class TaskResult:
         return TaskResult(job_id=job_id, round_idx=round_idx,
                           task_id=task_id, worker_id=worker_id,
                           value=value, finished_at=finished_at)
+
+
+# -- shared-memory arena descriptors ------------------------------------------
+#
+# The zero-copy twins of WireBatch / TaskResult.to_wire(): when master and
+# worker share a BlockArena (repro_torch.runtime.transport.shm), the pipe
+# carries only these descriptors — a few ints and a dtype string — and
+# each side maps the block payloads as ndarray views into the arena.
+# ``seq`` plays double duty: the purge watermark AND the ring-allocator
+# reclamation key, so slot lifetime rides the purge protocol that already
+# exists.
+
+@dataclasses.dataclass(frozen=True)
+class ArenaSlice:
+    """One block's location in a shared-memory arena (wire descriptor).
+
+    ``dtype`` is the numpy dtype *string* (``'<f8'``), not the dtype
+    object, so the descriptor pickles as pure primitives.
+    """
+
+    offset: int             # byte offset into the arena segment
+    shape: tuple[int, ...]  # ndarray shape of the block
+    dtype: str              # np.dtype(...).str
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.dtype(self.dtype).itemsize * math.prod(self.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaBatchRef:
+    """Descriptor form of :class:`WireBatch`: blocks live in the dispatch
+    arena, only ``delays`` (a ``(n,)`` float vector) rides the pipe."""
+
+    seq: int
+    job_id: int
+    round_idx: int
+    first_task_id: int
+    x: ArenaSlice           # (n, K, M/n1) coded A blocks, in the arena
+    y: ArenaSlice           # (n, K, N/n2) coded B blocks, in the arena
+    delays: np.ndarray      # (n,) injected straggler delays (seconds)
+
+    @property
+    def count(self) -> int:
+        return self.x.shape[0]
+
+    def to_batch(self, arena) -> "WireBatch":
+        """Materialize as a :class:`WireBatch` of views into ``arena``
+        (any object with a ``view(ArenaSlice) -> ndarray`` method)."""
+        return WireBatch(seq=self.seq, job_id=self.job_id,
+                         round_idx=self.round_idx,
+                         first_task_id=self.first_task_id,
+                         x=arena.view(self.x), y=arena.view(self.y),
+                         delays=self.delays)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaResultRef:
+    """Descriptor form of a result envelope: the value matrix lives in
+    the worker's result arena (the compute kernel wrote it there)."""
+
+    job_id: int
+    round_idx: int
+    task_id: int
+    worker_id: int
+    seq: int                # dispatch seq of the result's round
+    value: ArenaSlice       # (M/n1, N/n2) product block, in the arena
+    finished_at: float      # worker-side time.monotonic
+
+    def to_result(self, arena) -> "TaskResult":
+        """Materialize as a :class:`TaskResult` whose value is a zero-copy
+        view into ``arena`` — handed straight to the fusion sink."""
+        return TaskResult(job_id=self.job_id, round_idx=self.round_idx,
+                          task_id=self.task_id, worker_id=self.worker_id,
+                          value=arena.view(self.value),
+                          finished_at=self.finished_at)

@@ -34,8 +34,7 @@ Design constraints, in order:
    domain on arrival.
 
 Events are plain ``NamedTuple`` rows (picklable across process/socket
-boundaries); exporters live in the JAX package's ``runtime/trace_export.py``
-(not ported yet).
+boundaries); exporters live in :mod:`repro_torch.runtime.trace_export`.
 """
 
 from __future__ import annotations
@@ -84,8 +83,7 @@ READMIT = "readmit"        # instant: quarantined worker rejoined (socket
 #                            reconnect + hello/watermark resync)
 REDISPATCH = "redispatch"  # instant: a lost slice re-sent to a survivor;
 #                            value = task count, worker = new owner
-# Zero-copy wire path (the JAX package's runtime/transport/shm.py; not
-# ported yet):
+# Zero-copy wire path (repro_torch.runtime.transport.shm):
 ARENA = "arena"            # instant: arena event; label = reclaim (slots
 #                            recycled at a purge; value = peak dispatch-
 #                            ring occupancy fraction) | fallback (ring

@@ -2,23 +2,32 @@
 
 One dispatch interface — :class:`~repro_torch.runtime.transport.base.WorkerTransport`
 (start / sample delays / submit round / purge / shutdown, push-style
-result return into the fusion sink) — and two backends behind it:
+result return into the fusion sink) — and four backends behind it:
 
 ``thread``
     The in-process worker pool (:mod:`repro_torch.runtime.worker`), the
     reference adapter: zero-copy round views, shared cancel events,
     coded products on host BLAS.
+``process``
+    Multiprocessing workers over pipes
+    (:mod:`repro_torch.runtime.transport.process`): GIL-free parallel
+    compute on host BLAS, wire-serialized batches or shared-memory
+    arenas, purge watermarks, a master-side drain thread.
 ``cuda``
-    The same thread loop with each worker's coded products on a CUDA
-    device (:mod:`repro_torch.runtime.transport.cuda_device`): one stream
-    per worker, pinned staging buffers, asynchronous copies.
-
-The JAX package's ``process`` and ``socket`` transports are not ported
-yet.
+    The same thread loop as ``thread`` with each worker's coded products
+    on a CUDA device (:mod:`repro_torch.runtime.transport.cuda_device`):
+    one stream per worker, pinned staging buffers, asynchronous copies.
+``socket``
+    TCP worker hosts on other machines
+    (:mod:`repro_torch.runtime.transport.socket_host`): length-prefixed
+    compressed frames, purge watermarks, heartbeat liveness,
+    reconnect-or-fail — the multi-HOST backend (``runctl serve-worker``
+    runs the remote side, on host BLAS).
 
 The master never names a backend class — it calls :func:`make_transport`
 with the run's :class:`~repro_torch.runtime.tasks.RuntimeConfig`, whose
-``backend`` field picks the substrate.
+``backend`` field picks the substrate.  Every backend passes the same
+conformance suite (``tests/test_torch_transport_conformance.py``).
 
 Backend modules load lazily (PEP 562): the base contract lives below the
 worker module in the import graph (it hosts the shared master-side
@@ -37,13 +46,18 @@ from repro_torch.runtime.tasks import RuntimeConfig, TaskResult
 from repro_torch.runtime.transport.base import StragglerModel, WorkerTransport
 
 __all__ = ["WorkerTransport", "StragglerModel", "ThreadTransport",
-           "CudaDeviceTransport", "BACKENDS", "make_transport"]
+           "ProcessTransport", "CudaDeviceTransport", "SocketTransport",
+           "BACKENDS", "make_transport"]
 
 #: backend name -> (module, class) — the ``RuntimeConfig.backend`` registry.
 _BACKEND_PATHS: dict[str, tuple[str, str]] = {
     "thread": ("repro_torch.runtime.transport.thread", "ThreadTransport"),
+    "process": ("repro_torch.runtime.transport.process",
+                "ProcessTransport"),
     "cuda": ("repro_torch.runtime.transport.cuda_device",
              "CudaDeviceTransport"),
+    "socket": ("repro_torch.runtime.transport.socket_host",
+               "SocketTransport"),
 }
 
 
@@ -80,7 +94,8 @@ class _BackendRegistry(dict):
 
 BACKENDS: dict[str, Type[WorkerTransport]] = _BackendRegistry()
 
-_LAZY_CLASSES = {"ThreadTransport": "thread", "CudaDeviceTransport": "cuda"}
+_LAZY_CLASSES = {"ThreadTransport": "thread", "ProcessTransport": "process",
+                 "CudaDeviceTransport": "cuda", "SocketTransport": "socket"}
 
 
 def __getattr__(name: str):
@@ -100,7 +115,8 @@ def make_transport(cfg: RuntimeConfig,
 
     ``tracer`` (a :class:`repro_torch.runtime.telemetry.Tracer`, or None) makes
     the transport emit dispatch/task/liveness events; in-process backends
-    record straight into it.
+    record straight into it, remote ones ship worker-stamped events back
+    and ingest them clock-rebased.
     """
     backend = cfg.backend
     try:

@@ -145,7 +145,7 @@ class WorkerTransport(abc.ABC):
     #: plain counters — frames/bytes per path, serialization-copied vs
     #: zero-copy splits; the master surfaces it as
     #: ``RuntimeResult.transport_stats``.  Purely in-process backends
-    #: (thread, jax) have no wire and leave it ``None``.
+    #: (thread, cuda) have no wire and leave it ``None``.
     wire_stats: Optional[dict] = None
 
     def __init__(self, cfg: RuntimeConfig,

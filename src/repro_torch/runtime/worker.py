@@ -10,7 +10,7 @@ This module is split along the transport seam (see
   round slice task by task, wait out each task's injected straggler delay
   against a cancellation guard, compute, and emit a
   :class:`~repro_torch.runtime.tasks.TaskResult`.  Every backend (thread,
-  cuda) runs its tasks through this one class, so purge
+  process, cuda, socket) runs its tasks through this one class, so purge
   semantics and occupancy accounting cannot drift between transports.
 * **:class:`Worker` / :class:`WorkerPool`** — the in-process *thread*
   transport loop: one thread per worker with a FIFO queue, shared-memory

@@ -646,3 +646,55 @@ def test_check_faults_clear_after_a_d256_launch(rng, hopper):
     assert not fa._unchecked
     fa.check_faults()
 
+
+
+# -- the runtime's entry point and host backends next to the card -------------
+
+def test_runctl_defaults_to_cuda_and_verifies(hopper, tmp_path, capsys):
+    """``runctl`` with no ``--backend`` runs its workers on the card."""
+    import json
+
+    from repro_torch.launch import runctl
+    out = tmp_path / "run.json"
+    assert runctl.main(["--jobs", "3", "--K", "64", "--M", "8", "--N", "8",
+                        "--straggler", "exp", "--json", str(out)]) == 0
+    summary = json.loads(out.read_text())
+    assert summary["backend"] == "cuda"
+    assert summary["max_verify_rel_error"] < 1e-9
+    assert summary["release_histogram"][-1] == 3
+    assert "[runctl] 5 workers (cuda backend)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("shm", ["on", "off"])
+def test_forked_process_workers_never_touch_cuda(hopper, shm):
+    """A ``process`` run after CUDA is initialised in this process: the
+    workers are forked from it, and a forked child that touched CUDA
+    would raise and die.  The run verifies, and every worker exits 0."""
+    from repro_torch.runtime import (FusionNode, RoundContext,
+                                     RuntimeConfig, make_transport,
+                                     run_jobs)
+    torch.zeros(1, device=hopper)
+    assert torch.cuda.is_initialized()
+    cfg = RuntimeConfig(backend="process", shm=shm, mu=(400.0, 650.0, 380.0),
+                        straggler="exp", complexity=0.5, seed=1)
+    res, _ = run_jobs(cfg, 3, K=64, M=8, N=8, verify=True)
+    assert res.backend == "process" and res.workers_lost == 0
+    assert np.nanmax(res.verify_errors) < 1e-9
+
+    code = cfg.code()
+    a = np.arange(16 * 4, dtype=np.float64).reshape(16, 4)
+    X, Y = code.encode(a, a)
+    fusion = FusionNode()
+    transport = make_transport(cfg, sink=fusion.post)
+    transport.start()
+    try:
+        ctx = RoundContext(0, 0)
+        rf = fusion.begin_round(ctx, code.k)
+        transport.submit_round(ctx, np.asarray(X), np.asarray(Y),
+                               cfg.load_split())
+        assert rf.wait(timeout=30.0)
+        transport.purge_round(ctx)
+        np.testing.assert_allclose(rf.decode(code), a.T @ a, rtol=1e-9)
+    finally:
+        transport.shutdown()
+    assert [p.exitcode for p in transport.processes] == [0, 0, 0]

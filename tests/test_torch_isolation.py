@@ -57,7 +57,10 @@ def test_port_has_modules_and_smoke_script():
             "configs/whisper_tiny.py", "configs/internvl2_1b.py",
             "models/loss.py", "optim/optimizers.py", "data/pipeline.py",
             "checkpoint/store.py", "launch/steps.py", "launch/train.py",
-            "tree.py"} <= names
+            "tree.py", "runtime/trace_export.py",
+            "runtime/transport/process.py", "runtime/transport/shm.py",
+            "runtime/transport/socket_host.py", "launch/runctl.py",
+            "launch/serve_gateway.py", "launch/worker_host.py"} <= names
     for kernel in ("layered_matmul", "flash_attention", "ssd_scan"):
         assert (PORT / "kernels" / "csrc" / f"{kernel}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
@@ -86,6 +89,12 @@ def test_entry_points_import_with_jax_and_reference_blocked():
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "import repro_torch.checkpoint.store, repro_torch.data.pipeline\n"
         "import repro_torch.optim.optimizers, repro_torch.models.loss\n"
+        "import repro_torch.launch.runctl, repro_torch.launch.serve_gateway\n"
+        "import repro_torch.launch.worker_host\n"
+        "import repro_torch.runtime.transport.process\n"
+        "import repro_torch.runtime.transport.shm\n"
+        "import repro_torch.runtime.transport.socket_host\n"
+        "import repro_torch.runtime.trace_export\n"
         "from repro_torch.configs import registry\n"
         "[registry.get_config(a) for a in registry.ARCH_IDS]\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"

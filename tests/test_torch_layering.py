@@ -96,6 +96,23 @@ def test_reference_oracle_equal(rng, m, d):
                                   jl._np_decompose(a, m, d))
 
 
+@pytest.mark.parametrize("K,top", [(64, 1 << 23), (64, 1 << 24),
+                                   (1 << 20, 1 << 16), (1 << 21, 1 << 16)],
+                         ids=("short-float64", "short-int64",
+                              "long-float64", "long-int64"))
+def test_plane_product_exact_on_both_sides_of_the_bound(rng, K, top):
+    """The oracle's float64 BLAS path (every partial sum below 2**53) and
+    its int64 path give the int64 product on either side of the bound:
+    K * top**2 is 2**52 (float64) and 2**54 (int64) for the short pair,
+    2**52 and 2**53 for the long one."""
+    x = rng.integers(-top, top + 1, size=(K, 3))
+    y = rng.integers(-top, top + 1, size=(K, 2))
+    x[0, 0], y[0, 0] = top, top         # the bound's own magnitudes
+    got = tl._np_plane_product(x, y)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, x.T @ y)
+
+
 @pytest.mark.parametrize("m,d", [(2, 8), (3, 5), (1, 7)])
 def test_layered_matmul_torch_matches_jnp(rng, m, d):
     """Both fuse in float32, whose rounding depends on the summation

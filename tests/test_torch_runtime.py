@@ -40,21 +40,19 @@ def _configs(**kw):
 # -- configuration -------------------------------------------------------------
 
 def test_backends_and_default():
-    assert tr.BACKEND_NAMES == ("thread", "cuda")
+    assert tr.BACKEND_NAMES == ("thread", "process", "cuda", "socket")
     assert tr.RuntimeConfig().backend == "cuda"
-    assert sorted(tr.BACKENDS) == ["cuda", "thread"]
-    for bad in ("jax", "process", "socket"):
+    assert sorted(tr.BACKENDS) == ["cuda", "process", "socket", "thread"]
+    for bad in ("jax", "rpc"):
         with pytest.raises(ValueError):
             tr.RuntimeConfig(backend=bad)
     assert not hasattr(tr.RuntimeConfig(), "use_jax_devices")
+    assert tr.SHM_MODES == jr.SHM_MODES
+    assert tr.FRAME_PROTOS == jr.FRAME_PROTOS
 
 
-#: Fields of the reference's process and socket transports, which the
-#: port has not ported yet, and its JAX-only alias.
-NOT_PORTED_FIELDS = {"use_jax_devices", "hosts", "compress", "shm",
-                     "frame_proto", "heartbeat_interval", "heartbeat_timeout",
-                     "reconnect_attempts", "reconnect_backoff",
-                     "reconnect_backoff_cap"}
+#: The reference's JAX-only alias for its ``jax`` backend.
+NOT_PORTED_FIELDS = {"use_jax_devices"}
 
 
 def test_config_fields_match_reference():
@@ -83,6 +81,73 @@ def test_load_split_and_system_config_equal(kw):
     assert (dataclasses.asdict(tcfg.to_system_config())
             == dataclasses.asdict(jcfg.to_system_config()))
     assert tcfg.code().num_tasks == jcfg.code().num_tasks
+
+
+#: One case per transport field: (field, keyword arguments, accepted?).
+#: Each is built by both packages, which must accept it alike or reject
+#: it with the same message.
+_HOSTS3 = ("127.0.0.1:1", "127.0.0.1:2", "127.0.0.1:3")
+TRANSPORT_FIELD_CASES = [
+    ("hosts", dict(backend="socket", hosts=_HOSTS3), True),
+    ("hosts", dict(backend="socket"), False),
+    ("hosts", dict(backend="socket", hosts=_HOSTS3[:1]), False),
+    ("hosts", dict(backend="socket", hosts=("a:1", "b:2", "noport")), False),
+    ("hosts", dict(backend="thread", hosts=_HOSTS3), False),
+    ("hosts", dict(backend="process", hosts=_HOSTS3), False),
+    ("compress", dict(backend="thread", compress="zlib"), True),
+    ("compress", dict(backend="thread", compress="gzip"), False),
+    ("shm", dict(backend="process", shm="on"), True),
+    ("shm", dict(backend="thread", shm="off"), True),
+    ("shm", dict(backend="process", shm="bogus"), False),
+    ("shm", dict(backend="thread", shm="on"), False),
+    ("shm", dict(backend="process", shm="on", code_family="hierarchical",
+                 levels=2), False),
+    ("frame_proto", dict(backend="socket", hosts=_HOSTS3, frame_proto=2),
+     True),
+    ("frame_proto", dict(backend="socket", hosts=_HOSTS3, frame_proto=3),
+     False),
+    ("frame_proto", dict(backend="process", frame_proto=1), False),
+    ("heartbeat_interval", dict(backend="thread", heartbeat_interval=0.0),
+     False),
+    ("heartbeat_timeout", dict(backend="thread", heartbeat_interval=1.0,
+                               heartbeat_timeout=1.0), False),
+    ("heartbeat_timeout", dict(backend="thread", heartbeat_interval=0.2,
+                               heartbeat_timeout=1.0), True),
+    ("reconnect_attempts", dict(backend="thread", reconnect_attempts=-1),
+     False),
+    ("reconnect_attempts", dict(backend="thread", reconnect_attempts=0),
+     True),
+    ("reconnect_backoff", dict(backend="thread", reconnect_backoff=0.0),
+     False),
+    ("reconnect_backoff_cap", dict(backend="thread", reconnect_backoff=0.5,
+                                   reconnect_backoff_cap=0.1), False),
+    ("reconnect_backoff_cap", dict(backend="thread", reconnect_backoff=0.5,
+                                   reconnect_backoff_cap=0.5), True),
+]
+
+
+@pytest.mark.parametrize("field,kw,ok", TRANSPORT_FIELD_CASES,
+                         ids=[f"{f}-{i}" for i, (f, _, _)
+                              in enumerate(TRANSPORT_FIELD_CASES)])
+def test_transport_field_validation_matches_reference(field, kw, ok):
+    kw = dict(mu=(400.0, 650.0, 380.0), **kw)
+    if ok:
+        tcfg, jcfg = tr.RuntimeConfig(**kw), jr.RuntimeConfig(**kw)
+        assert getattr(tcfg, field) == getattr(jcfg, field)
+        return
+    with pytest.raises(ValueError) as ours:
+        tr.RuntimeConfig(**kw)
+    with pytest.raises(ValueError) as theirs:
+        jr.RuntimeConfig(**kw)
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_transport_field_defaults_match_reference():
+    tcfg = tr.RuntimeConfig(backend="thread")
+    jcfg = jr.RuntimeConfig(backend="thread")
+    for f in dataclasses.fields(tr.RuntimeConfig):
+        if f.name != "backend":
+            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
 
 
 def test_invalid_configs_rejected_alike():
