@@ -104,7 +104,23 @@ main paths and checks what comes out:
    step's loss and gradient norm against the same step through the
    kernels' plain versions, falling loss over the run, and one step under
    ``torch.profiler``;
-10. one ``{"kernels": [...]}`` line with every kernel's launches on its
+10. the mesh layer, after training (so the process-worker forks above
+   come before any NCCL init), on one rank of a real NCCL group, where
+   every collective is trivial and the card's work is real: the sharding
+   rules of all ten configs at full width on stand-ins of the production
+   meshes (16 x 16 and 2 x 16 x 16; bytes per device computed, not
+   measured) and the one-rank card mesh; mamba2-370m at full width saved
+   after one AdamW step and restored with ``launch.fault.elastic_restore``
+   (every leaf bit-equal, the next step's loss equal); three coded
+   data-parallel AdamW steps of it (``GradientCoder(n=4, k=3)``, four 1 x
+   1024 shards, pod s % 4 lost at step s; 192 SSD launches a step, all on
+   the tensor-core kernel; the decoded gradient against the shard sum
+   and the full-batch gradient); the last decoded gradient through the
+   layered all-reduce (one MAX, then m SUMs top plane first, per leaf);
+   and ``distributed_layered_matmul`` at K = M = N = 4096 (m = 2, d = 8,
+   n1 = n2 = 2, omega 1.5), decoded on the host, the final resolution
+   against the card's float64 product;
+11. one ``{"kernels": [...]}`` line with every kernel's launches on its
    main paths, its largest difference from its plain version, its times
    and its bound (and those of its other timed main-path shapes).
 
@@ -304,7 +320,10 @@ def phase_environment(torch, dev):
     t0 = time.perf_counter()
     libs = _build.build_all(KERNEL_SOURCES)
     wall = time.perf_counter() - t0
+    import torch.distributed as dist
     emit({"phase": "environment", "nvidia_smi": smi,
+          "nccl_available": dist.is_nccl_available(),
+          "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
           "device": torch.cuda.get_device_name(dev),
           "capability": list(torch.cuda.get_device_capability(dev)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1797,6 +1816,483 @@ def phase_serve_deadline(torch, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The mesh layer, elastic restore, coded data parallelism, the layered
+# gradient all-reduce and the distributed coded matmul (one rank on a real
+# NCCL group: the collectives are trivial, the card's work is real)
+# ---------------------------------------------------------------------------
+
+#: the sharding rules' stand-in meshes: the reference's production shapes
+MESH_STAND_INS = {"data16_model16": {"data": 16, "model": 16},
+                  "pod2_data16_model16": {"pod": 2, "data": 16, "model": 16}}
+#: coded data parallelism: n pods, any k decode; one 1 x 1024 shard a pod
+CODED_DP = dict(n=4, k=3, steps=3)
+#: each decoded gradient leaf against the plain sum of the shard
+#: gradients: max |diff| / max |sum| (the reference's own rtol)
+CODED_DP_TOL = 1e-4
+#: the layered all-reduce of the decoded gradient
+LAYERED_GRADS = dict(m=2, d=8)
+#: the runtime path's shape (PERF.md section 4) on the mesh's data axis
+DIST_MATMUL = dict(K=4096, M=4096, N=4096, m=2, d=8, n1=2, n2=2, omega=1.5)
+
+
+class StandInMesh:
+    """Axis sizes only: what the sharding rules read of a mesh."""
+
+    def __init__(self, axes: dict):
+        self.shape = dict(axes)
+        self.axis_names = tuple(axes)
+
+
+def phase_sharding_rules(torch, dev):
+    """Param, AdamW and Adafactor state specs of all ten configs at full
+    width (``meta`` tensors, nothing allocated) on the two production mesh
+    shapes, every sharded dim checked to divide; the bytes per device they
+    give (computed from shapes and specs, not measured on the card) beside
+    the H100's memory.  Then the one-rank NCCL mesh on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.tree import leaves
+    hbm = mesh_lib.H100_SXM.hbm_bytes
+    rows = {}
+    for arch in sorted(registry.ARCH_IDS):
+        params = T.init_params(registry.get_config(arch), device="meta")
+        rows[arch] = {}
+        for label, axes in MESH_STAND_INS.items():
+            mesh = StandInMesh(axes)
+            pspecs = sh.param_specs(params, mesh)
+            row = {"params_bytes": sh.spec_bytes_per_device(params, pspecs,
+                                                            mesh)}
+            for opt in ("adamw", "adafactor"):
+                state = make_optimizer(TrainConfig(optimizer=opt)).init(
+                    params)
+                ospecs = sh.opt_state_specs(state, pspecs, mesh)
+                for tree, specs in ((params, pspecs), (state, ospecs)):
+                    for leaf, spec in zip(leaves(tree), leaves(specs)):
+                        for dim, ax in zip(leaf.shape, spec):
+                            axes_ = ax if isinstance(ax, tuple) else (ax,)
+                            if ax is not None and dim % math.prod(
+                                    axes[a] for a in axes_):
+                                raise AssertionError(f"{arch}: {spec} does "
+                                                     f"not divide "
+                                                     f"{tuple(leaf.shape)}")
+                total = row["params_bytes"] + sh.spec_bytes_per_device(
+                    state, ospecs, mesh)
+                row[f"{opt}_total_bytes"] = total
+                row[f"{opt}_share_of_h100_memory"] = total / hbm
+            rows[arch][label] = row
+    maverick = rows["llama4-maverick-400b-a17b"]["pod2_data16_model16"]
+    if not maverick["adafactor_total_bytes"] < 10 * 1024**3:
+        raise AssertionError(f"llama4-maverick with Adafactor: "
+                             f"{maverick['adafactor_total_bytes']} bytes a "
+                             f"device")
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_test_mesh(1, 1)
+    mesh_seconds = time.perf_counter() - t0
+    backend = dist.get_backend()
+    if "nccl" not in str(backend) or mesh.device_type != "cuda" or (
+            mesh.mesh_dim_names != ("data", "model")):
+        raise AssertionError(f"card mesh {mesh} on {backend}")
+    emit({"phase": "sharding_rules",
+          "bytes_note": "computed from shapes and specs, not measured",
+          "h100_sxm_memory_bytes": hbm, "archs": rows,
+          "card_mesh": {"names": list(mesh.mesh_dim_names),
+                        "shape": list(mesh.shape), "backend": str(backend),
+                        "world_size": dist.get_world_size(),
+                        "start_seconds": mesh_seconds}})
+    return rows
+
+
+def _mamba_train(torch, dev):
+    """mamba2-370m at full width (remat off), seeded parameters on the
+    card, the train phase's AdamW config and SyntheticLM's 4 x 1024
+    batches."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(registry.get_config("mamba2-370m"),
+                              remat_policy="none")
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=3e-4, warmup_steps=2)
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SERVE["prompt"],
+                       global_batch=SERVE["batch"], seed=SEED,
+                       device=str(dev))
+    return cfg, tcfg, params, data
+
+
+def _batch(data, step: int) -> dict:
+    b = data.batch_at(step)
+    return {"tokens": b.tokens, "targets": b.targets}
+
+
+def phase_elastic_restore(torch, dev):
+    """One AdamW step of mamba2-370m at full width, ``store.save``, then
+    ``fault.elastic_restore`` onto the card's one-rank mesh: every leaf a
+    DTensor whose full tensor is bit-equal to the saved one, and the next
+    step from the restored local tensors gives the loss of the next step
+    from the state in memory, to the bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import fault, steps
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg, tcfg, params, data = _mamba_train(torch, dev)
+    train_step, optimizer = steps.make_train_step(cfg, tcfg)
+    params, state, _ = train_step(params, optimizer.init(params),
+                                  _batch(data, 0))
+    saved = {"params": params, "opt": state}
+    mesh = mesh_lib.make_test_mesh(1, 1)
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = store.save(ckpt, 1, saved)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in pathlib.Path(path).iterdir())
+        t0 = time.perf_counter()
+        restored = fault.elastic_restore(ckpt, 1, saved, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    want = dict(leaves_with_path(saved))
+    leaves = 0
+    for path, x in leaves_with_path(restored):
+        name = "/".join(map(str, path))
+        full = x.full_tensor()
+        if (full.device != want[path].device or full.dtype != want[path].dtype
+                or not torch.equal(full, want[path])):
+            raise AssertionError(f"restored {name} differs from the saved "
+                                 f"tensor")
+        leaves += 1
+    local = tree_map(lambda x: x.to_local(), restored)
+    batch = _batch(data, 1)
+    _, _, m_memory = train_step(params, state, batch)
+    _, _, m_restored = train_step(local["params"], local["opt"], batch)
+    loss_memory, loss_restored = (m_memory["loss"].item(),
+                                  m_restored["loss"].item())
+    if loss_memory != loss_restored or not math.isfinite(loss_memory):
+        raise AssertionError(f"next step's loss {loss_restored} from the "
+                             f"restored state, {loss_memory} from memory")
+    emit({"phase": "elastic_restore_mamba2_370m", "arch": "mamba2-370m",
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "leaves_bit_equal": leaves, "checkpoint_bytes": nbytes,
+          "save_seconds": save_s, "restore_seconds": restore_s,
+          "next_step_loss": loss_memory,
+          "next_step_loss_from_restored": loss_restored})
+    return {"leaves": leaves, "loss": loss_memory}
+
+
+def _events_ms(torch, fn):
+    """(fn's result, ms between CUDA events around it)."""
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_coded_dp(torch, dev):
+    """Three AdamW steps of mamba2-370m at full width with coded data
+    parallelism: SyntheticLM's 4 x 1024 batch split into n = 4 shards of
+    1 x 1024, ``GradientCoder(n=4, k=3)``; step s loses pod s % 4.  Each
+    step: ``fault.coded_dp_grads`` (launch counts reset before it: 192
+    SSD launches, 48 a shard, all on the tensor-core kernel), then
+    ``degraded_step_grads`` from the three survivors, divided by n, then
+    the AdamW update.  Before the update, the decoded gradient is held
+    against the plain sum of the four shard gradients (each leaf within
+    CODED_DP_TOL of its largest value) and its mean against the uncoded
+    full-batch gradient of ``steps.make_grad_fn`` (the shards' mean loss
+    and the gradient norm within TRAIN_VS_PLAIN_TOL of the full batch's,
+    as the train phase holds a step to its plain twin; the norm of the
+    difference is printed); every gradient is finite.  The shard gradients
+    and the encode are also timed apart, on the same shards."""
+    from repro_torch.core.layered_matmul import GradientCoder
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import fault, steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import global_norm, make_optimizer
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, tcfg, params, data = _mamba_train(torch, dev)
+    optimizer = make_optimizer(tcfg)
+    state = optimizer.init(params)
+    grad_fn = steps.make_grad_fn(cfg, tcfg)
+    coder = GradientCoder(n=CODED_DP["n"], k=CODED_DP["k"])
+    n = coder.n
+
+    def loss_fn(p, batch):
+        return T.forward_train(p, batch["tokens"], batch["targets"], cfg)[0]
+
+    def finite(tree, what):
+        bad = ["/".join(map(str, p)) for p, g in leaves_with_path(tree)
+               if not torch.isfinite(g).all()]
+        if bad:
+            raise AssertionError(f"{what}: not finite in {bad}")
+
+    rows = []
+    for step in range(CODED_DP["steps"]):
+        batch = _batch(data, step)
+        shards = [{k: v[i:i + 1] for k, v in batch.items()} for i in range(n)]
+        survivors = [p for p in range(n) if p != step % n]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_kernel_launches()
+        codewords, coded_ms = _events_ms(
+            torch, lambda: fault.coded_dp_grads(loss_fn, params, shards,
+                                                coder))
+        launches = dict(ss.kernel_launches)
+        decoded, decode_ms = _events_ms(
+            torch, lambda: fault.degraded_step_grads(codewords, survivors,
+                                                     coder))
+        mean = tree_map(lambda g: g / n, decoded)
+        coded_wall_s = time.perf_counter() - t0
+        if ss.launches != 48 * n or launches[ss.WGMMA] != 48 * n:
+            raise AssertionError(f"step {step}: the shard gradients "
+                                 f"launched {launches}, want {48 * n} of "
+                                 f"{ss.WGMMA}")
+        for p, cw in enumerate(codewords):
+            finite(cw, f"step {step} codeword {p}")
+        del codewords
+        finite(decoded, f"step {step} decoded gradient")
+
+        # the same shards' gradients and their encode, timed apart, and
+        # the plain sum the decode must give
+        shard_out, shard_ms = _events_ms(
+            torch, lambda: [grad_fn(params, s) for s in shards])
+        shard_loss = sum(o[0].item() for o in shard_out) / n
+        shard_grads = [o[2] for o in shard_out]
+        del shard_out
+        for s, g in enumerate(shard_grads):
+            finite(g, f"step {step} shard {s} gradient")
+        words, encode_ms = _events_ms(
+            torch, lambda: [coder.encode_local(
+                p, [shard_grads[s] for s in coder.assignment[p]])
+                for p in range(n)])
+        del words
+        total = tree_map(lambda *g: sum(g), *shard_grads)
+        del shard_grads
+        vs_sum = max(((d - t).abs().max() / t.abs().max()).item()
+                     for d, t in zip(leaves(decoded), leaves(total)))
+        del total
+        if not vs_sum <= CODED_DP_TOL:
+            raise AssertionError(f"step {step}: decoded gradient off the "
+                                 f"shard sum by {vs_sum} of a leaf's "
+                                 f"largest value")
+        loss, _, full = grad_fn(params, batch)
+        finite(full, f"step {step} full-batch gradient")
+        # the train phase's measure at TRAIN_VS_PLAIN_TOL: relative
+        # differences of the loss and of the gradient norm
+        full_norm = global_norm(full).item()
+        vs_full = {"loss": abs(shard_loss - loss.item()) / loss.item(),
+                   "grad_norm": abs(global_norm(mean).item() - full_norm)
+                   / full_norm}
+        # and the difference's norm, which in bf16 holds the roundings of
+        # batch-1 against batch-4 GEMMs (reported, not held)
+        diff = tree_map(lambda a, b: a - b, mean, full)
+        vs_full["difference_norm"] = global_norm(diff).item() / full_norm
+        del diff, full, decoded
+        if not max(vs_full["loss"], vs_full["grad_norm"]) <= (
+                TRAIN_VS_PLAIN_TOL):
+            raise AssertionError(f"step {step}: decoded mean against the "
+                                 f"full-batch gradient: {vs_full}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state = optimizer.update(mean, state, params)
+        torch.cuda.synchronize()
+        update_wall_s = time.perf_counter() - t0
+        rows.append({"step": step, "lost_pod": step % n,
+                     "survivors": survivors, "loss": loss.item(),
+                     "ssd_launches": launches,
+                     "decoded_vs_shard_sum": vs_sum,
+                     "shard_mean_loss": shard_loss,
+                     "decoded_mean_vs_full_batch": vs_full,
+                     "coded_dp_grads_ms": coded_ms,
+                     "shard_grads_ms": shard_ms, "encode_ms": encode_ms,
+                     "decode_ms": decode_ms,
+                     "step_wall_ms": 1e3 * (coded_wall_s + update_wall_s)})
+    row = {"arch": "mamba2-370m", "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "n": n, "k": coder.k,
+           "shard": [1, SERVE["prompt"]], "optimizer": tcfg.optimizer,
+           "coefficients": coder.coefficients.tolist(),
+           "decoded_vs_shard_sum_tolerance": CODED_DP_TOL,
+           "decoded_mean_vs_full_batch_tolerance": TRAIN_VS_PLAIN_TOL,
+           "ms_note": "CUDA-event spans on the card",
+           "steps": rows,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(dict(phase="coded_dp_mamba2_370m", **row))
+    # the last step's mean decoded gradient, for the layered all-reduce
+    row["launches_per_step_by_source"] = rows[-1]["ssd_launches"]
+    row["last_mean_gradient"] = mean
+    return row
+
+
+def phase_layered_allreduce(torch, dev, results):
+    """The coded-DP phase's last mean decoded gradient through
+    ``layered_grads.layered_allreduce_tree`` on the card's one-rank mesh
+    (m = 2, d = 8): per leaf one MAX all-reduce, then m SUMs, the top
+    plane first (read from each call's operator and plane address); the
+    mean within 2 * scale of each leaf at full resolution (the
+    reference test's bound), and its error at resolution 0."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import layered_grads
+    from repro_torch.tree import leaves
+    grads = results["coded_dp_mamba2_370m"].pop("last_mean_gradient")
+    mesh = mesh_lib.make_test_mesh(1, 1)
+    m, d = LAYERED_GRADS["m"], LAYERED_GRADS["d"]
+    calls = []
+
+    def record(real, tensor, op=dist.ReduceOp.SUM, **kw):
+        calls.append((op, tensor.data_ptr()))
+        return real(tensor, op=op, **kw)
+
+    with observe(dist, "all_reduce", record):
+        out, first_ms = _events_ms(torch, lambda: (
+            layered_grads.layered_allreduce_tree(grads, mesh, "data", m=m,
+                                                 d=d)))
+    # the first collective on the group also creates NCCL's communicator
+    del out
+    out, full_ms = _events_ms(torch, lambda: (
+        layered_grads.layered_allreduce_tree(grads, mesh, "data", m=m, d=d)))
+    leaf_count = len(leaves(grads))
+    if len(calls) != leaf_count * (m + 1):
+        raise AssertionError(f"{len(calls)} all-reduces for {leaf_count} "
+                             f"leaves, want {m + 1} each")
+    for i in range(leaf_count):
+        ops = [op for op, _ in calls[i * (m + 1):(i + 1) * (m + 1)]]
+        ptrs = [p for _, p in calls[i * (m + 1) + 1:(i + 1) * (m + 1)]]
+        if ops != [dist.ReduceOp.MAX] + [dist.ReduceOp.SUM] * m or (
+                ptrs != sorted(ptrs, reverse=True)):
+            raise AssertionError(f"leaf {i}: all-reduces {ops} on planes "
+                                 f"at {ptrs}, want MAX then SUM top first")
+    res0, res0_ms = _events_ms(torch, lambda: (
+        layered_grads.layered_allreduce_tree(grads, mesh, "data", m=m, d=d,
+                                             resolution=0)))
+    qmax = 2 ** (m * d - 1) - 1
+    worst = worst0 = 0.0
+    for g, o, o0 in zip(leaves(grads), leaves(out), leaves(res0)):
+        scale = max(g.abs().max().item(), 1e-30) / qmax
+        err = (o - g).abs().max().item() / scale
+        if not err <= 2:
+            raise AssertionError(f"layered mean off by {err} scales")
+        worst = max(worst, err)
+        worst0 = max(worst0, (o0 - g).abs().max().item() / scale)
+    emit({"phase": "layered_allreduce_mamba2_370m", "m": m, "d": d,
+          "leaves": leaf_count,
+          "elements": sum(g.numel() for g in leaves(grads)),
+          "all_reduces": {"max": leaf_count, "sum": leaf_count * m},
+          "max_err_in_scales": worst, "tolerance_in_scales": 2,
+          "resolution0_max_err_in_scales": worst0,
+          "first_call_ms": first_ms, "full_resolution_ms": full_ms,
+          "resolution0_ms": res0_ms,
+          "ms_note": "CUDA-event spans on the card"})
+    return {"max_err_in_scales": worst}
+
+
+def phase_distributed_matmul(torch, dev):
+    """``distributed_layered_matmul`` at the runtime path's shape on the
+    card mesh's "data" axis: integer operands from the seed, the task
+    results (m*m, T, M/n1, N/n2) in float64; each mini-job decoded from
+    its first k tasks on the host through the port's decode plan, the
+    resolutions accumulated, and the final one held against the card's
+    float64 ``a.T @ b`` (exact: every partial sum is below 2^53) within
+    1e-9.  The encode and the task products are also timed apart on the
+    same planes, beside the runtime master's host encode of them."""
+    import numpy as np
+
+    from repro_torch.core import coding, layering
+    from repro_torch.core.layered_matmul import distributed_layered_matmul
+    from repro_torch.launch import mesh as mesh_lib
+    c = DIST_MATMUL
+    m, d = c["m"], c["d"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    a = random_ints(torch, gen, m, d, (c["K"], c["M"]), dev)
+    b = random_ints(torch, gen, m, d, (c["K"], c["N"]), dev)
+    mesh = mesh_lib.make_test_mesh(1, 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    call_ms, call_wall_s = [], []
+    for _ in range(2):   # the first call also creates NCCL's communicator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (results, layers), ms = _events_ms(torch, lambda: (
+            distributed_layered_matmul(mesh, "data", a, b, m=m, d=d,
+                                       n1=c["n1"], n2=c["n2"],
+                                       omega=c["omega"])))
+        call_wall_s.append(time.perf_counter() - t0)
+        call_ms.append(ms)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    code = coding.PolynomialCode(n1=c["n1"], n2=c["n2"], omega=c["omega"])
+    want_shape = (m * m, code.num_tasks, c["M"] // c["n1"], c["N"] // c["n2"])
+    if tuple(results.shape) != want_shape or results.dtype != torch.float64:
+        raise AssertionError(f"task results {tuple(results.shape)} "
+                             f"{results.dtype}, want {want_shape} float64")
+
+    # the same encode and products, timed apart
+    ca = layering.decompose(a, m, d)
+    cb = layering.decompose(b, m, d)
+    order = layering.all_minijobs_msb_first(m)
+    coded, encode_ms = _events_ms(torch, lambda: [
+        code.encode(ca[i], cb[i]) for i in range(m)])
+    X = torch.stack([coded[i][0] for (_, i, _) in order])
+    Y = torch.stack([coded[j][1] for (_, _, j) in order])
+    del coded
+    _, products_ms = _events_ms(torch, lambda: torch.einsum(
+        "qtkm,qtkn->qtmn", X, Y))
+    del X, Y
+    t0 = time.perf_counter()
+    host = [code.encode_a(ca[i].cpu().numpy()) for i in range(m)] + [
+        code.encode_b(cb[i].cpu().numpy()) for i in range(m)]
+    host_encode_s = time.perf_counter() - t0
+    del host
+
+    # decode on the host from each mini-job's first k tasks
+    t0 = time.perf_counter()
+    res = results[:, :code.k].cpu().numpy()
+    acc = np.zeros((c["M"], c["N"]))
+    resolutions = []
+    for l in range(layering.num_layers(m)):
+        for q, (layer, i, j) in enumerate(order):
+            if layer == l:
+                acc += code.decode(list(range(code.k)), res[q]) * float(
+                    1 << ((i + j) * d))
+        resolutions.append(acc.copy())
+    decode_s = time.perf_counter() - t0
+    del res
+    exact = a.to(torch.float64).T @ b.to(torch.float64)
+    errs = [((torch.from_numpy(r).to(dev) - exact).abs().max()
+             / exact.abs().max()).item() for r in resolutions]
+    if not errs[-1] <= 1e-9:
+        raise AssertionError(f"final resolution off by {errs[-1]} relative")
+    if not all(x >= y for x, y in zip(errs, errs[1:])):
+        raise AssertionError(f"resolution errors {errs} do not fall")
+    emit({"phase": "distributed_layered_matmul_4096", **c,
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "axis": "data", "tasks": code.num_tasks, "layers": layers,
+          "task_results": list(results.shape), "dtype": str(results.dtype),
+          "rel_err_by_resolution": errs, "final_tolerance": 1e-9,
+          "call_ms_first_then_warm": call_ms,
+          "call_wall_s_first_then_warm": call_wall_s,
+          "device_encode_ms": encode_ms, "task_products_ms": products_ms,
+          "host_encode_same_planes_s": host_encode_s,
+          "host_decode_s": decode_s, "peak_memory_gb": peak_gb,
+          "ms_note": "CUDA-event spans on the card; the encode and the "
+                     "products re-run apart on the same planes"})
+    return {"final_rel_err": errs[-1]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -1834,7 +2330,18 @@ def main() -> int:
                         ("serve_internvl2_1b", phase_serve_internvl),
                         ("serve_smoke_archs", phase_serve_smoke_archs),
                         ("serve_deadline", phase_serve_deadline),
-                        ("train", phase_train)):
+                        ("train", phase_train),
+                        # after train: the process-worker forks of
+                        # runtime_process_socket come before any NCCL init
+                        ("sharding_rules", phase_sharding_rules),
+                        ("elastic_restore_mamba2_370m",
+                         phase_elastic_restore),
+                        ("coded_dp_mamba2_370m", phase_coded_dp),
+                        ("layered_allreduce_mamba2_370m",
+                         lambda torch, dev: phase_layered_allreduce(
+                             torch, dev, results)),
+                        ("distributed_layered_matmul_4096",
+                         phase_distributed_matmul)):
         try:
             results[name] = phase(torch, dev)
             # the dh-256 flash kernel's ring waits record a give-up in a
@@ -1844,6 +2351,10 @@ def main() -> int:
             traceback.print_exc()
             emit({"phase": name, "ok": False})
             failed.append(name)
+    results.get("coded_dp_mamba2_370m", {}).pop("last_mean_gradient", None)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     kernels = []
     if "kernel_vs_plain" in results and "layered_main_path" in results:
         head = results["kernel_vs_plain"]["llama3_8b_head"]
@@ -1881,6 +2392,10 @@ def main() -> int:
         for arch, trow in results.get("train", {}).items():
             if TRAIN[arch][1] == name:
                 paths[f"train_{arch}"] = trow["launches_per_step"]
+        if name == "ssd_scan" and "coded_dp_mamba2_370m" in results:
+            # one coded step: the four shard gradients' forward passes
+            paths["coded_dp_mamba2_370m"] = results[
+                "coded_dp_mamba2_370m"]["launches_per_step_by_source"]
         by_path = {p: sum(n.values()) for p, n in paths.items()}
         by_source = {}
         for counts in paths.values():

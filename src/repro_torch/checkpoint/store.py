@@ -12,9 +12,10 @@ a worker thread and keeps the last ``keep`` steps.
 
 bf16 leaves are stored as their ``uint16`` bits (NumPy has no bf16) with
 ``bfloat16`` in the manifest.  ``restore`` places each leaf on the device
-of the matching leaf of the target tree.  Restoring onto another sharding
-(the reference's elastic resume) waits for the port's mesh layer
-(ROADMAP §1 item 7).
+of the matching leaf of the target tree, or, given a ``sharding_tree``
+(``launch.sharding.named``), as a DTensor on that leaf's mesh: elastic
+resume, since leaves are stored unsharded, restoring a checkpoint onto any
+other mesh shape is the same code path (``launch.fault.elastic_restore``).
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
-from repro_torch.tree import leaves_with_path, tree_map, unflatten
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer",
            "install_sigterm_handler"]
@@ -89,15 +91,28 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, target_tree: Any) -> Any:
+def restore(ckpt_dir: str, step: int, target_tree: Any,
+            sharding_tree: Any = None) -> Any:
     """Load ``step_<step>`` into the structure of ``target_tree``: each
     leaf a tensor on the device of the target's leaf.  Raises
-    ``ValueError`` where a stored shape differs from the target's."""
+    ``ValueError`` where a stored shape differs from the target's.
+
+    ``sharding_tree`` (the same structure, each leaf with ``.mesh`` and
+    ``.placements``, as ``launch.sharding.named`` gives) re-shards on
+    load: such a leaf comes back as a DTensor on its mesh, each rank
+    keeping its shard of the tensor it read itself.
+    """
     d = _step_dir(ckpt_dir, step)
     with open(os.path.join(d, "manifest.json")) as f:
         dtypes = {e["name"]: e["dtype"] for e in json.load(f)["leaves"]}
+    targets = leaves_with_path(target_tree)
+    shardings = ([None] * len(targets) if sharding_tree is None
+                 else leaves(sharding_tree))
+    if len(shardings) != len(targets):
+        raise ValueError(f"sharding tree has {len(shardings)} leaves, the "
+                         f"target {len(targets)}")
     out = []
-    for path, leaf in leaves_with_path(target_tree):
+    for (path, leaf), shard in zip(targets, shardings):
         name = _leafname(path)
         arr = np.load(os.path.join(d, name + ".npy"))
         want = getattr(leaf, "shape", None)
@@ -107,8 +122,13 @@ def restore(ckpt_dir: str, step: int, target_tree: Any) -> Any:
         t = torch.from_numpy(arr)
         if dtypes.get(name) == "bfloat16":
             t = t.view(torch.bfloat16)
-        dev = getattr(leaf, "device", torch.device("cpu"))
-        out.append(t.to(dev))
+        if shard is None:
+            out.append(t.to(getattr(leaf, "device", torch.device("cpu"))))
+        else:
+            # every rank read the same file: no scatter from rank 0
+            out.append(distribute_tensor(t.to(shard.mesh.device_type),
+                                         shard.mesh, shard.placements,
+                                         src_data_rank=None))
     return unflatten(target_tree, out)
 
 

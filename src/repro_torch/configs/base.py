@@ -12,9 +12,10 @@ resolves ``--arch <id>`` strings.
 The port's models run every layer kind of the JAX package (``dense``,
 ``moe``, ``ssm``, ``rglru``, ``local_attn``, ``cross``) and its audio
 and vision extras.  ``TrainConfig`` keeps the reference's fields; the
-two that need more than one device (``coded_dp``,
-``layered_grad_planes``) raise in ``launch.train`` (ROADMAP §1 items 7
-and 9).
+two that no train loop acts on (``coded_dp``, ``layered_grad_planes``)
+raise in ``launch.train``, which names the functions that do the work
+(``launch.fault.coded_dp_grads``,
+``optim.layered_grads.layered_allreduce_tree``).
 """
 
 from __future__ import annotations
@@ -176,10 +177,10 @@ class TrainConfig:
     grad_clip: float = 1.0
     b1: float = 0.9
     b2: float = 0.95
-    # coded data parallelism across pods (ROADMAP §1 item 9)
+    # coded data parallelism across pods (launch.fault.coded_dp_grads)
     coded_dp: bool = False
     coded_dp_k: int = 0                   # 0 -> n_pods (no redundancy)
-    # layered gradient all-reduce (ROADMAP §1 item 7)
+    # layered gradient all-reduce (optim.layered_grads)
     layered_grad_planes: int = 0          # 0 = off
     # cast fp32 master weights to the compute dtype before use (the
     # reference's FSDP all-gathers then move bf16)

@@ -6,7 +6,7 @@ Modules:
   scheduling      eq.(1) heterogeneous load balancing
   queueing        eqs.(2)-(4) G/G/1 delay bounds
   simulator       event simulation of the master/workers/fusion system (§IV)
-  layered_matmul  executable layered + coded pipeline
+  layered_matmul  executable pipeline + mesh-axis distribution + coded DP
 """
 
 from repro_torch.core import (  # noqa: F401

@@ -1,28 +1,45 @@
-"""Executable layered + coded matmul pipeline (paper §III).
+"""Executable layered + coded matmul pipeline, and coded data-parallelism.
 
-:class:`LayeredCodedMatmul` — the paper end-to-end: quantize operands,
-digit-decompose (``repro_torch.core.layering``), iterate mini-jobs
-MSB-first, polynomial-encode each mini-job (``repro_torch.core.coding``),
-compute the coded tasks, *erase* a configurable subset (stragglers),
-decode from the ``k`` survivors, and accumulate resolutions.  This is the
-reference system the simulator models in time.
+Three levels, as in the JAX package's module:
 
-Float mode encodes and computes on the configured device in float64 and
-decodes on the host in float64; gfp mode is host NumPy throughout.
+1. :class:`LayeredCodedMatmul` — the paper end-to-end (§III): quantize
+   operands, digit-decompose (``repro_torch.core.layering``), iterate
+   mini-jobs MSB-first, polynomial-encode each mini-job
+   (``repro_torch.core.coding``), compute the coded tasks, *erase* a
+   configurable subset (stragglers), decode from the ``k`` survivors, and
+   accumulate resolutions.  This is the reference system the simulator
+   models in time.  Float mode encodes and computes on the configured
+   device in float64 and decodes on the host in float64; gfp mode is host
+   NumPy throughout.
+
+2. :func:`distributed_layered_matmul` — the coded tasks run across one
+   axis of a ``DeviceMesh``: each rank computes its slice of the codeword
+   batch; the fusion is an all-gather + host decode.
+
+3. :class:`GradientCoder` — MDS-coded data parallelism across pods: each
+   pod contributes a linear combination of gradient shards; any ``k`` of
+   ``n`` pod codewords decode the full-batch gradient (pod loss =
+   erasure).  The decode weights for a surviving subset collapse to a
+   single per-pod scalar, so recovery is one weighted sum.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.core import coding, layering
+from repro_torch.tree import tree_map
 
-__all__ = ["LayeredCodedMatmul"]
+__all__ = [
+    "LayeredCodedMatmul", "distributed_layered_matmul", "GradientCoder",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,3 +165,164 @@ class LayeredCodedMatmul:
                            chunk_b.astype(np.uint64))
         results = code.compute_all_tasks(X, Y)
         return code.decode(ids, results[np.asarray(ids)])
+
+
+# ---------------------------------------------------------------------------
+# Distributed execution of the coded tasks over a mesh axis
+# ---------------------------------------------------------------------------
+
+def distributed_layered_matmul(mesh, axis: str, a: torch.Tensor,
+                               b: torch.Tensor, *, m: int, d: int,
+                               n1: int, n2: int, omega: float):
+    """Compute coded task results for every mini-job, sharded over ``axis``.
+
+    Encoding happens once on every rank, on the operands' device: each
+    digit plane of A and of B is encoded once and shared by the mini-jobs
+    that pair it.  Each rank multiplies its slice of the codeword batch;
+    results are all-gathered over the axis's process group so any rank can
+    decode from the first k arrivals.  Returns (task_results, layer_index)
+    where ``task_results`` has shape (m*m, T, M/n1, N/n2) laid out
+    mini-job-major in MSB-first execution order.  Where T does not divide
+    by the axis size it is padded up to a multiple by raising omega (the
+    extra tasks are pure redundancy; the evaluation points move with T).
+
+    The encode and the products are float64 (``coding.PolynomialCode``'s
+    choice for tensors); the reference computes them in float32.
+    """
+    code = coding.PolynomialCode(n1=n1, n2=n2, omega=omega, mode="float")
+    T = code.num_tasks
+    group = mesh.get_group(axis)
+    naxis = group.size()
+    if T % naxis:
+        # pad codeword count to the axis size; extra tasks are pure redundancy
+        T = ((T // naxis) + 1) * naxis
+        code = dataclasses.replace(code, omega=T / code.k)
+
+    ca = layering.decompose(a.to(torch.int32), m, d)
+    cb = layering.decompose(b.to(torch.int32), m, d)
+    order = layering.all_minijobs_msb_first(m)
+    coded = [code.encode(ca[i], cb[i]) for i in range(m)]
+    X = torch.stack([coded[i][0] for (_, i, _) in order])  # (m*m, T, K, M/n1)
+    Y = torch.stack([coded[j][1] for (_, _, j) in order])  # (m*m, T, K, N/n2)
+
+    per_rank = T // naxis
+    lo = mesh.get_local_rank(axis) * per_rank
+    local = torch.einsum("qtkm,qtkn->qtmn", X[:, lo:lo + per_rank],
+                         Y[:, lo:lo + per_rank]).contiguous()
+    # ranks stacked along dim 0: (naxis * m*m, T/naxis, M/n1, N/n2)
+    gathered = local.new_empty((naxis * local.shape[0],)
+                               + tuple(local.shape[1:]))
+    dist.all_gather_into_tensor(gathered, local, group=group)
+    results = gathered.reshape((naxis,) + tuple(local.shape)).movedim(
+        0, 1).reshape((local.shape[0], T) + tuple(local.shape[2:]))
+    return results, [l for (l, _, _) in order]
+
+
+# ---------------------------------------------------------------------------
+# MDS-coded data parallelism (pod-level erasure tolerance)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GradientCoder:
+    """Cyclic MDS gradient coding over ``n`` pods, tolerating ``n - k`` losses.
+
+    Data is split into ``n`` shards; pod ``p`` computes gradients for shards
+    ``p, p+1, ..., p+r-1 (mod n)`` where ``r = n - k + 1`` (the replication
+    factor), and sends the combination ``c_p = sum_t G[p, (p+t) % n] g_{p+t}``.
+    For any surviving set S (|S| >= k) there exist weights w_p with
+    ``sum_{p in S} w_p c_p = sum_s g_s`` -- one weighted sum recovers the
+    full-batch gradient.  Coefficients come from a Vandermonde structure so
+    every k-subset is invertible (MDS).  The coefficients are host NumPy;
+    codewords are trees of tensors (``repro_torch.tree``), combined on
+    their own device.
+    """
+
+    n: int
+    k: int
+
+    def __post_init__(self):
+        if not 1 <= self.k <= self.n:
+            raise ValueError(f"need 1 <= k <= n, got k={self.k} n={self.n}")
+
+    @property
+    def replication(self) -> int:
+        return self.n - self.k + 1
+
+    @functools.cached_property
+    def assignment(self) -> np.ndarray:
+        """(n, r) shard ids handled by each pod (cyclic)."""
+        r = self.replication
+        return (np.arange(self.n)[:, None] + np.arange(r)[None, :]) % self.n
+
+    @functools.cached_property
+    def coefficients(self) -> np.ndarray:
+        """(n, n) sparse combination matrix C: pod p sends sum_s C[p,s] g_s.
+
+        Tandon et al. (gradient coding) Algorithm-2 construction: draw a
+        random H in R^{s x n} (s = n - k stragglers) with H @ 1 = 0, then
+        choose each row C[p] supported on ``assignment[p]`` with
+        ``C[p, p] = 1`` and the rest solving ``H @ C[p]^T = 0``.  Every row
+        lies in null(H), an (n-s)-dim subspace containing the ones vector;
+        any n-s rows are (generically) a basis of it, so the ones vector is
+        in their span — exactly the decodability condition.
+        """
+        n, s = self.n, self.n - self.k
+        C = np.zeros((n, n))
+        if s == 0:
+            np.fill_diagonal(C, 1.0)
+            return C
+        rng = np.random.default_rng(2022)
+        H = rng.normal(size=(s, n))
+        H = H - H.mean(axis=1, keepdims=True)  # rows orthogonal to ones
+        for p in range(n):
+            sup = self.assignment[p]          # (s+1,) cyclic support
+            rest = sup[1:]                    # solve for these s entries
+            x = np.linalg.solve(H[:, rest], -H[:, sup[0]])
+            C[p, sup[0]] = 1.0
+            C[p, rest] = x
+        return C
+
+    def decode_weights(self, survivors: Sequence[int]) -> np.ndarray:
+        """w such that ``w @ C[survivors] = ones`` (exists when |S| >= k).
+
+        ``survivors`` order is preserved: ``w[i]`` weights ``survivors[i]``'s
+        codeword.
+        """
+        S = [int(s) for s in survivors]
+        if len(set(S)) != len(S):
+            raise ValueError(f"duplicate survivor ids: {S}")
+        if len(S) < self.k:
+            raise ValueError(f"need >= {self.k} survivors, got {len(S)}")
+        Cs = self.coefficients[np.asarray(S)]  # (|S|, n)
+        w, _, _, _ = np.linalg.lstsq(Cs.T, np.ones(self.n), rcond=None)
+        recon = Cs.T @ w
+        if not np.allclose(recon, 1.0, atol=1e-6):
+            raise RuntimeError(
+                f"survivor set {S} is not decodable (residual "
+                f"{np.abs(recon - 1).max():.2e}) -- non-MDS corner; "
+                f"increase redundancy")
+        return w
+
+    def encode_local(self, pod_id: int, shard_grads: Sequence) -> object:
+        """Combine pod ``pod_id``'s r shard-gradient trees into a codeword."""
+        coeffs = self.coefficients[pod_id, self.assignment[pod_id]]
+        return tree_map(lambda *leaves: _combine(coeffs, leaves),
+                        *shard_grads)
+
+    def decode(self, survivors: Sequence[int], codewords: Sequence) -> object:
+        """Recover the sum of all shard gradients from surviving codewords.
+
+        ``codewords[i]`` must be the codeword tree sent by pod
+        ``survivors[i]``.
+        """
+        w = self.decode_weights(survivors)
+        return tree_map(lambda *leaves: _combine(w, leaves), *codewords)
+
+
+def _combine(weights: np.ndarray, leaves: Sequence[torch.Tensor]
+             ) -> torch.Tensor:
+    """``sum_i weights[i] * leaves[i]`` in the leaves' dtype."""
+    acc = leaves[0] * float(weights[0])
+    for w, leaf in zip(weights[1:], leaves[1:]):
+        acc = acc + float(w) * leaf
+    return acc

@@ -11,10 +11,12 @@ synchronous one on SIGTERM, and ``--resume`` from the latest checkpoint.
     python -m repro_torch.launch.train --arch llama3-8b-smoke \\
         --device cpu --steps 50 --batch 4 --seq 64          # on the host
 
-Two fields of ``TrainConfig`` need more than one device and raise here:
-``coded_dp`` (coded data parallelism, ROADMAP §1 item 9) and
-``layered_grad_planes`` (the layered gradient all-reduce, item 7), and so
-does restoring onto another mesh (item 7).
+Two fields of ``TrainConfig`` raise here, since this loop, like the JAX
+package's, acts on neither: ``coded_dp`` (coded data parallelism is
+``launch.fault.coded_dp_grads`` with ``degraded_step_grads``) and
+``layered_grad_planes`` (the layered gradient all-reduce is
+``optim.layered_grads.layered_allreduce_tree``).  Restoring onto a mesh
+is ``launch.fault.elastic_restore``.
 """
 
 from __future__ import annotations
@@ -58,12 +60,14 @@ def _resolve_config(arch: str) -> ModelConfig:
 def _check_single_device(tcfg: TrainConfig) -> None:
     if tcfg.coded_dp:
         raise NotImplementedError(
-            "TrainConfig.coded_dp (coded data parallelism across pods) is "
-            "not ported yet (ROADMAP §1 item 9)")
+            "TrainConfig.coded_dp: train_loop trains on one device and does "
+            "not code its batch; coded data parallelism across pods is "
+            "launch.fault.coded_dp_grads (then degraded_step_grads)")
     if tcfg.layered_grad_planes:
         raise NotImplementedError(
-            "TrainConfig.layered_grad_planes (the layered gradient "
-            "all-reduce) is not ported yet (ROADMAP §1 item 7)")
+            "TrainConfig.layered_grad_planes: train_loop trains on one "
+            "device and reduces no gradient; the layered gradient "
+            "all-reduce is optim.layered_grads.layered_allreduce_tree")
 
 
 def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,

@@ -1,0 +1,179 @@
+"""Spawned gloo ranks for the port's ``torch.distributed`` tests.
+
+``tests/test_torch_sharding.py`` and ``tests/test_torch_coded_dp.py`` run
+meshes of several ranks on the host: :func:`run_ranks` spawns one process
+per rank, each joins a gloo process group through a ``file://``
+rendezvous under the test's ``tmp_path`` (no ports), runs one of the rank
+bodies below and writes what it returns with ``torch.save``.  Every rank
+is joined against one deadline; on expiry all are killed and the test
+fails, so a hang costs one test its timeout, never the suite's clock.
+
+The rank bodies import only torch and the port (no JAX): each builds its
+mesh with ``launch.mesh.make_test_mesh(..., device="cpu")`` on the group
+the harness started, and returns tensors for the test to check.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import time
+import traceback
+
+import torch
+
+#: seconds a spawned-rank test waits for all its ranks
+RANK_TIMEOUT = 60.0
+
+
+def _rank_main(rank: int, world: int, init: str, fn, args, out: str):
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=world)
+        try:
+            result = {"value": fn(rank, world, *args), "error": None}
+        finally:
+            dist.destroy_process_group()
+    except BaseException:          # reported to the test through the file
+        result = {"value": None, "error": traceback.format_exc()}
+    torch.save(result, out)
+
+
+def run_ranks(tmp_path, world: int, fn, *args,
+              timeout: float = RANK_TIMEOUT) -> list:
+    """``[fn(rank, world, *args) for each rank]``, each rank a spawned
+    process in one gloo group of ``world``.  Raises ``AssertionError``
+    with the rank's traceback if one failed, or if any is still running
+    after ``timeout`` seconds (all are killed then)."""
+    ctx = multiprocessing.get_context("spawn")
+    init = f"file://{tmp_path / f'rendezvous-{time.monotonic_ns()}'}"
+    outs = [tmp_path / f"rank{rank}-{time.monotonic_ns()}.pt"
+            for rank in range(world)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(rank, world, init, fn, args, str(outs[rank])),
+                         daemon=True)
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join(10)
+    assert not hung, f"ranks {hung} still running after {timeout} s: killed"
+    results = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert out.exists(), f"rank {rank} exited {p.exitcode} with no result"
+        got = torch.load(out, weights_only=False)
+        assert got["error"] is None, f"rank {rank} failed:\n{got['error']}"
+        results.append(got["value"])
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Rank bodies (module level, so a spawned process can import them)
+# ---------------------------------------------------------------------------
+
+#: specs that ``place`` lays out on a (data=2, model=2) mesh, by leaf
+PLACE_SPECS = {
+    "both": ("data", "model"),
+    "tuple_dim0": (("data", "model"), None),
+    "model_only": (None, "model"),
+    "replicated": (None, None),
+    "tuple_dim1": (None, ("data", "model")),
+}
+
+
+def place_tree(rank, world):
+    """``sharding.place`` of :data:`PLACE_SPECS`'s tree on (data=2,
+    model=2): each leaf's local shard, its mesh coordinates and its full
+    tensor."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    mesh = mesh_lib.make_test_mesh(2, 2, device="cpu")
+    tree = {name: torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+            for name in PLACE_SPECS}
+    specs = {name: sh.Spec(*spec) for name, spec in PLACE_SPECS.items()}
+    placed = sh.place(tree, mesh, specs)
+    return {"coords": {"data": mesh.get_local_rank("data"),
+                       "model": mesh.get_local_rank("model")},
+            "local": {k: v.to_local().clone() for k, v in placed.items()},
+            "full": {k: v.full_tensor() for k, v in placed.items()}}
+
+
+def restore_state(arch: str, seed: int = 0):
+    """The train state a rank restores into: ``arch``'s smoke params and
+    AdamW state after one update on seeded gradients, on the host."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.tree import tree_map
+    cfg = registry.get_smoke_config(arch)
+    params = T.init_params(cfg, seed=seed, device="cpu")
+    opt = make_optimizer(TrainConfig(warmup_steps=1))
+    gen = torch.Generator().manual_seed(seed + 1)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen), params)
+    params, state = opt.update(grads, opt.init(params), params)
+    return {"params": params, "opt": state}
+
+
+def elastic_restore_tree(rank, world, ckpt_dir, arch):
+    """Rank 0 saves :func:`restore_state`; every rank then restores it with
+    ``fault.elastic_restore`` on (data=2, model=2).  Returns each leaf's
+    spec, local shard and full tensor, by path."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import fault
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.tree import leaves, leaves_with_path
+    state = restore_state(arch)
+    if rank == 0:
+        store.save(ckpt_dir, 3, state)
+    dist.barrier()
+    mesh = mesh_lib.make_test_mesh(2, 2, device="cpu")
+    out = fault.elastic_restore(ckpt_dir, 3, state, mesh)
+    pspecs = sh.param_specs(state["params"], mesh)
+    specs = {"params": pspecs,
+             "opt": sh.opt_state_specs(state["opt"], pspecs, mesh)}
+    return {"coords": {"data": mesh.get_local_rank("data"),
+                       "model": mesh.get_local_rank("model")},
+            "leaves": [("/".join(map(str, path)), tuple(spec),
+                        x.to_local().clone(), x.full_tensor())
+                       for (path, x), spec in zip(leaves_with_path(out),
+                                                  leaves(specs))]}
+
+
+def layered_allreduce_ranks(rank, world, shapes, m, d):
+    """Each rank's seeded gradient tree and ``layered_allreduce_tree`` of it
+    over the "data" axis of a (data=world, model=1) mesh, at full
+    resolution and at resolution 0."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import layered_grads
+    mesh = mesh_lib.make_test_mesh(world, 1, device="cpu")
+    gen = torch.Generator().manual_seed(100 + rank)
+    grads = {name: torch.randn(shape, generator=gen) * (rank + 1)
+             for name, shape in shapes.items()}
+    return {"grads": grads,
+            "full": layered_grads.layered_allreduce_tree(
+                grads, mesh, "data", m=m, d=d),
+            "res0": layered_grads.layered_allreduce_tree(
+                grads, mesh, "data", m=m, d=d, resolution=0)}
+
+
+def distributed_matmul_ranks(rank, world, a, b, kw):
+    """``distributed_layered_matmul`` on the "data" axis of (data=world,
+    model=1): the gathered task results and the layer order."""
+    from repro_torch.core.layered_matmul import distributed_layered_matmul
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_test_mesh(world, 1, device="cpu")
+    return distributed_layered_matmul(mesh, "data", a, b, **kw)

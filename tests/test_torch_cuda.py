@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 The layered int8 matmul, flash attention and the SSD chunk scan, and the
-smoke models through them against the host.  These tests need an NVIDIA
+smoke models through them against the host; last, the one-rank NCCL mesh
+(the layered all-reduce and the distributed coded matmul on the card).  These tests need an NVIDIA
 Hopper GPU and ``nvcc``; elsewhere they skip.
 They import nothing of JAX, so they run on the card's machine:
 
@@ -698,3 +699,52 @@ def test_forked_process_workers_never_touch_cuda(hopper, shm):
     finally:
         transport.shutdown()
     assert [p.exitcode for p in transport.processes] == [0, 0, 0]
+
+
+@pytest.fixture
+def card_mesh(hopper):
+    """The card's one-rank NCCL mesh, its process group destroyed after
+    the test (last in this file: the forked-worker tests above run before
+    any NCCL init)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    assert not dist.is_initialized()
+    mesh = mesh_lib.make_test_mesh(1, 1)
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def test_card_mesh_layered_allreduce_and_distributed_matmul(rng, card_mesh):
+    """On one NCCL rank: the layered all-reduce of a card gradient is the
+    gradient within 2 * scale, and the distributed coded matmul's final
+    resolution decodes to the exact integer product."""
+    import torch.distributed as dist
+
+    from repro_torch.core import coding
+    from repro_torch.core.layered_matmul import distributed_layered_matmul
+    from repro_torch.optim import layered_grads
+    assert "nccl" in str(dist.get_backend())
+    assert card_mesh.device_type == "cuda"
+    g = torch.from_numpy(rng.normal(size=(64, 96)).astype(np.float32)).cuda()
+    out = layered_grads.layered_allreduce_tree({"g": g}, card_mesh, "data")
+    scale = g.abs().max().item() / (2 ** 15 - 1)
+    assert out["g"].is_cuda
+    assert (out["g"] - g).abs().max().item() <= 2 * scale
+
+    m, d = 2, 8
+    a = rng.integers(-(2 ** 15), 2 ** 15, size=(256, 64))
+    b = rng.integers(-(2 ** 15), 2 ** 15, size=(256, 32))
+    results, layers = distributed_layered_matmul(
+        card_mesh, "data", torch.from_numpy(a).cuda(),
+        torch.from_numpy(b).cuda(), m=m, d=d, n1=2, n2=2, omega=1.5)
+    assert results.is_cuda and tuple(results.shape) == (4, 6, 32, 16)
+    code = coding.PolynomialCode(2, 2, 1.5)
+    order = layering.all_minijobs_msb_first(m)
+    res = results.cpu().numpy()
+    final = sum(code.decode(list(range(4)), res[q][:4])
+                * float(1 << ((i + j) * d)) for q, (_, i, j) in
+                enumerate(order))
+    np.testing.assert_array_equal(np.rint(final).astype(np.int64), a.T @ b)

@@ -503,10 +503,11 @@ def test_resume_restores_the_saved_state(tmp_path):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("field, value, item", [
-    ("coded_dp", True, "item 9"), ("layered_grad_planes", 2, "item 7")])
-def test_multi_device_fields_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("field, value, points_to", [
+    ("coded_dp", True, "launch.fault.coded_dp_grads"),
+    ("layered_grad_planes", 2, "optim.layered_grads.layered_allreduce_tree")])
+def test_multi_device_fields_raise(field, value, points_to):
+    with pytest.raises(NotImplementedError, match=points_to):
         train.train_loop(tiny_cfg(), TrainConfig(**{field: value}), batch=1,
                          seq=8, steps=1, device="cpu")
 
