@@ -120,9 +120,27 @@ main paths and checks what comes out:
    and ``distributed_layered_matmul`` at K = M = N = 4096 (m = 2, d = 8,
    n1 = n2 = 2, omega 1.5), decoded on the host, the final resolution
    against the card's float64 product;
-11. one ``{"kernels": [...]}`` line with every kernel's launches on its
-   main paths, its largest difference from its plain version, its times
-   and its bound (and those of its other timed main-path shapes).
+11. the sharded cells (``launch.steps.build_cell``) on the same one-rank
+   NCCL mesh, at full width: llama3-8b's prefill cell on serve_llama3_8b's
+   4 x 1024 prompt with caches for 16 more tokens (launch counts reset
+   before it: 32 flash launches, all on the tensor-core kernel), its
+   logits and caches against ``make_prefill_step`` on the same plain
+   tensors (bit-equal expected; any difference printed and held to 5e-2
+   of the largest value), wall, CUDA-event and profiled device ms of
+   both; 16 steps of its decode cell against ``make_serve_step``, ms per
+   token of both; mamba2-370m trained 5 steps by ``train_loop(mesh=)``
+   (48 SSD launches a step, all on the tensor-core kernel; step 1's
+   gradients through the cell's layout all finite, its loss and gradient
+   norm against the plain step within 2e-2); ``Cell.costs()`` of the
+   three cells and their roofline terms on ``H100_SXM`` beside the
+   measured times; and two production dry-run cells
+   (``python -m repro_torch.launch.dryrun``), each in a subprocess
+   (a fake process group cannot share a process with NCCL), ``status:
+   ok``, per-device bytes beside the 80 GB;
+12. one ``{"kernels": [...]}`` line with every kernel's launches on its
+   main paths (the cells' among them), its largest difference from its
+   plain version, its times and its bound (and those of its other timed
+   main-path shapes).
 
 After every phase the dh-256 flash kernel's fault word is read
 (``kernels.flash_attention.check_faults``): a ring wait that gave up
@@ -2293,6 +2311,355 @@ def phase_distributed_matmul(torch, dev):
     return {"final_rel_err": errs[-1]}
 
 
+#: the sharded cells (``launch.steps.build_cell``) on the card's one-rank
+#: NCCL mesh: llama3-8b's prefill on serve_llama3_8b's 4 x 1024 prompt
+#: with caches for 16 more tokens, 16 steps of its decode cell, and
+#: mamba2-370m trained through its train cell (remat off, as the train
+#: phase; 48 SSD launches a step)
+CELL = dict(arch="llama3-8b", batch=4, prompt=1024, gen=16,
+            train_arch="mamba2-370m", train_steps=5, flash_launches=32,
+            ssd_launches=48)
+#: timed calls of each cell and of its plain step (after one warm call)
+CELL_RUNS = 3
+#: the production dry-run cells, each in a process of its own (a fake
+#: process group cannot share one with NCCL's), and each one's timeout
+DRYRUN_CELLS = [("llama3-8b", "train_4k", "single"),
+                ("llama4-maverick-400b-a17b", "decode_32k", "multi")]
+DRYRUN_TIMEOUT_S = 240
+
+
+def _timed(torch, fn, runs: int = CELL_RUNS) -> dict:
+    """One warm call of ``fn``, then ``runs`` timed calls: median host wall
+    ms and CUDA-event ms, and the device time of one more call under
+    ``torch.profiler`` (every kernel and copy it ran)."""
+    fn()
+    torch.cuda.synchronize()
+    wall, events = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        _, ms = _events_ms(torch, fn)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        events.append(ms)
+    profiled = prefill_device_profile(torch, fn, "")
+    return {"wall_ms": statistics.median(wall),
+            "event_ms": statistics.median(events),
+            "device_ms": profiled["all_device_ms"]}
+
+
+def _max_diff(torch, got, want) -> tuple[float, float]:
+    """(largest |difference| over the leaves of two trees, the largest
+    |value| of ``want``); DTensors are read whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import leaves
+    diff = scale = 0.0
+    for g, w in zip(leaves(got), leaves(want)):
+        g = g.full_tensor() if isinstance(g, DTensor) else g
+        diff = max(diff, (g.float() - w.float()).abs().max().item())
+        scale = max(scale, w.float().abs().max().item())
+    return diff, scale
+
+
+def phase_cell_prefill(torch, dev, results):
+    """llama3-8b's prefill cell at full width on the card's one-rank mesh,
+    on serve_llama3_8b's prompt: its launches (reset before it: 32 flash
+    launches, all on the tensor-core kernel), its logits and caches
+    against ``make_prefill_step`` on the same plain tensors (bit-equal
+    expected; any difference printed and held to :data:`DECODE_TOL` of
+    the largest value), and the wall and device ms of both."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    c = CELL
+    B, S, G = c["batch"], c["prompt"], c["gen"]
+    cfg = registry.get_config(c["arch"])
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=dev)
+    mesh = mesh_lib.make_test_mesh(1, 1)
+    # the cell's seq_len is its cache length: the prompt plus G tokens
+    shape = ShapeConfig("prefill_4x1024", S + G, B, "prefill")
+    cell = steps.build_cell(cfg, shape, mesh)
+    placed = steps.laid_out(params, mesh, cell.in_shardings[0])
+    batch = {"tokens": tokens[:, :S]}
+    plain = steps.make_prefill_step(cfg, max_len=S + G)
+
+    fa.launches = 0
+    fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
+    torch.cuda.synchronize()
+    logits, caches = cell.fn(placed, batch)
+    torch.cuda.synchronize()
+    by_source = {"flash_attention": dict(fa.kernel_launches)}
+    if (fa.launches != c["flash_launches"]
+            or fa.kernel_launches[fa.WGMMA] != c["flash_launches"]):
+        raise AssertionError(f"prefill cell launched {by_source}, want "
+                             f"{c['flash_launches']} of {fa.WGMMA}")
+    want = plain(params, batch)
+    diff, scale = _max_diff(torch, (logits, caches), want)
+    if not diff <= DECODE_TOL * scale:
+        raise AssertionError(f"prefill cell differs from the plain step by "
+                             f"{diff} (largest value {scale})")
+    local = logits.to_local()
+    if (tuple(logits.shape) != (B, cfg.vocab_size)
+            or not torch.isfinite(local).all()):
+        raise AssertionError(f"bad cell logits {tuple(logits.shape)}")
+    cell_t = _timed(torch, lambda: cell.fn(placed, batch))
+    plain_t = _timed(torch, lambda: plain(params, batch))
+    row = {"arch": c["arch"], "shape": [shape.name, S + G, B, "prefill"],
+           "prompt": S, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "launches_by_source": by_source,
+           "max_abs_diff_vs_plain_step": diff,
+           "bit_equal_to_plain_step": diff == 0.0,
+           "largest_value": scale, "tolerance": DECODE_TOL,
+           "cell": cell_t, "plain_step": plain_t,
+           "dtensor_host_overhead_wall_ms": cell_t["wall_ms"]
+           - plain_t["wall_ms"]}
+    emit(dict(phase="cell_prefill_llama3_8b", **row))
+    results["_cell_llama"] = {"cfg": cfg, "params": params, "placed": placed,
+                              "tokens": tokens, "caches": caches,
+                              "plain_caches": want[1], "mesh": mesh,
+                              "prefill_cell": cell}
+    return row
+
+
+def phase_cell_decode(torch, dev, results):
+    """16 steps of llama3-8b's decode cell from the prefill cell's caches,
+    each step's logits against ``make_serve_step`` on the plain prefill's
+    caches, both fed the plain step's next token; ms per token of each."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    st = results.pop("_cell_llama")
+    c = CELL
+    B, S, G = c["batch"], c["prompt"], c["gen"]
+    cfg, mesh = st["cfg"], st["mesh"]
+    cell = steps.build_cell(cfg, ShapeConfig("decode_4x1040", S + G, B,
+                                             "decode"), mesh)
+    serve = steps.make_serve_step(cfg)
+    token = st["tokens"][:, S:]
+    caches, plain_caches = st["caches"], st["plain_caches"]
+    diffs, cell_ms, plain_ms = [], [], []
+    for i in range(G):
+        t0 = time.perf_counter()
+        logits, _, caches = cell.fn(st["placed"], {
+            "token": token, "pos": S + i, "caches": caches})
+        torch.cuda.synchronize()
+        cell_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        want, token, plain_caches = serve(st["params"], {
+            "token": token, "pos": S + i, "caches": plain_caches})
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        token = token[:, None]
+        diff, scale = _max_diff(torch, logits, want)
+        if not diff <= DECODE_TOL * scale:
+            raise AssertionError(f"decode cell step {i} differs from the "
+                                 f"plain step by {diff} (largest {scale})")
+        diffs.append(diff)
+    row = {"arch": c["arch"], "steps": G, "from_position": S,
+           "max_abs_diff_by_step": diffs,
+           "bit_equal_to_plain_step": max(diffs) == 0.0,
+           "tolerance": DECODE_TOL,
+           "cell_ms_per_token_median": statistics.median(cell_ms[1:]),
+           "plain_ms_per_token_median": statistics.median(plain_ms[1:]),
+           "cell_ms_per_token": cell_ms, "plain_ms_per_token": plain_ms}
+    emit(dict(phase="cell_decode_llama3_8b", **row))
+    results["_cells"] = {"prefill": st["prefill_cell"], "decode": cell,
+                         "mesh": mesh}
+    del st, caches, plain_caches
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_cell_train(torch, dev, results):
+    """mamba2-370m trained 5 steps through ``train_loop(mesh=...)`` on the
+    card's one-rank mesh (remat off, the train phase's AdamW): 48 SSD
+    launches a step, all on the tensor-core kernel; step 1's gradients
+    through the train cell's layout every one finite; step 1's loss and
+    gradient norm against ``make_train_step`` on plain tensors within
+    :data:`TRAIN_VS_PLAIN_TOL`; the step times beside the plain step's."""
+    import contextlib
+    import io
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.axes import mesh_context
+    from repro_torch.tree import leaves
+    c = CELL
+    cfg, tcfg, params, data = _mamba_train(torch, dev)
+    mesh = results["_cells"]["mesh"]
+    B, S = SERVE["batch"], SERVE["prompt"]
+    batch = _batch(data, 0)
+    step, optimizer = steps.make_train_step(cfg, tcfg)
+    _, _, plain_metrics = step(params, optimizer.init(params), batch)
+    cell = steps.build_cell(cfg, ShapeConfig("train_4x1024", S, B, "train"),
+                            mesh, tcfg)
+    placed = steps.laid_out(params, mesh, cell.in_shardings[0])
+    grad_fn = steps.make_grad_fn(cfg, tcfg)
+    ss.launches = 0
+    ss.kernel_launches.update(dict.fromkeys(ss.KERNELS, 0))
+    with mesh_context(mesh), implicit_replication():
+        _, _, grads = grad_fn(placed, steps.laid_out(
+            batch, mesh, cell.in_shardings[2]))
+    torch.cuda.synchronize()
+    by_source = {"ssd_scan": dict(ss.kernel_launches)}
+    if (ss.launches != c["ssd_launches"]
+            or ss.kernel_launches[ss.WGMMA] != c["ssd_launches"]):
+        raise AssertionError(f"train cell step launched {by_source}, want "
+                             f"{c['ssd_launches']} of {ss.WGMMA}")
+    bad = sum(not torch.isfinite(g.to_local()).all().item()
+              for g in leaves(grads))
+    if bad:
+        raise AssertionError(f"{bad} gradients of the train cell not finite")
+    n_grads = len(leaves(grads))
+    del grads, placed
+
+    ss.launches = 0
+    ss.kernel_launches.update(dict.fromkeys(ss.KERNELS, 0))
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train.train_loop(cfg, tcfg, batch=B, seq=S,
+                               steps=c["train_steps"], log_every=1,
+                               seed=SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    per_step = ss.launches / c["train_steps"]
+    if per_step != c["ssd_launches"]:
+        raise AssertionError(f"train_loop launched {ss.launches} in "
+                             f"{c['train_steps']} steps")
+    vs_plain = {"loss": out["losses"][0][1],
+                "plain_loss": plain_metrics["loss"].item(),
+                "grad_norm": out["grad_norms"][0][1],
+                "plain_grad_norm": plain_metrics["grad_norm"].item()}
+    for key in ("loss", "grad_norm"):
+        rel = abs(vs_plain[key] - vs_plain[f"plain_{key}"]) / abs(
+            vs_plain[f"plain_{key}"])
+        vs_plain[f"{key}_rel_diff"] = rel
+        if not rel <= TRAIN_VS_PLAIN_TOL:
+            raise AssertionError(f"train cell step 1 {key} "
+                                 f"{vs_plain[key]} against plain "
+                                 f"{vs_plain[f'plain_{key}']}")
+    if not all(math.isfinite(l) for _, l in out["losses"]):
+        raise AssertionError(f"train cell losses {out['losses']}")
+    state, params_t = out["opt_state"], out["params"]
+    del out
+    plain_state = optimizer.init(params)
+    plain_t = _timed(torch, lambda: step(params, plain_state, batch),
+                     runs=2)
+    row = {"arch": c["train_arch"], "batch": B, "seq": S,
+           "steps": c["train_steps"],
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "launches_per_step_by_source": by_source,
+           "train_loop_launches_per_step": per_step,
+           "grads_finite": n_grads, "step1_vs_plain": vs_plain,
+           "tolerance": TRAIN_VS_PLAIN_TOL,
+           "plain_step": plain_t}
+    cell_t = _timed(torch, lambda: cell.fn(params_t, state, batch), runs=2)
+    row["cell_step"] = cell_t
+    emit(dict(phase="cell_train_mamba2_370m", **row))
+    results["_cells"]["train"] = cell
+    del params, params_t, state, plain_state
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_cell_roofline(torch, dev, results):
+    """``Cell.costs()`` of the three cells (fake tensors on the host: the
+    kernel wrappers take their plain routes, which the counter reads), and
+    ``RooflineReport.terms`` on ``H100_SXM``: each cell's compute, memory
+    and collective terms and bound, beside its device ms measured above
+    (the bound's share of it)."""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import H100_SXM
+    cells = results.pop("_cells")
+    measured = {"prefill": results["cell_prefill_llama3_8b"]["cell"],
+                "train": results["cell_train_mamba2_370m"]["cell_step"]}
+    rows = {}
+    for kind in ("prefill", "decode", "train"):
+        cell = cells[kind]
+        t0 = time.perf_counter()
+        costs = cell.costs()
+        cost_s = time.perf_counter() - t0
+        report = rl.roofline_terms(costs, arch=cell.cfg.name,
+                                   shape=cell.shape.name, mesh_name="card",
+                                   kind=cell.kind, chips=1)
+        terms = report.terms(H100_SXM)
+        row = {"arch": cell.cfg.name, "shape": cell.shape.name,
+               "flops": costs.flops, "op_bytes": costs.hbm_bytes,
+               "collective_bytes": costs.collective_bytes,
+               "compute_ms": terms["compute_s"] * 1e3,
+               "memory_ms": terms["memory_s"] * 1e3,
+               "collective_ms": terms["collective_s"] * 1e3,
+               "bound": terms["bound"], "bound_ms": terms["step_s"] * 1e3,
+               "cost_seconds": cost_s}
+        if kind in measured:
+            dev_ms = measured[kind]["device_ms"]
+            row["device_ms"] = dev_ms
+            row["bound_share_of_device_ms"] = row["bound_ms"] / dev_ms
+        else:
+            ms = results["cell_decode_llama3_8b"]["cell_ms_per_token_median"]
+            row["wall_ms_per_token"] = ms
+            row["bound_share_of_wall_ms"] = row["bound_ms"] / ms
+        rows[kind] = row
+    emit({"phase": "cell_roofline", "hardware": H100_SXM.name,
+          "bytes_note": "op-boundary bytes (eager, unfused): an upper "
+                        "bound on HBM traffic", "cells": rows})
+    return rows
+
+
+def phase_dryrun_production(torch, dev):
+    """``python -m repro_torch.launch.dryrun`` on two production cells,
+    each in a subprocess of its own under :data:`DRYRUN_TIMEOUT_S`:
+    ``status: ok``, the per-device bytes beside the H100's 80 GB, and
+    the wall time."""
+    import os
+
+    from repro_torch.launch.mesh import H100_SXM
+    out_dir = HERE / "results" / "dryrun"      # the dry run's own default
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    rows = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--quiet", "--out",
+             str(out_dir)], env=env, cwd=HERE, capture_output=True,
+            text=True, timeout=DRYRUN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        if proc.returncode != 0 or not path.exists():
+            raise AssertionError(f"dry run {arch} {shape} {mesh} exited "
+                                 f"{proc.returncode}: {proc.stdout[-800:]}"
+                                 f"{proc.stderr[-1500:]}")
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} {shape} {mesh}: "
+                                 f"{rec.get('error')}")
+        state = (rec["param_bytes_per_dev"] + rec["opt_state_bytes_per_dev"]
+                 + rec["cache_bytes_per_dev"])
+        rows[f"{arch}__{shape}__{mesh}"] = {
+            "status": rec["status"], "chips": rec["chips"],
+            "kind": rec["kind"], "bound": rec["bound"],
+            "compute_s": rec["compute_s"], "memory_s": rec["memory_s"],
+            "collective_s": rec["collective_s"],
+            "state_bytes_per_device": state,
+            "peak_bytes_per_device": rec["peak_memory_per_device"],
+            "h100_memory_bytes": H100_SXM.hbm_bytes,
+            "peak_share_of_h100": rec["peak_memory_per_device"]
+            / H100_SXM.hbm_bytes,
+            "model_flops_ratio": rec.get("model_flops_ratio"),
+            "record_wall_s": rec["wall_s"], "process_wall_s": wall}
+    emit({"phase": "dryrun_production", "cells": rows,
+          "bytes_note": "per device, from shapes and specs (state) and a "
+                        "memory tracker over fake tensors (peak); not "
+                        "measured on a card"})
+    return rows
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
@@ -2341,7 +2708,20 @@ def main() -> int:
                          lambda torch, dev: phase_layered_allreduce(
                              torch, dev, results)),
                         ("distributed_layered_matmul_4096",
-                         phase_distributed_matmul)):
+                         phase_distributed_matmul),
+                        ("cell_prefill_llama3_8b",
+                         lambda torch, dev: phase_cell_prefill(
+                             torch, dev, results)),
+                        ("cell_decode_llama3_8b",
+                         lambda torch, dev: phase_cell_decode(
+                             torch, dev, results)),
+                        ("cell_train_mamba2_370m",
+                         lambda torch, dev: phase_cell_train(
+                             torch, dev, results)),
+                        ("cell_roofline",
+                         lambda torch, dev: phase_cell_roofline(
+                             torch, dev, results)),
+                        ("dryrun_production", phase_dryrun_production)):
         try:
             results[name] = phase(torch, dev)
             # the dh-256 flash kernel's ring waits record a give-up in a
@@ -2352,6 +2732,8 @@ def main() -> int:
             emit({"phase": name, "ok": False})
             failed.append(name)
     results.get("coded_dp_mamba2_370m", {}).pop("last_mean_gradient", None)
+    for scratch in ("_cell_llama", "_cells"):
+        results.pop(scratch, None)
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -2396,6 +2778,13 @@ def main() -> int:
             # one coded step: the four shard gradients' forward passes
             paths["coded_dp_mamba2_370m"] = results[
                 "coded_dp_mamba2_370m"]["launches_per_step_by_source"]
+        # the sharded cells: one prefill, one train step
+        cell_path = {"flash_attention": ("cell_prefill_llama3_8b",
+                                         "launches_by_source"),
+                     "ssd_scan": ("cell_train_mamba2_370m",
+                                  "launches_per_step_by_source")}[name]
+        if cell_path[0] in results:
+            paths[cell_path[0]] = results[cell_path[0]][cell_path[1]][name]
         by_path = {p: sum(n.values()) for p, n in paths.items()}
         by_source = {}
         for counts in paths.values():

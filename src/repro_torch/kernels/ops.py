@@ -15,6 +15,13 @@ autodiff does (its Pallas kernels have no VJP; it trains through those jnp
 twins), so the card's forward values are the kernels' and its gradients
 the reference's function's.  The kernels take no part in backward: the
 forward's launch counts are the whole step's.
+
+Both also take DTensors (a sharded cell's activations, ``launch.steps``),
+through ``launch.axes.local_shards`` (``local_map``) around the
+``autograd.Function``: each rank runs the wrapper, and on the card the
+kernel, on its local shard -- batch over the mesh's batch axes, heads
+over ``model`` where they divide -- and backward hands each rank its local
+gradients.  Plain tensors take the path above.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import layering
 from repro_torch.kernels import flash_attention as fa
@@ -139,9 +147,20 @@ def _recompute_grads(ctx, fn, grads_out):
         found = torch.autograd.grad([o for o, _ in pairs],
                                     [leaves[i] for i in wanted],
                                     [g for _, g in pairs], allow_unused=True)
+    # contiguous: a DTensor's views (``local_map`` wraps these as the local
+    # gradients) are planned on its global shape and need a dense local
     for i, g in zip(wanted, found):
-        grads[i] = g if g is not None else torch.zeros_like(inputs[i])
+        grads[i] = (g.contiguous() if g is not None
+                    else torch.zeros_like(inputs[i]))
     return grads
+
+
+def _fake(*tensors) -> bool:
+    """Tensors with no data (``FakeTensorMode``: a cost pass,
+    ``launch.op_costs``): no kernel can run on them, and their plain
+    versions give the shapes and the work such a pass counts."""
+    from torch._subclasses.fake_tensor import is_fake
+    return any(t is not None and is_fake(t) for t in tensors)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -153,9 +172,10 @@ class _FlashAttention(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v)
+        run = (fa.flash_attention_gqa_plain if _fake(q, k, v)
+               else fa.flash_attention_gqa)
         with torch.no_grad():
-            return fa.flash_attention_gqa(q, k, v, causal=causal,
-                                          window=window)
+            return run(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, dout):
@@ -172,7 +192,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with GQA (kv head ``h // (H // n_kv)`` is read in place, no repeat):
     ``kernels.flash_attention.flash_attention_gqa``, differentiable (see
     the module docstring)."""
+    if isinstance(q, DTensor):
+        return _sharded_flash_attention(q, k, v, causal, window)
     return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def _head_split(mesh, heads: int, kv_heads: int) -> tuple[bool, bool]:
+    """(query heads split over ``model``, K/V (or B/C) heads split too):
+    K/V heads are split only where both counts divide the model axis."""
+    from repro_torch.launch.mesh import axis_sizes
+    tp = axis_sizes(mesh).get("model", 1)
+    q_split = "model" in axis_sizes(mesh) and tp > 1 and heads % tp == 0
+    return q_split, q_split and kv_heads % tp == 0
+
+
+def _own_kv_heads(mesh, q_heads: int, kv_heads: int, local_q: int, *kvs):
+    """This rank's K/V heads for its ``local_q`` query heads (of
+    ``q_heads``, split over ``model``) out of all ``kv_heads``: query head
+    ``h`` reads K/V head ``h // (q_heads // kv_heads)``.  One head where
+    the rank's queries share it, else one per query head."""
+    group = q_heads // kv_heads
+    first = mesh.get_local_rank("model") * local_q
+    if group % local_q == 0:
+        head = slice(first // group, first // group + 1)
+        return tuple(t[:, :, head] for t in kvs)
+    index = torch.arange(first, first + local_q,
+                         device=kvs[0].device) // group
+    return tuple(t.index_select(2, index) for t in kvs)
+
+
+def _sharded_flash_attention(q, k, v, causal, window):
+    """:func:`flash_attention` on DTensors (``axes.local_shards``): batch
+    over the batch axes, heads over ``model``.  Where the query heads
+    divide the model axis and the K/V heads do not, every rank holds all
+    K/V heads and hands the kernel those of its own query heads."""
+    from repro_torch.launch.axes import local_shards
+    from repro_torch.launch.mesh import batch_axes
+    mesh = q.device_mesh
+    H, n_kv = q.shape[2], k.shape[2]
+    q_split, kv_split = _head_split(mesh, H, n_kv)
+    b = batch_axes(mesh)
+    q_spec = (b, None, "model" if q_split else None)
+    kv_spec = (b, None, "model" if kv_split else None)
+
+    def local(ql, kl, vl):
+        if q_split and not kv_split:
+            kl, vl = _own_kv_heads(mesh, H, n_kv, ql.shape[2], kl, vl)
+        return _FlashAttention.apply(ql, kl, vl, causal, window)
+
+    return local_shards(local, mesh, (q, k, v), (q_spec, kv_spec, kv_spec),
+                        (q.shape, q_spec))
 
 
 class _SSDScan(torch.autograd.Function):
@@ -188,8 +257,10 @@ class _SSDScan(torch.autograd.Function):
         B, S, H, P = x.shape
         N = Bm.shape[-1]
         nc = S // chunk
+        run = (ss.ssd_scan_plain if _fake(x, dt, A, Bm, Cm, init_state)
+               else ss.ssd_scan_kernel_call)
         with torch.no_grad():
-            y, state = ss.ssd_scan_kernel_call(
+            y, state = run(
                 x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H),
                 A, Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
                 init_state=init_state)
@@ -219,4 +290,25 @@ def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"one B/C group only, got Bm {tuple(Bm.shape)}")
     if x.shape[1] % chunk:
         raise ValueError(f"S={x.shape[1]} not divisible by chunk={chunk}")
+    if isinstance(x, DTensor):
+        return _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk)
     return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk)
+
+
+def _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk):
+    """:func:`ssd_scan_fused` on DTensors (``axes.local_shards``): heads
+    (of x, dt, A and the state) over ``model`` where they divide, batch
+    over the batch axes; the one B/C group whole on every rank."""
+    from repro_torch.launch.axes import local_shards
+    from repro_torch.launch.mesh import batch_axes
+    mesh = x.device_mesh
+    split, _ = _head_split(mesh, x.shape[2], 1)
+    b, tp = batch_axes(mesh), ("model" if split else None)
+    state = ((x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1]),
+             (b, tp))
+    return local_shards(
+        lambda *a: _SSDScan.apply(*a, chunk), mesh,
+        (x, dt, A, Bm, Cm, init_state),
+        ((b, None, tp), (b, None, tp), (tp,), (b,), (b,),
+         None if init_state is None else state[1]),
+        [(x.shape, (b, None, tp)), state])

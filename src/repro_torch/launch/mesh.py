@@ -12,7 +12,12 @@ axis carries data parallelism (optionally MDS-coded, see
 failure/erasure in the fault-tolerance design (``launch/fault.py``).
 
 A mesh over the card uses NCCL and one over the host gloo; with no NCCL
-in the build a card mesh raises, it never falls back to gloo.  Where no
+in the build a card mesh raises, it never falls back to gloo.  A mesh on
+``device="fake"`` lies over the host on a ``fake`` process group
+(``torch.testing._internal.distributed.fake_pg.FakeStore``), which the
+caller starts with the mesh's world size: collectives there move nothing,
+which is how the dry run (``launch/dryrun.py``) builds the production
+meshes of 256 and 512 ranks in one process.  Where no
 process group exists and the mesh has one rank, :func:`make_test_mesh`
 starts one on a :class:`torch.distributed.HashStore`; a mesh of more
 ranks needs the caller's ``init_process_group`` with that world size.
@@ -48,9 +53,17 @@ def _backend(device_type: str) -> str:
 
 def _mesh(shape: tuple[int, ...], names: tuple[str, ...],
           device) -> DeviceMesh:
-    device_type = resolve_device(device).type
-    backend = _backend(device_type)
     n = math.prod(shape)
+    if device == "fake":
+        if not dist.is_initialized() or dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a fake mesh needs a fake process group of {n} ranks: "
+                f"torch.distributed.init_process_group('fake', "
+                f"store=FakeStore(), rank=0, world_size={n})")
+        device_type, backend = "cpu", "fake"
+    else:
+        device_type = resolve_device(device).type
+        backend = _backend(device_type)
     if not dist.is_initialized():
         if n != 1:
             raise RuntimeError(
@@ -73,6 +86,8 @@ def _mesh(shape: tuple[int, ...], names: tuple[str, ...],
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device: str = "cuda") -> DeviceMesh:
+    """(data=16, model=16), or (pod=2, data=16, model=16) with
+    ``multi_pod``: 256 or 512 ranks (``device="fake"`` for the dry run)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _mesh(shape, axes, device)

@@ -1,9 +1,13 @@
-"""Step functions on one device: train, prefill and serve.
+"""Step functions (train / prefill / serve) and their sharded cells.
 
-The single-device parts of the JAX package's ``launch/steps.py``.  Its
-``build_cell`` (the step lowered onto a mesh with in/out shardings) waits
-for the port's mesh layer (ROADMAP §1 item 7); here each step runs where
-its parameters are.
+The JAX package's ``launch/steps.py`` in PyTorch.  ``build_cell`` is the
+single entry point the dry run, the roofline pass and the drivers share:
+given (arch config, shape cell, mesh) it constructs the step function,
+meta-tensor stand-ins for its inputs (``configs.registry.input_specs``)
+and the in/out shardings, and returns a :class:`Cell` whose ``fn`` runs
+the step on DTensors over a :class:`~torch.distributed.device_mesh.
+DeviceMesh`, and whose ``costs()`` counts one call per device
+(``launch.op_costs``) where the reference lowers and compiles.
 
 A train step differentiates ``models.transformer.forward_train`` with
 ``torch.autograd``, through the differentiable kernel wrappers of
@@ -16,17 +20,25 @@ the gradients back to fp32 for the update, as the reference's do.
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs import registry
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, \
+    TrainConfig
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.axes import mesh_context, placements
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
-from repro_torch.tree import leaves, leaves_with_path, unflatten
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 __all__ = ["make_grad_fn", "make_train_step", "make_prefill_step",
-           "make_serve_step"]
+           "make_serve_step", "build_cell", "Cell", "laid_out"]
 
 
 def _cast_for_compute(params, cfg: ModelConfig):
@@ -77,7 +89,7 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         grads = torch.autograd.grad(loss, wrt_leaves, allow_unused=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["params_without_grad"] = sum(g is None for g in grads)
-        grads = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = [torch.zeros_like(x, dtype=torch.float32)
                  if g is None else g.to(torch.float32)
                  for g, x in zip(grads, wrt_leaves)]
         return loss.detach(), metrics, unflatten(params, grads)
@@ -119,3 +131,147 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         return logits, torch.argmax(logits, dim=-1), caches
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Cell construction (arch x shape x mesh)
+# ---------------------------------------------------------------------------
+
+#: the train step's metrics, each a replicated scalar
+_TRAIN_METRICS = ("grad_norm", "loss", "ntokens")
+
+
+def _to_layout(x, mesh, spec):
+    """``x`` as a DTensor on ``mesh`` laid out by ``spec`` (a ``Spec`` or a
+    ``NamedSharding``, fixed for ``x``'s shape as ``fix_spec`` without
+    relocation): a plain tensor is placed (``distribute_tensor``, rank 0's
+    values), a DTensor redistributed where its placements differ; anything
+    else passes through."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    spec = getattr(spec, "spec", spec)
+    want = placements(mesh, sh.fix_spec(x.shape, tuple(spec), mesh,
+                                        relocate=False))
+    if isinstance(x, DTensor):
+        return x if tuple(x.placements) == want else x.redistribute(
+            mesh, want)
+    return distribute_tensor(x.to(mesh.device_type), mesh, want)
+
+
+def laid_out(tree, mesh, spec_tree):
+    """``tree`` on ``mesh``, each leaf laid out by its spec (see
+    :func:`_to_layout`): how a cell places its arguments."""
+    return tree_map(lambda x, s: _to_layout(x, mesh, s), tree, spec_tree)
+
+
+@dataclasses.dataclass
+class Cell:
+    """Everything needed to run or cost one (arch x shape x mesh) cell.
+
+    ``fn(*args)`` takes ``arg_shapes``'s structure: plain tensors are
+    placed by ``in_shardings``' specs, DTensors redistributed to them; the
+    step runs inside ``mesh_context(mesh, profile)`` (plain tensors made
+    inside it, such as positions, count as replicated), and its outputs
+    come back laid out by ``out_shardings``.  ``costs()`` is the
+    reference's ``lower()``: the per-device :class:`~repro_torch.launch.
+    op_costs.ModuleCosts` of one call on fake copies of ``arg_shapes``.
+    """
+
+    cfg: ModelConfig
+    shape: ShapeConfig
+    mesh: Any
+    kind: str                    # train | prefill | decode
+    fn: Callable
+    arg_shapes: tuple            # meta tensors, positional
+    in_shardings: tuple          # NamedSharding trees, as arg_shapes
+    out_shardings: Any
+    profile: str = "tp_fsdp"
+
+    def costs(self, *, peak_memory: bool = False):
+        """Per-device costs of one call of ``fn`` on fake DTensors shaped
+        like ``arg_shapes`` (see ``launch.op_costs.cell_costs``)."""
+        from repro_torch.launch.op_costs import cell_costs
+        return cell_costs(self, peak_memory=peak_memory)
+
+
+def _abstract_params(cfg: ModelConfig):
+    return T.init_params(cfg, device="meta")
+
+
+def _spec_tree(tree):
+    return tree_map(lambda ns: ns.spec, tree)
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig | str, mesh,
+               tcfg: Optional[TrainConfig] = None,
+               profile: str = "tp_fsdp") -> Cell:
+    """The (arch x shape x mesh) cell with the reference's specs:
+    parameters by ``sharding.param_specs``, optimizer state by
+    ``opt_state_specs``, the batch over the batch axes, decode caches by
+    ``cache_specs_tree``; logits with batch over the batch axes and vocab
+    over ``model``."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    kind, batch_shapes = registry.input_specs(cfg, shape)
+    params_shapes = _abstract_params(cfg)
+    pspecs = sh.param_specs(params_shapes, mesh, profile)
+    baxes = batch_axes(mesh)
+
+    if kind == "train":
+        tcfg = tcfg or TrainConfig()
+        step, optimizer = make_train_step(cfg, tcfg)
+        opt_shapes = optimizer.init(params_shapes)
+        ospecs = sh.opt_state_specs(opt_shapes, pspecs, mesh)
+        bspecs = sh.batch_specs(batch_shapes, mesh, profile)
+        arg_shapes = (params_shapes, opt_shapes, batch_shapes)
+        in_specs = (pspecs, ospecs, bspecs)
+        # the port's optimizer state holds step/gnorm/lr from init on, so
+        # the state comes back with the structure it went in with
+        out_specs = (pspecs, ospecs,
+                     {k: sh.Spec() for k in _TRAIN_METRICS})
+    elif kind == "prefill":
+        step = make_prefill_step(cfg, max_len=shape.seq_len)
+        bspecs = sh.batch_specs(batch_shapes, mesh)
+        arg_shapes = (params_shapes, batch_shapes)
+        in_specs = (pspecs, bspecs)
+        cache_shapes = registry.cache_specs(cfg, shape.global_batch,
+                                            shape.seq_len)
+        out_specs = (sh.Spec(baxes, "model"),
+                     sh.cache_specs_tree(cache_shapes, mesh))
+    elif kind == "decode":
+        step = make_serve_step(cfg)
+        cspecs = sh.cache_specs_tree(batch_shapes["caches"], mesh)
+        # batch=1 (long_500k) cannot shard over the batch axes: fix_spec
+        # drops the axis (single-sequence decode is TP-only, by design)
+        tok_spec = sh.fix_spec(batch_shapes["token"].shape, (baxes, None),
+                               mesh, relocate=False)
+        bspecs = {"token": tok_spec, "pos": sh.Spec(), "caches": cspecs}
+        arg_shapes = (params_shapes, batch_shapes)
+        in_specs = (pspecs, bspecs)
+        B, V = shape.global_batch, cfg.vocab_size
+        logits_spec = sh.fix_spec((B, V), (baxes, "model"), mesh,
+                                  relocate=False)
+        next_spec = sh.fix_spec((B,), (baxes,), mesh, relocate=False)
+        out_specs = (logits_spec, next_spec, cspecs)
+    else:
+        raise ValueError(kind)
+
+    named_in = sh.named(mesh, in_specs)
+    named_out = sh.named(mesh, out_specs)
+
+    def run(*args, _step=step):
+        args = tuple(laid_out(a, mesh, s) for a, s in zip(args, in_specs))
+        with mesh_context(mesh, profile), implicit_replication():
+            out = _step(*args)
+        if kind == "train":
+            params, opt, metrics = out
+            return (laid_out(params, mesh, pspecs),
+                    laid_out(opt, mesh, out_specs[1]),
+                    {k: (_to_layout(v, mesh, sh.Spec())
+                         if k in _TRAIN_METRICS else v)
+                     for k, v in metrics.items()})
+        return laid_out(out, mesh, out_specs)
+
+    return Cell(cfg=cfg, shape=shape, mesh=mesh, kind=kind, fn=run,
+                arg_shapes=arg_shapes, in_shardings=named_in,
+                out_shardings=named_out, profile=profile)

@@ -1,10 +1,19 @@
-"""End-to-end training driver on one device.
+"""End-to-end training driver, on one device or on a mesh.
 
 The JAX package's ``launch/train.py`` in PyTorch, on the card unless the
 caller asks for the CPU: synthetic bigram data (``data.pipeline``), a
 train step (``launch.steps``) whose forward pass runs the flash and SSD
 kernels, asynchronous checkpoints every ``--ckpt-every`` steps, a
 synchronous one on SIGTERM, and ``--resume`` from the latest checkpoint.
+
+``train_loop(..., mesh=m)`` trains through ``steps.build_cell``'s train
+cell on the :class:`~torch.distributed.device_mesh.DeviceMesh` ``m``, as
+the reference always does: parameters and optimizer state are DTensors
+laid out by the sharding rules, a resume restores into those layouts
+(``launch.fault.elastic_restore``), and rank 0 writes the checkpoints
+(gathered whole).  With no mesh it trains on one device with plain
+tensors; unlike the reference, which falls back to a one-device mesh, it
+then starts no process group.
 
     python -m repro_torch.launch.train --arch internvl2-1b \\
         --steps 20 --batch 4 --seq 1024                    # on the card
@@ -15,8 +24,7 @@ Two fields of ``TrainConfig`` raise here, since this loop, like the JAX
 package's, acts on neither: ``coded_dp`` (coded data parallelism is
 ``launch.fault.coded_dp_grads`` with ``degraded_step_grads``) and
 ``layered_grad_planes`` (the layered gradient all-reduce is
-``optim.layered_grads.layered_allreduce_tree``).  Restoring onto a mesh
-is ``launch.fault.elastic_restore``.
+``optim.layered_grads.layered_allreduce_tree``).
 """
 
 from __future__ import annotations
@@ -26,15 +34,19 @@ import signal
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import store
 from repro_torch.configs import registry
 from repro_torch.configs.base import (AttentionConfig, ModelConfig,
-                                      TrainConfig)
+                                      ShapeConfig, TrainConfig)
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch import fault
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
 
 __all__ = ["quickstart_100m_config", "train_loop", "main"]
 
@@ -57,24 +69,33 @@ def _resolve_config(arch: str) -> ModelConfig:
     return registry.get_config(arch)
 
 
-def _check_single_device(tcfg: TrainConfig) -> None:
+def _check_unsupported(tcfg: TrainConfig) -> None:
     if tcfg.coded_dp:
         raise NotImplementedError(
-            "TrainConfig.coded_dp: train_loop trains on one device and does "
-            "not code its batch; coded data parallelism across pods is "
+            "TrainConfig.coded_dp: train_loop does not code its batch; "
+            "coded data parallelism across pods is "
             "launch.fault.coded_dp_grads (then degraded_step_grads)")
     if tcfg.layered_grad_planes:
         raise NotImplementedError(
-            "TrainConfig.layered_grad_planes: train_loop trains on one "
-            "device and reduces no gradient; the layered gradient "
-            "all-reduce is optim.layered_grads.layered_allreduce_tree")
+            "TrainConfig.layered_grad_planes: train_loop reduces its "
+            "gradients in full; the layered gradient all-reduce is "
+            "optim.layered_grads.layered_allreduce_tree")
+
+
+def _whole(tree):
+    """``tree`` with its DTensors gathered whole (a collective: every rank
+    calls it)."""
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, tree)
 
 
 def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,
                steps: int, ckpt_dir: str | None = None, ckpt_every: int = 100,
                resume: bool = False, log_every: int = 10, seed: int = 0,
-               device: str | torch.device = "cuda") -> dict:
-    """Train ``steps`` steps (from the latest checkpoint with ``resume``).
+               device: str | torch.device = "cuda", mesh=None) -> dict:
+    """Train ``steps`` steps (from the latest checkpoint with ``resume``),
+    on ``device`` or, with ``mesh``, through the mesh's train cell (the
+    mesh's device; parameters and state come back as DTensors).
 
     A vlm or encoder-decoder config trains on stub frontend inputs drawn
     once from ``seed`` (``models.transformer.stub_extras``); the
@@ -82,17 +103,26 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,
     overflow at full depth (ROADMAP R7).
 
     Returns ``losses`` ([(step, loss)] every ``log_every`` steps and at
-    the last), ``step_seconds`` (host wall time of each step run, each
+    the last), ``grad_norms`` (the same steps' gradient norms, before
+    clipping), ``step_seconds`` (host wall time of each step run, each
     ending in a read of its loss where one is logged), ``params`` and
     ``opt_state``.
     """
-    _check_single_device(tcfg)
-    dev = resolve_device(device)
+    _check_unsupported(tcfg)
+    dev = resolve_device(mesh.device_type if mesh is not None else device)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
                        global_batch=batch, seed=seed, device=str(dev))
     train_step, optimizer = steps_lib.make_train_step(cfg, tcfg)
     params = T.init_params(cfg, seed=seed, device=dev)
     opt_state = optimizer.init(params)
+    if mesh is not None:
+        cell = steps_lib.build_cell(cfg, ShapeConfig("train", seq, batch,
+                                                     "train"), mesh, tcfg)
+        train_step = cell.fn
+        template = {"params": params, "opt": opt_state}
+        params, opt_state = (steps_lib.laid_out(t, mesh, ns) for t, ns in
+                             zip((params, opt_state), cell.in_shardings))
+    writer = mesh is None or dist.get_rank() == 0
     start_step = 0
 
     ckpt = None
@@ -102,23 +132,35 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,
         ckpt = store.AsyncCheckpointer(ckpt_dir)
         latest = store.latest_step(ckpt_dir)
         if resume and latest is not None:
-            restored = store.restore(ckpt_dir, latest,
-                                     {"params": params, "opt": opt_state})
+            if mesh is None:
+                restored = store.restore(ckpt_dir, latest,
+                                         {"params": params, "opt": opt_state})
+            else:
+                restored = fault.elastic_restore(ckpt_dir, latest, template,
+                                                 mesh)
             params, opt_state = restored["params"], restored["opt"]
             start_step = latest
             state.update(params=params, opt=opt_state, step=start_step)
             print(f"[train] resumed from step {latest}")
 
+        def checkpoint(step, asynchronous=True):
+            tree = _whole({"params": state["params"], "opt": state["opt"]})
+            if not writer:
+                return
+            if asynchronous:
+                ckpt.save(step, tree)
+            else:
+                ckpt.wait()
+                store.save(ckpt_dir, step, tree)
+
         def final_save():
-            ckpt.wait()
-            store.save(ckpt_dir, state["step"],
-                       {"params": state["params"], "opt": state["opt"]})
+            checkpoint(state["step"], asynchronous=False)
 
         previous_handler = store.install_sigterm_handler(final_save)
 
     # seeded stub inputs, not the reference's zeros (ROADMAP R7)
     extras = T.stub_extras(cfg, batch, dev, seed=seed)
-    losses, step_seconds = [], []
+    losses, grad_norms, step_seconds = [], [], []
     try:
         t0 = time.perf_counter()
         for step in range(start_step, steps):
@@ -131,21 +173,22 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,
             if (step + 1) % log_every == 0 or step + 1 == steps:
                 loss = float(metrics["loss"])
                 losses.append((step + 1, loss))
+                grad_norms.append((step + 1, float(metrics["grad_norm"])))
                 rate = (step + 1 - start_step) / (time.perf_counter() - t0)
                 print(f"[train] step {step + 1:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"({rate:.2f} steps/s)", flush=True)
             step_seconds.append(time.perf_counter() - t_step)
             if ckpt and (step + 1) % ckpt_every == 0:
-                ckpt.save(step + 1, {"params": params, "opt": opt_state})
+                checkpoint(step + 1)
         if ckpt:
-            ckpt.wait()
-            store.save(ckpt_dir, steps, {"params": params, "opt": opt_state})
+            checkpoint(steps, asynchronous=False)
     finally:
         if previous_handler is not None:
             signal.signal(signal.SIGTERM, previous_handler)
-    return {"losses": losses, "step_seconds": step_seconds,
-            "params": params, "opt_state": opt_state}
+    return {"losses": losses, "grad_norms": grad_norms,
+            "step_seconds": step_seconds, "params": params,
+            "opt_state": opt_state}
 
 
 def main(argv=None) -> int:

@@ -16,13 +16,16 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.launch.axes import constrain, einsum
 
 __all__ = [
     "rms_norm", "layer_norm", "apply_norm", "rope", "attention",
-    "decode_attention", "mlp_swiglu", "init_linear", "init_norm",
+    "decode_attention", "mlp_swiglu", "mlp_gelu", "init_linear",
+    "init_norm",
 ]
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -100,6 +103,23 @@ def _mask_bias(pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
     return bias[..., None, None, :, :]
 
 
+def group_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q (B, S, H, Dh) as (B, S, n_kv, H // n_kv, Dh).
+
+    DTensor splits a sharded head dim only where ``n_kv`` divides its
+    ranks; where it does not, the heads of a DTensor are gathered first.
+    """
+    B, S, H, Dh = q.shape
+    if isinstance(q, DTensor):
+        sizes = q.device_mesh.shape
+        split = [i for i, p in enumerate(q.placements) if p.is_shard(2)]
+        if split and n_kv % math.prod(sizes[i] for i in split):
+            q = q.redistribute(q.device_mesh, [
+                Replicate() if i in split else p
+                for i, p in enumerate(q.placements)])
+    return q.reshape(B, S, n_kv, H // n_kv, Dh)
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
     """Grouped attention core.
@@ -110,13 +130,13 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype.  Returns (B, Sq, n_kv, G, Dh).
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
+    logits = einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
     logits = logits + bias
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return einsum("bhgqk,bkhd->bqhgd", probs, v)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -130,8 +150,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B, Sq, n_heads, Dh).
     """
     B, Sq, H, Dh = q.shape
-    n_kv, G = cfg.num_kv_heads, cfg.group_size
-    qg = q.reshape(B, Sq, n_kv, G, Dh)
+    qg = group_heads(q, cfg.num_kv_heads)
 
     def block(q_blk, pos_blk):
         bias = _mask_bias(pos_blk, pos_k, cfg.causal, cfg.window, kv_valid)
@@ -157,9 +176,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``cache_len`` (B,) marks how many cache slots are valid.
     """
     B, _, H, Dh = q.shape
-    n_kv, G = cfg.num_kv_heads, cfg.group_size
     S = k_cache.shape[1]
-    qg = q.reshape(B, 1, n_kv, G, Dh)
+    qg = group_heads(q, cfg.num_kv_heads)
     slots = torch.arange(S, dtype=torch.int64, device=q.device)[None, :]
     valid = slots < cache_len[:, None]
     if cfg.window is not None:
@@ -177,6 +195,16 @@ def mlp_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def mlp_gelu(x: torch.Tensor, w_fc: torch.Tensor, b_fc: torch.Tensor,
+             w_proj: torch.Tensor, b_proj: torch.Tensor) -> torch.Tensor:
+    """GELU (tanh) MLP with biases.  The hidden activation is pinned to
+    ``(batch, ..., tp)`` (``launch.axes.constrain``, a no-op off a mesh),
+    where the reference's inline copy in its transformer pins it."""
+    h = F.gelu(x @ w_fc + b_fc, approximate="tanh")
+    h = constrain(h, "batch", None, "tp")
+    return h @ w_proj + b_proj
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 The JAX package's ``models/loss.py`` in PyTorch: the logits are taken to
 fp32 before the logsumexp, and a mask (B, S) selects the positions that
 count (a vlm config's text positions, padding), its denominator clamped
-at 1.  The port runs on one device, so the reference's vocab-sharded
-reduction is the plain one.
+at 1.  Inside a sharded cell the logits arrive as a DTensor with the
+vocab over ``model``; the logsumexp reduces over the sharded dim and the
+target's logit is picked by a masked sum (one nonzero term, so exactly
+the gathered value), which stays sharded too.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["cross_entropy", "top1_accuracy"]
 
@@ -25,8 +28,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)                      # (B, S)
-    true_logit = torch.gather(logits, -1,
-                              targets[..., None].to(torch.int64))[..., 0]
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=targets.device)
+        true_logit = torch.where(vocab == targets[..., None], logits,
+                                 0.0).sum(-1)
+    else:
+        true_logit = torch.gather(logits, -1,
+                                  targets[..., None].to(torch.int64))[..., 0]
     nll = lse - true_logit                                     # (B, S)
     if mask is None:
         denom = torch.tensor(float(nll.numel()), dtype=torch.float32,

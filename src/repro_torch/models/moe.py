@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.launch.axes import constrain, einsum
 from repro_torch.models.layers import init_linear, mlp_swiglu
 
 __all__ = ["DISPATCH_GROUP", "init_moe_params", "lossless_capacity",
@@ -70,6 +71,14 @@ def router_topk(logits: torch.Tensor, k: int):
     return gates, idx
 
 
+def _expert_ffn(expert_in, wg, wu, wd):
+    """Each expert's SwiGLU on its capacity buffer: (G, E, C, D) in and
+    out, weights stacked on E."""
+    h = (F.silu(einsum("gecd,edf->gecf", expert_in, wg))
+         * einsum("gecd,edf->gecf", expert_in, wu))
+    return einsum("gecf,efd->gecd", h, wd)
+
+
 def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
               group_size: int | None = None) -> torch.Tensor:
     """Apply the routed-expert FFN to x (..., D); returns the same shape."""
@@ -97,7 +106,9 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
     # taken along the innermost dim (a scan along an outer dim of a CUDA
     # tensor runs one thread per column)
     flat = F.one_hot(idx, E).to(torch.int32).reshape(G, Tg * k, E)
-    pos = torch.cumsum(flat.transpose(1, 2), dim=-1).transpose(1, 2) - 1
+    # dim=2, not -1: DTensor scans a sharded dim named from the end
+    # shard by shard (torch 2.13)
+    pos = torch.cumsum(flat.transpose(1, 2), dim=2).transpose(1, 2) - 1
     pos = (pos * flat).sum(-1).reshape(G, Tg, k)
     keep = pos < capacity
     gates = torch.where(keep, gates, 0.0)
@@ -106,30 +117,36 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
     # Accumulate over the k choices one at a time so only the
     # (G, Tg, E, C) dispatch/combine pair is live.
-    dispatch = torch.zeros((G, Tg, E, capacity), dtype=dtype,
-                           device=x.device)
-    combine = torch.zeros_like(dispatch)
+    dispatch = combine = None
     for kk in range(k):
         oh = (F.one_hot(idx[..., kk], E).to(dtype)[..., None]
               * F.one_hot(pos[..., kk], capacity + 1)[..., :capacity]
               .to(dtype)[..., None, :])            # (G, Tg, E, C)
-        dispatch += oh
-        combine += oh * gates[..., kk, None, None].to(dtype)
-        del oh
+        weighted = oh * gates[..., kk, None, None].to(dtype)
+        dispatch = oh if dispatch is None else dispatch + oh
+        combine = weighted if combine is None else combine + weighted
+        del oh, weighted
 
-    expert_in = torch.einsum("gtd,gtec->gecd", xg, dispatch)  # (G,E,C,D)
+    dispatch = constrain(dispatch, "batch", None, "tp", None)
+    combine = constrain(combine, "batch", None, "tp", None)
+    expert_in = einsum("gtd,gtec->gecd", xg, dispatch)  # (G,E,C,D)
+    expert_in = constrain(expert_in, "batch", "tp", None, None)
     wg, wu, wd = (params[n].to(dtype) for n in ("we_gate", "we_up",
                                                 "we_down"))
-    h = (F.silu(torch.einsum("gecd,edf->gecf", expert_in, wg))
-         * torch.einsum("gecd,edf->gecf", expert_in, wu))
-    expert_out = torch.einsum("gecf,efd->gecd", h, wd)
-    yg = torch.einsum("gecd,gtec->gtd", expert_out, combine)  # (G, Tg, D)
+    expert_out = constrain(_expert_ffn(expert_in, wg, wu, wd),
+                           "batch", "tp", None, None)
+    yg = einsum("gecd,gtec->gtd", expert_out, combine)  # (G, Tg, D)
+    yg = constrain(yg, "batch", None, None)
 
     yf = yg.reshape(T, D)
     if cfg.d_ff_shared:
         sp = params["shared"]
         yf = yf + mlp_swiglu(xf, sp["w_gate"].to(dtype),
                              sp["w_up"].to(dtype), sp["w_down"].to(dtype))
+        # the tokens over the batch axes only: DTensor may reduce-scatter
+        # the shared expert's sum over the tokens on ``model`` too, and
+        # cannot split such a dim back into (batch, sequence)
+        yf = constrain(yf, "batch", None)
     return yf.reshape(orig_shape)
 
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RGLRUConfig
+from repro_torch.launch.axes import constrain, einsum
 from repro_torch.models.layers import init_linear
 from repro_torch.models.ssm import _causal_conv
 
@@ -101,15 +102,26 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Recursive doubling: after the step of offset ``o`` each position holds
     the combination of the ``2o`` steps ending there, so ceil(log2 S)
     whole-sequence elementwise steps replace the loop over positions.
-    ``a`` and ``b`` are overwritten (``b`` becomes the result): each step
-    forms its products from the old values, then adds them in place.
+    Off autograd ``a`` and ``b`` are overwritten (``b`` becomes the
+    result): each step forms its products from the old values, then adds
+    them in place.  Under autograd each step builds new tensors from the
+    same products instead (the same numbers): the products' backward
+    needs the old values, which an in-place step would have overwritten.
     """
     S = a.shape[1]
+    recording = torch.is_grad_enabled() and (a.requires_grad
+                                             or b.requires_grad)
     off = 1
     while off < S:
-        b[:, off:] += a[:, off:] * b[:, :-off]
-        if 2 * off < S:
-            a[:, off:] = a[:, off:] * a[:, :-off]
+        if recording:
+            b = torch.cat([b[:, :off], b[:, off:] + a[:, off:] * b[:, :-off]],
+                          1)
+            if 2 * off < S:
+                a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], 1)
+        else:
+            b[:, off:] += a[:, off:] * b[:, :-off]
+            if 2 * off < S:
+                a[:, off:] = a[:, off:] * a[:, :-off]
         off *= 2
     return b
 
@@ -118,8 +130,9 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: RGLRUConfig,
                 init_h: torch.Tensor | None = None):
     """(B, S, D) -> (y, cache), the recurrence by :func:`linear_scan`."""
     dt = x.dtype
-    gelu_branch = F.gelu(x @ params["in_gelu"].to(dt), approximate="tanh")
-    u = x @ params["in_rnn"].to(dt)
+    gelu_branch = F.gelu(constrain(x @ params["in_gelu"].to(dt),
+                                   "batch", None, "tp"), approximate="tanh")
+    u = constrain(x @ params["in_rnn"].to(dt), "batch", None, "tp")
     conv_in = u
     u = _causal_conv(u, params["conv_w"].to(dt), params["conv_b"].to(dt))
 
@@ -129,7 +142,8 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: RGLRUConfig,
         bx = torch.cat([bx[:, :1] + a[:, :1] * init_h[:, None], bx[:, 1:]],
                        1)
     hh = linear_scan(a, bx)                       # a, bx overwritten
-    y = (hh.to(dt) * gelu_branch) @ params["out"].to(dt)
+    y = constrain((hh.to(dt) * gelu_branch) @ params["out"].to(dt),
+                  "batch", None, None)
     # the conv window: the last K - 1 inputs, zeros before the first (as
     # the causal conv pads), so a prompt shorter than the window works too
     K = params["conv_w"].shape[0]
@@ -144,7 +158,7 @@ def rglru_decode_step(params: dict, x: torch.Tensor, cache: dict,
     gelu_branch = F.gelu(x @ params["in_gelu"].to(dt), approximate="tanh")
     u_new = x @ params["in_rnn"].to(dt)           # (B, 1, d_rnn)
     window = torch.cat([cache["conv"], u_new], dim=1)
-    u = (torch.einsum("bkc,kc->bc", window, params["conv_w"].to(dt))
+    u = (einsum("bkc,kc->bc", window, params["conv_w"].to(dt))
          + params["conv_b"].to(dt))[:, None, :]
 
     a, bx = _rglru_gates(params, u)               # (B, 1, d_rnn)

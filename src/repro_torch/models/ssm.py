@@ -20,11 +20,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.launch.axes import constrain, einsum, local_shards
+from repro_torch.launch.mesh import axis_sizes, batch_axes
 from repro_torch.models.layers import init_linear, rms_norm
 
 __all__ = ["init_ssm_params", "ssm_block", "ssm_decode_step", "ssd_scan",
@@ -145,7 +148,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over (B, S, C) with taps (K, C)."""
+    """Depthwise causal conv over (B, S, C) with taps (K, C).  On DTensors
+    each rank convolves its batch shard's channels, split over ``model``
+    where they divide (``axes.local_shards``)."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        tp = axis_sizes(mesh).get("model")
+        ch = "model" if tp and x.shape[-1] % tp == 0 else None
+        spec = (batch_axes(mesh), None, ch)
+        return local_shards(_causal_conv, mesh, (x, w, b),
+                            (spec, (None, ch), (ch,)), (x.shape, spec))
     K = w.shape[0]
     S = x.shape[1]
     pad = F.pad(x, (0, 0, K - 1, 0))
@@ -166,6 +178,8 @@ def ssm_block(params: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     H = cfg.num_heads(d_model)
     N, P = cfg.d_state, cfg.head_dim
     gate, xs, Bm, Cm, dtr = _streams(params, x)
+    gate = constrain(gate, "batch", None, "tp")
+    xs = constrain(xs, "batch", None, "tp")
 
     K = cfg.d_conv - 1
     cache_tail = {"conv_x": xs[:, -K:], "conv_B": Bm[:, -K:],
@@ -200,7 +214,7 @@ def ssm_block(params: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     y = y[:, :S] + params["D"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(Bsz, S, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(gate), params["norm_scale"])
-    out = y @ params["out_proj"].to(x.dtype)
+    out = constrain(y @ params["out_proj"].to(x.dtype), "batch", None, None)
     cache = dict(cache_tail, state=final)
     return out, cache
 
@@ -218,7 +232,7 @@ def ssm_decode_step(params: dict, x: torch.Tensor, cache: dict,
     win_C = torch.cat([cache["conv_C"], Cm], dim=1)
 
     def conv_step(win, w, b):
-        out = torch.einsum("bkc,kc->bc", win, params[w].to(cd))
+        out = einsum("bkc,kc->bc", win, params[w].to(cd))
         return F.silu(out + params[b].to(cd))[:, None, :]
 
     xs = conv_step(win_x, "conv_x", "conv_x_b")
@@ -234,9 +248,9 @@ def ssm_decode_step(params: dict, x: torch.Tensor, cache: dict,
     Ch = Cm.reshape(Bsz, NGROUPS, N).repeat_interleave(H // NGROUPS, 1)
 
     dA = torch.exp(dt * A[None, :])                            # (B, H)
-    dBx = torch.einsum("bh,bhn,bhp->bhpn", dt, Bh.to(torch.float32), xh)
+    dBx = einsum("bh,bhn,bhp->bhpn", dt, Bh.to(torch.float32), xh)
     state = cache["state"] * dA[:, :, None, None] + dBx
-    y = torch.einsum("bhpn,bhn->bhp", state, Ch.to(torch.float32))
+    y = einsum("bhpn,bhn->bhp", state, Ch.to(torch.float32))
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(Bsz, 1, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(gate), params["norm_scale"])

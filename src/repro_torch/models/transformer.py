@@ -13,9 +13,10 @@ kinds
 An architecture is a sequence of *block groups*, each a repeating
 unit of layer kinds; per-group parameters and caches are stacked on a
 leading ``repeats`` axis, and where the reference runs ``lax.scan`` over
-that axis the port runs a Python loop.  There is no ``constrain``: the
-port runs on one device, where the reference's sharding constraints are
-no-ops too.
+that axis the port runs a Python loop.  Activations are pinned with
+``launch.axes.constrain`` at the reference's sites: a no-op on plain
+tensors, a DTensor redistribution inside a sharded cell
+(``launch.steps.build_cell``).
 
 Full-sequence attention runs the flash kernel
 (``kernels.ops.flash_attention``: its positions are ``arange(S)``, which
@@ -54,11 +55,14 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.axes import constrain, einsum, local_shards, stack
+from repro_torch.launch.mesh import axis_sizes, batch_axes
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
@@ -230,6 +234,18 @@ def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
 # Layer bodies
 # ---------------------------------------------------------------------------
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; on DTensors each rank looks its batch shard up in
+    the whole table (``axes.local_shards``), whose gradient is then a
+    partial sum over the batch axes."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    b = batch_axes(mesh)
+    return local_shards(lambda t, i: t[i], mesh, (table, tokens),
+                        ((), (b,)), ((*tokens.shape, table.shape[-1]), (b,)))
+
+
 def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, window=None, kv=None):
     """Projection + flash attention + output projection over a full
@@ -239,10 +255,13 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q is not roped and attends non-causally to those keys.
     """
     a = cfg.attention
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = constrain(q, "batch", None, "tp", None)
     if kv is None:
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        k = einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+        v = einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        k = constrain(k, "batch", None, "tp", None)
+        v = constrain(v, "batch", None, "tp", None)
         q = L.rope(q, positions, a.rope_theta)
         k = L.rope(k, positions, a.rope_theta)
         causal = a.causal
@@ -250,7 +269,8 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         k, v = kv
         causal = False
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    out = einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    out = constrain(out, "batch", None, None)
     return out, (k, v)
 
 
@@ -259,11 +279,13 @@ def _ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if kind == "moe":
         return moe_lib.moe_block(p, x, cfg.moe)
     if cfg.activation == "gelu":
-        h = F.gelu(x @ p["w_fc"].to(x.dtype) + p["b_fc"].to(x.dtype),
-                   approximate="tanh")
-        return h @ p["w_proj"].to(x.dtype) + p["b_proj"].to(x.dtype)
-    h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+        out = L.mlp_gelu(x, *(p[n].to(x.dtype) for n in ("w_fc", "b_fc",
+                                                         "w_proj", "b_proj")))
+    else:
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+        h = constrain(h, "batch", None, "tp")
+        out = h @ p["w_down"].to(x.dtype)
+    return constrain(out, "batch", None, None)
 
 
 def _layer_fwd(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -309,7 +331,23 @@ def _ring(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
           W: int) -> dict:
     """A local-attention cache of ``W`` slots holding the last ``W`` keys
     and values of a prompt (positions ``[max(0, S - W), S)``), position
-    ``p`` in slot ``p % W``; the other slots empty (``pos = -1``)."""
+    ``p`` in slot ``p % W``; the other slots empty (``pos = -1``).  On
+    DTensors each rank fills its batch shard's ring
+    (``axes.local_shards``)."""
+    if isinstance(k, DTensor):
+        mesh = k.device_mesh
+        b = batch_axes(mesh)
+        tp = axis_sizes(mesh).get("model", 1)
+        spec = (b, None, "model" if k.shape[2] % tp == 0 else None)
+        ring = (*k.shape[:1], W, *k.shape[2:])
+        if not isinstance(positions, DTensor):     # the same on every rank
+            positions = DTensor.from_local(
+                positions, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        kc, vc, pc = local_shards(
+            lambda *a: tuple(_ring(*a, W).values()), mesh,
+            (k, v, positions), (spec, spec, (b,)),
+            [(ring, spec), (ring, spec), (ring[:2], (b,))])
+        return {"k": kc, "v": vc, "pos": pc}
     B, S = k.shape[:2]
     lo = max(0, S - W)
     slots = torch.arange(lo, S, device=k.device) % W
@@ -328,11 +366,40 @@ def _cross_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (``layers.attention``) at the reference's positions: the query at
     ``pos``, the encoder keys all at 0, non-causal; q not roped."""
     ek, ev = enc_kv
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     acfg = dataclasses.replace(cfg.attention, causal=False)
     enc_pos = torch.zeros(ek.shape[:2], dtype=torch.int64, device=x.device)
     out = L.attention(q, ek, ev, pos_b[:, None], enc_pos, acfg)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def _write_slot(cache: torch.Tensor, index: int,
+                value: torch.Tensor) -> None:
+    """``cache[:, index:index + n] = value`` in place (n = value's dim 1).
+
+    A DTensor cache may be split along dim 1 (a context-parallel KV cache);
+    DTensor would gather such a dim to slice it and write into the copy,
+    so each rank writes the slots it holds into its own shard instead.
+    """
+    n = value.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, index:index + n] = value
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    value = value.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                      for p in pl]).to_local()
+    local = cache.to_local()
+    shard, coordinate = 0, mesh.get_coordinate()
+    for dim, p in enumerate(pl):
+        if p.is_shard(1):
+            shard = shard * mesh.size(dim) + coordinate[dim]
+    lo = shard * local.shape[1]
+    first, last = max(index, lo), min(index + n, lo + local.shape[1])
+    if first < last:
+        local[:, first - lo:last - lo] = value[:, first - index:last - index]
 
 
 def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
@@ -350,9 +417,9 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
         a = cfg.attention
         hin = norm(p["ln1"], x)
         ap = p["attn"]
-        q = torch.einsum("bsd,dhk->bshk", hin, ap["wq"].to(x.dtype))
-        k = torch.einsum("bsd,dhk->bshk", hin, ap["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dhk->bshk", hin, ap["wv"].to(x.dtype))
+        q = einsum("bsd,dhk->bshk", hin, ap["wq"].to(x.dtype))
+        k = einsum("bsd,dhk->bshk", hin, ap["wk"].to(x.dtype))
+        v = einsum("bsd,dhk->bshk", hin, ap["wv"].to(x.dtype))
         q = L.rope(q, pos_b[:, None], a.rope_theta)
         k = L.rope(k, pos_b[:, None], a.rope_theta)
         if kind == "local_attn":
@@ -361,25 +428,26 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
             # slot (pos -1) never is
             W = _local_window(cfg)
             slot = pos % W
-            cache["k"][:, slot:slot + 1] = _quant_kv(k, cfg)
-            cache["v"][:, slot:slot + 1] = _quant_kv(v, cfg)
-            cache["pos"][:, slot] = pos
+            _write_slot(cache["k"], slot, _quant_kv(k, cfg))
+            _write_slot(cache["v"], slot, _quant_kv(v, cfg))
+            _write_slot(cache["pos"], slot, torch.full(
+                (B, 1), pos, dtype=torch.int32, device=x.device))
             pc = cache["pos"]
             valid = (pc >= 0) & (pc <= pos) & (pc > pos - W)
             bias = torch.where(valid, 0.0, L._NEG_INF)
-            qg = q.reshape(B, 1, a.num_kv_heads, a.group_size, a.head_dim)
+            qg = L.group_heads(q, a.num_kv_heads)
             out = L._attend(qg, _dequant_kv(cache["k"], cfg),
                             _dequant_kv(cache["v"], cfg),
                             bias[:, None, None, None, :],
                             a.attn_logit_softcap)
             out = out.reshape(B, 1, a.num_heads, a.head_dim)
         else:
-            cache["k"][:, pos:pos + 1] = _quant_kv(k, cfg)
-            cache["v"][:, pos:pos + 1] = _quant_kv(v, cfg)
+            _write_slot(cache["k"], pos, _quant_kv(k, cfg))
+            _write_slot(cache["v"], pos, _quant_kv(v, cfg))
             out = L.decode_attention(q, _dequant_kv(cache["k"], cfg),
                                      _dequant_kv(cache["v"], cfg), pos_b, a,
                                      cache_len=pos_b + 1)
-        h = torch.einsum("bshk,hkd->bsd", out, ap["wo"].to(x.dtype))
+        h = einsum("bshk,hkd->bsd", out, ap["wo"].to(x.dtype))
         x = x + h
         if kind == "cross":
             x = x + _cross_decode(p["xattn"], norm(p["ln_x"], x), cfg,
@@ -447,21 +515,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   extra_embeds: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    x = params["embed"][tokens].to(cfg.cdtype())
+    x = _lookup(params["embed"], tokens).to(cfg.cdtype())
     if cfg.family == "hybrid":  # gemma-style embedding scale
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     if cfg.num_image_tokens and extra_embeds is not None:
         n = cfg.num_image_tokens
         x = torch.cat([extra_embeds.to(x.dtype), x[:, n:]], dim=1)
-    return x
+    return constrain(x, "batch", None, None)
 
 
 def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The plain, full-precision LM head on normed hidden states."""
     w = (params["embed"].to(x.dtype).T if cfg.tie_embeddings
          else params["lm_head"].to(x.dtype))
-    return x @ w
+    return constrain(x @ w, "batch", None, "tp")
 
 
 def _unstack(group_params: dict) -> list:
@@ -516,8 +584,8 @@ def _enc_cross_kv(params: dict, enc_out: torch.Tensor,
         for p in unit_params:
             xp = p["xattn"]
             kvs.append(tuple(
-                torch.einsum("bsd,rdhk->rbshk", enc_out,
-                             xp[w].to(enc_out.dtype)) for w in ("wk", "wv")))
+                einsum("bsd,rdhk->rbshk", enc_out, xp[w].to(enc_out.dtype))
+                for w in ("wk", "wv")))
     return kvs
 
 
@@ -550,7 +618,7 @@ def _forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 if want_cache:
                     per_layer[u].append(c)
         if want_cache:
-            caches.append([{n: torch.stack([c[n] for c in cs])
+            caches.append([{n: stack([c[n] for c in cs])
                             for n in cs[0]} for cs in per_layer])
     logits = _head(params, L.apply_norm(cfg.norm, x, params["final_norm"]),
                    cfg)

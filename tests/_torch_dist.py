@@ -177,3 +177,99 @@ def distributed_matmul_ranks(rank, world, a, b, kw):
     from repro_torch.launch import mesh as mesh_lib
     mesh = mesh_lib.make_test_mesh(world, 1, device="cpu")
     return distributed_layered_matmul(mesh, "data", a, b, **kw)
+
+
+def _full(tree):
+    """A tree's DTensors as full plain tensors (plain ones as they are)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: (x.full_tensor().clone() if isinstance(x, DTensor)
+                               else x.clone() if isinstance(x, torch.Tensor)
+                               else x), tree)
+
+
+def cell_inputs(arch: str, dtype: str = "float32", batch: int = 4,
+                seq: int = 16, seed: int = 0):
+    """``arch``'s smoke config at ``dtype`` with its seeded host params and
+    inputs: prompt tokens, the decode token, targets and stub extras."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              compute_dtype=dtype)
+    params = T.init_params(cfg, seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen)
+    targets = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+    extras = T.stub_extras(cfg, batch, "cpu", seed=seed + 2)
+    return cfg, params, tokens, targets, extras
+
+
+def cell_run(rank, world, arch, data, model, parts=("serve", "train"),
+             dtype="float32", seed=0):
+    """The cells of ``arch``'s smoke config on a (data, model) mesh of this
+    group.  Part "serve": prefill of a 16-token prompt (caches for 20,
+    which split over 2 and 4 ranks), then one decode step from its caches
+    (DTensors handed on as they come).  Part "train": one AdamW step (the
+    default ``TrainConfig``).  Every output as a full tensor, with the
+    placements of the prefill's outputs and of the new parameters and opt
+    state, by leaf, and the rank's mesh coordinate."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+    mesh = mesh_lib.make_test_mesh(data, model, device="cpu")
+    cfg, params, tokens, targets, extras = cell_inputs(arch, dtype,
+                                                       seed=seed)
+    B, S = targets.shape
+    out = {"coords": mesh.get_coordinate()}
+    if "serve" in parts:
+        pre = steps.build_cell(cfg, ShapeConfig("p", S + 4, B, "prefill"),
+                               mesh)
+        logits, caches = pre.fn(params, dict(extras, tokens=tokens[:, :S]))
+        out["prefill"] = _full((logits, caches))
+        out["prefill_placements"] = [tuple(x.placements)
+                                     for x in leaves((logits, caches))]
+        dec = steps.build_cell(cfg, ShapeConfig("d", S + 4, B, "decode"),
+                               mesh)
+        out["decode"] = _full(dec.fn(params, {"token": tokens[:, S:],
+                                              "pos": S, "caches": caches}))
+    if "train" in parts:
+        tcfg = TrainConfig()
+        train = steps.build_cell(cfg, ShapeConfig("t", S, B, "train"), mesh,
+                                 tcfg)
+        _, optimizer = steps.make_train_step(cfg, tcfg)
+        new_params, new_opt, metrics = train.fn(
+            params, optimizer.init(params),
+            dict(extras, tokens=tokens[:, :S], targets=targets))
+        out["train"] = _full((new_params, new_opt, metrics))
+        out["train_placements"] = [tuple(x.placements) for x in
+                                   leaves((new_params, new_opt))
+                                   if isinstance(x, DTensor)]
+    return out
+
+
+def train_loop_ranks(rank, world, arch, ckpt_dir):
+    """``train_loop`` of ``arch``'s smoke config in fp32 on (data 2,
+    model 2): 3 steps with a checkpoint at step 2, then a resumed run to
+    step 4.  The losses of both runs."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              compute_dtype="float32")
+    mesh = mesh_lib.make_test_mesh(2, 2, device="cpu")
+    kw = dict(batch=4, seq=16, log_every=1, device="cpu", mesh=mesh,
+              ckpt_dir=ckpt_dir)
+    first = train.train_loop(cfg, TrainConfig(), steps=3, ckpt_every=2, **kw)
+    resumed = train.train_loop(cfg, TrainConfig(), steps=4, resume=True,
+                               **kw)
+    return first["losses"], resumed["losses"]

@@ -2,7 +2,8 @@
 
 The layered int8 matmul, flash attention and the SSD chunk scan, and the
 smoke models through them against the host; last, the one-rank NCCL mesh
-(the layered all-reduce and the distributed coded matmul on the card).  These tests need an NVIDIA
+(the layered all-reduce and the distributed coded matmul on the card, and
+the sharded prefill and train cells launching the kernels).  These tests need an NVIDIA
 Hopper GPU and ``nvcc``; elsewhere they skip.
 They import nothing of JAX, so they run on the card's machine:
 
@@ -748,3 +749,56 @@ def test_card_mesh_layered_allreduce_and_distributed_matmul(rng, card_mesh):
                 * float(1 << ((i + j) * d)) for q, (_, i, j) in
                 enumerate(order))
     np.testing.assert_array_equal(np.rint(final).astype(np.int64), a.T @ b)
+
+
+@pytest.mark.parametrize("arch,kind,module", [
+    ("llama3-8b", "prefill", "flash_attention"),
+    ("mamba2-370m", "train", "ssd_scan")])
+def test_card_cells_launch_the_kernels_and_equal_the_plain_steps(
+        card_mesh, arch, kind, module):
+    """The smoke config's prefill (flash attention) or train (SSD scan)
+    cell on the card's one-rank mesh launches its kernel once per layer
+    and gives the plain-tensor step's outputs bit for bit."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    mod = {"flash_attention": fa, "ssd_scan": ss}[module]
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              remat_policy="none")
+    dev = torch.device("cuda", 0)
+    params = T.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device=dev)
+    batch = {"tokens": tokens}
+    if kind == "train":
+        batch["targets"] = torch.roll(tokens, -1, 1)
+    cell = steps.build_cell(cfg, ShapeConfig("c", 64, 2, kind), card_mesh,
+                            TrainConfig())
+    if kind == "train":
+        step, optimizer = steps.make_train_step(cfg, TrainConfig())
+        args = (params, optimizer.init(params), batch)
+    else:
+        step = steps.make_prefill_step(cfg, 64)
+        args = (params, batch)
+    before = mod.launches
+    got = cell.fn(*args)
+    torch.cuda.synchronize()
+    assert mod.launches - before == cfg.num_layers
+    want = step(*args)
+    for g, w in zip(leaves(got), leaves(want)):
+        if not isinstance(w, torch.Tensor):       # a count among metrics
+            assert g == w
+            continue
+        if isinstance(g, DTensor):
+            assert g.device_mesh == card_mesh
+            g = g.full_tensor()
+        assert g.is_cuda and torch.equal(g, w)
