@@ -56,7 +56,7 @@ from repro_torch.kernels import _build
 __all__ = ["NEG_INF", "KERNELS", "kernel_for", "flash_attention_plain",
            "flash_attention_kernel_call", "flash_attention_gqa",
            "flash_attention_gqa_plain", "check_faults", "KernelFault",
-           "launches", "kernel_launches"]
+           "launches", "kernel_launches", "flops"]
 
 #: The TPU kernel's finite mask value (a fully masked row stays finite).
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -72,6 +72,20 @@ KERNELS = (WGMMA, WGMMA_D256, CUDA_CORE)
 launches = 0
 #: The same count per kernel; a caller resets each entry to 0 with it.
 kernel_launches = dict.fromkeys(KERNELS, 0)
+
+
+def flops(B: int, Sq: int, Skv: int, H: int, dh: int, causal: bool,
+          window: Optional[int]) -> float:
+    """Floating-point operations of one call: ``4 dh`` (q k^T and p v) per
+    (query, key) pair that the mask keeps, query ``i`` and key ``j`` at
+    positions ``i`` and ``j``, for each of the ``B H`` (batch, head)
+    pairs.  The kernels skip the tiles the mask removes."""
+    pairs = 0
+    for i in range(Sq):
+        hi = min(i, Skv - 1) if causal else Skv - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo + 1)
+    return 4.0 * dh * pairs * B * H
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: The tensor-core kernels and the bf16 head dims each takes.

@@ -157,8 +157,9 @@ def _recompute_grads(ctx, fn, grads_out):
 
 def _fake(*tensors) -> bool:
     """Tensors with no data (``FakeTensorMode``: a cost pass,
-    ``launch.op_costs``): no kernel can run on them, and their plain
-    versions give the shapes and the work such a pass counts."""
+    ``launch.op_costs``): no kernel can run on them, so the wrapper gives
+    empty outputs of the kernel's shapes, which ``op_costs.as_kernel``
+    counts at the kernel's own work and bytes."""
     from torch._subclasses.fake_tensor import is_fake
     return any(t is not None and is_fake(t) for t in tensors)
 
@@ -172,10 +173,14 @@ class _FlashAttention(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v)
-        run = (fa.flash_attention_gqa_plain if _fake(q, k, v)
-               else fa.flash_attention_gqa)
         with torch.no_grad():
-            return run(q, k, v, causal=causal, window=window)
+            if not _fake(q, k, v):
+                return fa.flash_attention_gqa(q, k, v, causal=causal,
+                                              window=window)
+            from repro_torch.launch.op_costs import as_kernel
+            (B, Sq, H, dh), Skv = q.shape, k.shape[1]
+            return as_kernel(fa.flops(B, Sq, Skv, H, dh, causal, window),
+                             torch.empty_like(q), q, k, v)
 
     @staticmethod
     def backward(ctx, dout):
@@ -257,10 +262,15 @@ class _SSDScan(torch.autograd.Function):
         B, S, H, P = x.shape
         N = Bm.shape[-1]
         nc = S // chunk
-        run = (ss.ssd_scan_plain if _fake(x, dt, A, Bm, Cm, init_state)
-               else ss.ssd_scan_kernel_call)
+        if _fake(x, dt, A, Bm, Cm, init_state):
+            from repro_torch.launch.op_costs import as_kernel
+            f32 = torch.float32
+            return as_kernel(ss.flops(B, nc, chunk, H, P, N),
+                             (x.new_empty((B, S, H, P), dtype=f32),
+                              x.new_empty((B, H, P, N), dtype=f32)),
+                             x, dt, A, Bm, Cm, init_state)
         with torch.no_grad():
-            y, state = run(
+            y, state = ss.ssd_scan_kernel_call(
                 x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H),
                 A, Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
                 init_state=init_state)
@@ -302,8 +312,7 @@ def _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk):
     from repro_torch.launch.axes import local_shards
     from repro_torch.launch.mesh import batch_axes
     mesh = x.device_mesh
-    split, _ = _head_split(mesh, x.shape[2], 1)
-    b, tp = batch_axes(mesh), ("model" if split else None)
+    b, tp = batch_axes(mesh), "model"
     state = ((x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1]),
              (b, tp))
     return local_shards(

@@ -49,7 +49,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["ssd_scan_plain", "ssd_scan_kernel_call", "kernel_for",
            "KERNELS", "launches", "kernel_launches", "MAX_HEAD_DIM",
-           "MAX_STATE"]
+           "MAX_STATE", "flops"]
 
 #: Largest head_dim (P) and d_state (N) the kernels are built for.
 MAX_HEAD_DIM = 64
@@ -65,6 +65,19 @@ KERNELS = (WGMMA, CUDA_CORE)
 launches = 0
 #: The same count per kernel; a caller resets each entry to 0 with it.
 kernel_launches = dict.fromkeys(KERNELS, 0)
+
+
+
+def flops(B: int, nc: int, l: int, H: int, P: int, N: int) -> float:
+    """Floating-point operations of one scan of ``nc`` chunks of ``l``
+    with one B/C group: per (batch, chunk) the scores C B^T once for all
+    heads on the ``l (l + 1) / 2`` pairs i >= j (2 N each); per (batch,
+    head, chunk) the masked scores times dt x on those pairs (2 P each),
+    C state^T and the state update (2 l N P each)."""
+    pairs = l * (l + 1) // 2
+    return (2.0 * pairs * N * B * nc
+            + (2.0 * pairs * P + 4.0 * l * N * P) * B * H * nc)
+
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _WGMMA_CHUNK_STEP = 64

@@ -30,7 +30,8 @@ from repro_torch.launch.mesh import axis_sizes
 from repro_torch.launch.sharding import NamedSharding, fix_spec
 
 __all__ = ["constrain", "mesh_context", "current_mesh", "current_profile",
-           "placements", "local_shards", "einsum", "stack"]
+           "placements", "local_shards", "einsum", "stack",
+           "contiguous_strides", "laid_out_like"]
 
 _STATE = threading.local()
 
@@ -132,6 +133,16 @@ def constrain(x: torch.Tensor, *logical_spec) -> torch.Tensor:
     return _Redistribute.apply(x, mesh, want)
 
 
+def laid_out_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """The DTensor ``x`` in ``ref``'s layout: partial sums or means
+    reduced, and scattered where ``ref`` is split (FSDP's reduce-scatter of
+    a gradient).  Left as DTensor leaves them, a partial meets another
+    operand and both are gathered whole.  A plain tensor passes through."""
+    if isinstance(x, DTensor) and tuple(x.placements) != tuple(
+            ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
 
 def local_shards(fn, mesh, args: tuple, in_specs: tuple, out,
                  out_partial: tuple = ()):
@@ -232,8 +243,16 @@ def stack(tensors: list) -> torch.Tensor:
     pl = [Shard(p.dim + 1) if p.is_shard() else p for p in first.placements]
     local = torch.stack([t.redistribute(first.device_mesh, first.placements)
                          .to_local() for t in tensors])
+    shape = (len(tensors), *first.shape)
     return DTensor.from_local(local, first.device_mesh, pl, run_check=False,
-                              shape=(len(tensors), *first.shape),
-                              stride=torch.empty((len(tensors),
-                                                  *first.shape),
-                                                 device="meta").stride())
+                              shape=shape, stride=contiguous_strides(shape))
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor's global
+    strides, worked out without making a tensor of that shape)."""
+    strides, step = [], 1
+    for n in reversed(tuple(shape)):
+        strides.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(strides))

@@ -8,15 +8,18 @@ shows, without hardware, that
     model=16) ranks, every op finding a sharding;
   * its per-device state fits: parameter, optimizer-state and cache bytes
     per device, and the peak that ``torch.distributed._tools.mem_tracker``
-    records over the step;
+    records over the step, held against an H100's memory
+    (``fits_device_memory``);
   * and it emits the roofline terms (``launch.roofline``) from the op-level
     costs (``launch.op_costs``).
 
 The ranks are one process on a ``fake`` process group (``FakeStore``,
 started here before any mesh), and parameters and inputs are fake
 tensors (``FakeTensorMode``) on the host: nothing is allocated, and the
-kernel wrappers take their plain routes, which is what the reference
-counts too (its dry run lowers the jnp twins of its kernels).
+kernel wrappers run their plain versions, each counted as the kernel it
+stands for (``op_costs.as_kernel``), since the card runs the kernels.
+The reference's dry run lowers and counts the jnp twins of its kernels
+instead.
 
 Each cell's record holds the reference's keys, less those only XLA has
 (``memory_analysis``, the HLO dump): its op-boundary bytes are
@@ -72,7 +75,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
     from repro_torch.launch import roofline as rl
     from repro_torch.launch import sharding as sh
     from repro_torch.launch import steps as steps_lib
-    from repro_torch.launch.mesh import axis_sizes, make_production_mesh
+    from repro_torch.launch.mesh import (H100_SXM, axis_sizes,
+                                         make_production_mesh)
     from repro_torch.models import transformer as T
 
     cfg = registry.get_config(arch)
@@ -148,6 +152,10 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
         rec["opt_state_bytes_per_dev"] = opt_bytes
         rec["cache_bytes_per_dev"] = cache_bytes
         rec.update(report.as_dict())
+        # the peak against one card's memory: a cell that does not fit
+        # stays "ok" (it built and was costed) and says so here
+        rec["device_memory_bytes"] = H100_SXM.hbm_bytes
+        rec["fits_device_memory"] = peak <= H100_SXM.hbm_bytes
         rec["n_params"] = n_params
         rec["n_active_params"] = n_active
         rec["timings_s"] = {"build": t1 - t0, "cost": t2 - t1}
@@ -217,8 +225,11 @@ def main(argv=None) -> int:
                 if rec["status"] == "ok":
                     t = {k: round(rec[k], 4) for k in
                          ("compute_s", "memory_s", "collective_s")}
+                    fits = ("" if rec["fits_device_memory"] else
+                            f" OVER MEMORY: peak "
+                            f"{rec['peak_memory_per_device'] / 1e9:.1f} GB")
                     print(f"OK   {tag}: bound={rec['bound']} {t} "
-                          f"wall={rec['wall_s']:.1f}s", flush=True)
+                          f"wall={rec['wall_s']:.1f}s{fits}", flush=True)
                 else:
                     failures += 1
                     print(f"FAIL {tag}: {rec['error']}", flush=True)

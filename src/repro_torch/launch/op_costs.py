@@ -15,7 +15,13 @@ DTensor matmul would otherwise count its global product as well):
   PyTorch fuses nothing (the reference counts at XLA's fusion boundaries);
 * the functional collectives (``_c10d_functional.*``) DTensor issues when
   it redistributes, at the bytes a ring moves per device for their group's
-  size (``launch.roofline.ring_bytes``, shared with the roofline pass).
+  size (``launch.roofline.ring_bytes``, shared with the roofline pass);
+* a hand-written kernel as the one op it is on the card: fake tensors
+  cannot launch it, so its wrapper hands :func:`as_kernel` empty outputs
+  of the kernel's shapes, counted at the kernel's own FLOPs, its inputs
+  read once and its outputs written once (``kernels.ops``: flash
+  attention and the SSD scan).  Nor does the memory tracker see the
+  plain version's intermediates, which the kernel never makes.
 
 The reference also reports ``trip_counts``, the trip count of each
 ``while`` loop, because XLA's cost analysis counts a loop body once.  The
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Any, Callable
 
 import torch
@@ -44,7 +51,7 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.launch.roofline import CollectiveStats, ring_bytes
 
-__all__ = ["ModuleCosts", "module_costs", "cell_costs"]
+__all__ = ["ModuleCosts", "module_costs", "cell_costs", "as_kernel"]
 
 #: functional collectives -> the reference's HLO op names
 _COLLECTIVES = {
@@ -87,6 +94,10 @@ def _is_view(func) -> bool:
     """An op whose result aliases its input without writing it."""
     return any(r.alias_info is not None and not r.alias_info.is_write
                for r in func._schema.returns)
+
+
+#: the counter of the cost pass running on this thread, if any
+_ACTIVE = threading.local()
 
 
 class _Counter(TorchDispatchMode):
@@ -177,16 +188,35 @@ def _dtensor_internals_outside_modes():
 def module_costs(fn: Callable, *args, **kwargs) -> ModuleCosts:
     """Per-device :class:`ModuleCosts` of ``fn(*args, **kwargs)``."""
     counter = _Counter()
-    with _dtensor_internals_outside_modes(), counter:
-        fn(*args, **kwargs)
+    outer = getattr(_ACTIVE, "counter", None)
+    _ACTIVE.counter = counter
+    try:
+        with _dtensor_internals_outside_modes(), counter:
+            fn(*args, **kwargs)
+    finally:
+        _ACTIVE.counter = outer
     return counter.costs
+
+
+def as_kernel(flops: float, out, *inputs):
+    """``out``, the outputs of a kernel that fake tensors cannot launch
+    (empty tensors of the kernel's shapes); inside :func:`module_costs`
+    they count as that kernel: ``flops`` FLOPs, its tensor ``inputs`` read
+    once and ``out`` written once."""
+    counter = getattr(_ACTIVE, "counter", None)
+    if counter is not None:
+        counter.costs.flops += float(flops)
+        counter.costs.hbm_bytes += float(sum(
+            _nbytes(t) for t in tree_leaves((inputs, out))
+            if isinstance(t, torch.Tensor)))
+    return out
 
 
 def _fake_dtensor(meta: torch.Tensor, mesh, spec) -> DTensor:
     """A fake DTensor shaped like ``meta``, laid out by ``spec`` on
     ``mesh``: its local shard is a fake tensor of the shard's shape
     (``fix_spec`` leaves only dims that divide their axes sharded)."""
-    from repro_torch.launch.axes import placements
+    from repro_torch.launch.axes import contiguous_strides, placements
     from repro_torch.launch.sharding import fix_spec
     pl = placements(mesh, fix_spec(meta.shape, tuple(spec), mesh,
                                    relocate=False))
@@ -198,8 +228,7 @@ def _fake_dtensor(meta: torch.Tensor, mesh, spec) -> DTensor:
                         device=mesh.device_type)
     return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=meta.shape,
-                              stride=torch.empty(meta.shape,
-                                                 device="meta").stride())
+                              stride=contiguous_strides(meta.shape))
 
 
 def cell_costs(cell, *, peak_memory: bool = False) -> Any:
@@ -229,5 +258,8 @@ def cell_costs(cell, *, peak_memory: bool = False) -> Any:
         with tracker:
             costs = module_costs(cell.fn, *args)
         peak = tracker.get_tracker_snapshot("peak")
+        # the mesh's device only: a meta tensor holds no memory
         return costs, float(max((snap.get("Total", 0)
-                                 for snap in peak.values()), default=0))
+                                 for dev, snap in peak.items()
+                                 if torch.device(dev).type != "meta"),
+                                default=0))

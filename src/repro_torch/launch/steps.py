@@ -31,7 +31,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, \
     TrainConfig
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.axes import mesh_context, placements
+from repro_torch.launch.axes import (laid_out_like, mesh_context,
+                                     placements)
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
@@ -89,8 +90,10 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         grads = torch.autograd.grad(loss, wrt_leaves, allow_unused=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["params_without_grad"] = sum(g is None for g in grads)
+        # each gradient in its parameter's layout before the norm and the
+        # update read it
         grads = [torch.zeros_like(x, dtype=torch.float32)
-                 if g is None else g.to(torch.float32)
+                 if g is None else laid_out_like(g.to(torch.float32), x)
                  for g, x in zip(grads, wrt_leaves)]
         return loss.detach(), metrics, unflatten(params, grads)
 

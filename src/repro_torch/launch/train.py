@@ -119,7 +119,9 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,
         cell = steps_lib.build_cell(cfg, ShapeConfig("train", seq, batch,
                                                      "train"), mesh, tcfg)
         train_step = cell.fn
-        template = {"params": params, "opt": opt_state}
+        # a restore needs only the shapes: the cell's meta stand-ins, so
+        # no rank keeps a whole copy beside its shards
+        template = {"params": cell.arg_shapes[0], "opt": cell.arg_shapes[1]}
         params, opt_state = (steps_lib.laid_out(t, mesh, ns) for t, ns in
                              zip((params, opt_state), cell.in_shardings))
     writer = mesh is None or dist.get_rank() == 0

@@ -27,7 +27,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.launch.axes import constrain, einsum, local_shards
-from repro_torch.launch.mesh import axis_sizes, batch_axes
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.models.layers import init_linear, rms_norm
 
 __all__ = ["init_ssm_params", "ssm_block", "ssm_decode_step", "ssd_scan",
@@ -153,11 +153,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     where they divide (``axes.local_shards``)."""
     if isinstance(x, DTensor):
         mesh = x.device_mesh
-        tp = axis_sizes(mesh).get("model")
-        ch = "model" if tp and x.shape[-1] % tp == 0 else None
-        spec = (batch_axes(mesh), None, ch)
+        spec = (batch_axes(mesh), None, "model")
         return local_shards(_causal_conv, mesh, (x, w, b),
-                            (spec, (None, ch), (ch,)), (x.shape, spec))
+                            (spec, (None, "model"), ("model",)),
+                            (x.shape, spec))
     K = w.shape[0]
     S = x.shape[1]
     pad = F.pad(x, (0, 0, K - 1, 0))

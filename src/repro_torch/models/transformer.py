@@ -62,7 +62,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.launch.axes import constrain, einsum, local_shards, stack
-from repro_torch.launch.mesh import axis_sizes, batch_axes
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
@@ -337,8 +337,7 @@ def _ring(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
     if isinstance(k, DTensor):
         mesh = k.device_mesh
         b = batch_axes(mesh)
-        tp = axis_sizes(mesh).get("model", 1)
-        spec = (b, None, "model" if k.shape[2] % tp == 0 else None)
+        spec = (b, None, "model")
         ring = (*k.shape[:1], W, *k.shape[2:])
         if not isinstance(positions, DTensor):     # the same on every rank
             positions = DTensor.from_local(

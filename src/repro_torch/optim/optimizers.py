@@ -18,8 +18,10 @@ import math
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.launch.axes import laid_out_like
 from repro_torch.tree import leaves, tree_map, unflatten
 
 __all__ = ["make_optimizer", "Optimizer", "cosine_schedule", "global_norm",
@@ -28,8 +30,41 @@ __all__ = ["make_optimizer", "Optimizer", "cosine_schedule", "global_norm",
 
 def global_norm(tree) -> torch.Tensor:
     """The l2 norm of all leaves together, in fp32."""
-    norms = torch._foreach_norm([x.to(torch.float32) for x in leaves(tree)])
+    xs = [x.to(torch.float32) for x in leaves(tree)]
+    if any(isinstance(x, DTensor) for x in xs):
+        return _sharded_global_norm(xs)
+    norms = torch._foreach_norm(xs)
     return torch.sqrt(torch.sum(torch.stack(norms) ** 2))
+
+
+def _sharded_global_norm(xs: list) -> DTensor:
+    """:func:`global_norm` of DTensors, each rank reading only its shards:
+    the norm of each local shard, then, for the leaves split over some
+    mesh dims, the square root of the sum of their shards' squares over
+    those dims (one all-reduce per set of dims), then the plain formula.
+    DTensor's own ``_foreach_norm`` gathers every leaf whole first.  With
+    no leaf split, this is the plain function on the local tensors."""
+    mesh = xs[0].device_mesh
+    # a partial sum is summed first: its shards' norms are not its norm's
+    xs = [x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                for p in x.placements])
+          if any(p.is_partial() for p in x.placements) else x for x in xs]
+    norms = list(torch._foreach_norm([x.to_local() for x in xs]))
+    split: dict = {}
+    for i, x in enumerate(xs):
+        key = tuple(Partial() if p.is_shard() else Replicate()
+                    for p in x.placements)
+        if any(p.is_partial() for p in key):
+            split.setdefault(key, []).append(i)
+    for key, idx in split.items():
+        squares = torch.stack([norms[i] for i in idx]) ** 2
+        total = DTensor.from_local(squares, mesh, key,
+                                   run_check=False).full_tensor()
+        for i, n in zip(idx, torch.sqrt(total)):
+            norms[i] = n
+    norm = torch.sqrt(torch.sum(torch.stack(norms) ** 2))
+    return DTensor.from_local(norm, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def clip_by_global_norm(tree, max_norm: float):
@@ -148,8 +183,12 @@ def adafactor(cfg: TrainConfig) -> Optimizer:
         def upd(p, g, v):
             g2 = torch.square(g) + eps
             if _factored(p.shape):
-                vr = beta2 * v["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * v["vc"] + (1 - beta2) * g2.mean(-2)
+                # on a mesh a mean over a split dim is a partial mean:
+                # reduced into the state's layout before the outer product
+                vr = beta2 * v["vr"] + (1 - beta2) * laid_out_like(
+                    g2.mean(-1), v["vr"])
+                vc = beta2 * v["vc"] + (1 - beta2) * laid_out_like(
+                    g2.mean(-2), v["vc"])
                 denom = (vr[..., None] * vc[..., None, :]
                          / torch.clamp(vr.mean(-1, keepdim=True)[..., None],
                                        min=eps))

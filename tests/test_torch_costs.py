@@ -11,6 +11,12 @@
   local product only, and a redistribution its collective by the ring.
 * ``Cell.costs()`` on one rank equals the plain step's ``module_costs``
   FLOPs (the DTensor layer adds no per-device work there).
+* The flash and SSD kernels count as one op each in a cost pass
+  (``op_costs.as_kernel``): their own FLOPs (``flops`` of each kernel
+  module) and their inputs and outputs once, not their plain versions'.
+* The sharded cross-entropy's forward and backward on a fake (2, 16, 16)
+  mesh make no tensor larger than a rank's shard of the logits, and the
+  gradient norm of sharded leaves gathers none of them.
 * ``RooflineReport.terms`` and ``analytic_memory_bytes`` against the
   reference for all ten configs x shapes x both production meshes, on a
   ``HardwareSpec`` built here with the reference test's numbers: equal to
@@ -36,6 +42,8 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 from torch.distributed.tensor import DTensor, Replicate, Shard  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._pytree import tree_leaves  # noqa: E402
 
 from repro.configs import registry as jreg  # noqa: E402
 from repro.configs.base import SHAPES as JSHAPES  # noqa: E402
@@ -184,6 +192,133 @@ def test_one_rank_cell_costs_equal_the_plain_steps():
         dist.destroy_process_group()
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def test_flash_attention_counts_as_its_kernel():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    B, S, H, kv, dh = 2, 96, 4, 2, 64
+    with FakeTensorMode():
+        q = torch.empty(B, S, H, dh, dtype=torch.bfloat16)
+        k = torch.empty(B, S, kv, dh, dtype=torch.bfloat16)
+        v = torch.empty(B, S, kv, dh, dtype=torch.bfloat16)
+        got = {}
+        mc = op_costs.module_costs(
+            lambda *a: got.setdefault("out", ops.flash_attention(
+                *a, causal=True, window=32)), q, k, v)
+    # 4 dh FLOPs per kept (query, key) pair: i - 31 <= j <= i
+    pairs = sum(min(i, 31) + 1 for i in range(S))
+    assert mc.flops == fa.flops(B, S, S, H, dh, True, 32) \
+        == 4 * dh * pairs * B * H
+    assert mc.hbm_bytes == _nbytes(q, k, v, got["out"])
+
+
+def test_ssd_scan_counts_as_its_kernel():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    B, S, H, P, N, chunk = 2, 128, 4, 16, 32, 64
+    with FakeTensorMode():
+        x = torch.empty(B, S, H, P)
+        dt = torch.empty(B, S, H)
+        A = torch.empty(H)
+        Bm = torch.empty(B, S, 1, N)
+        Cm = torch.empty(B, S, 1, N)
+        got = {}
+        mc = op_costs.module_costs(
+            lambda *a: got.setdefault("out", ops.ssd_scan_fused(
+                *a, chunk=chunk)), x, dt, A, Bm, Cm)
+    nc, pairs = S // chunk, chunk * (chunk + 1) // 2
+    assert mc.flops == ss.flops(B, nc, chunk, H, P, N) == (
+        2 * pairs * N * B * nc + (2 * pairs * P + 4 * chunk * N * P)
+        * B * H * nc)
+    assert mc.hbm_bytes == _nbytes(x, dt, A, Bm, Cm, *got["out"])
+
+
+class _Largest(TorchDispatchMode):
+    """The largest tensor that an op on plain (local) tensors makes."""
+    largest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(isinstance(t, DTensor)
+               for t in tree_leaves((args, kwargs or {}))):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.largest = max(self.largest, _nbytes(t))
+        return out
+
+
+def test_sharded_global_norm_gathers_no_leaf(fake_world):
+    """The gradient norm of a train cell on the (16, 16) mesh: each rank
+    takes the norms of its own shards and all-reduces their squares, one
+    all-reduce per set of mesh dims that split a leaf; no leaf is
+    gathered (DTensor's ``_foreach_norm`` gathers every one whole)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.optim.optimizers import global_norm
+    mesh = mesh_lib.make_production_mesh(device="fake")
+    layouts = [[Shard(0), Shard(1)], [Shard(0), Shard(1)],
+               [Replicate(), Shard(0)], [Replicate(), Replicate()]]
+    with FakeTensorMode(), op_costs._dtensor_internals_outside_modes():
+        tree = [DTensor.from_local(torch.empty(64, 32), mesh, pl,
+                                   run_check=False) for pl in layouts]
+        seen = _Largest()
+        with seen:
+            mc = op_costs.module_costs(global_norm, tree)
+        norm = global_norm(tree)
+    assert isinstance(norm, DTensor) and norm.shape == ()
+    assert norm.placements == (Replicate(), Replicate())
+    # (data, model) and (model): DTensor reduces over two mesh dims with
+    # one all-reduce each
+    assert mc.collective_counts == {"all-reduce": 3}
+    assert seen.largest <= _nbytes(tree[0].to_local())
+
+
+def test_sharded_cross_entropy_holds_no_more_than_a_shard():
+    """The loss of a (pod 2, data 16, model 16) train cell: batch over
+    (pod, data), vocab over model.  No op of its forward or backward makes
+    a tensor larger than one rank's shard of the logits (DTensor's own
+    sum and logsumexp laid out whole gradients over the pod)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.op_costs import _dtensor_internals_outside_modes
+    from repro_torch.models.loss import cross_entropy
+
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=512)
+    try:
+        mesh = mesh_lib.make_production_mesh(multi_pod=True, device="fake")
+        B, S, V = 64, 16, 2048
+        with FakeTensorMode(), _dtensor_internals_outside_modes():
+            local = torch.empty(B // 32, S, V // 16, requires_grad=True)
+            logits = DTensor.from_local(local, mesh,
+                                        [Shard(0), Shard(0), Shard(2)],
+                                        run_check=False)
+            targets = DTensor.from_local(
+                torch.empty(B // 32, S, dtype=torch.int32), mesh,
+                [Shard(0), Shard(0), Replicate()], run_check=False)
+            seen = _Largest()
+            with seen, implicit_replication():       # as in a cell
+                loss, _ = cross_entropy(logits, targets)
+                loss.backward()
+        assert local.grad is not None
+        assert tuple(local.grad.shape) == tuple(local.shape)
+        assert seen.largest <= _nbytes(local), (seen.largest,
+                                                _nbytes(local))
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # The roofline terms and the analytic memory term against the reference
 # ---------------------------------------------------------------------------
@@ -284,5 +419,7 @@ def test_production_dry_run_cell(tmp_path):
     assert 0 < rec["model_flops_ratio"] <= 1, rec["model_flops_ratio"]
     print("model_flops_ratio", rec["model_flops_ratio"])
     assert rec["peak_memory_per_device"] > rec["param_bytes_per_dev"] > 0
+    assert rec["fits_device_memory"] is (
+        rec["peak_memory_per_device"] <= rec["device_memory_bytes"] == 80e9)
     assert rec["bound"] in ("compute", "memory", "collective")
     assert "OK   internvl2-1b x train_4k x single [train]" in out.stdout
