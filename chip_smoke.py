@@ -35,7 +35,8 @@ main paths and checks what comes out:
    run, then 40 requests at half the measured service rate with a
    deadline between the res-0 and final service times, every admitted
    request verified); and the host backends beside this CUDA-initialised
-   process at K=M=N=512 (``process`` with the shared-memory arena on and
+   process at K=M=N=512 (``process``, its workers forked by a fork server
+   and each transport's start timed, with the shared-memory arena on and
    off and with the hierarchical family, ``socket`` on a LocalCluster of
    five worker hosts), each verified, with the arena's leak sweep and the
    worker hosts' start-up time.  None of these runs a kernel of the
@@ -84,16 +85,30 @@ main paths and checks what comes out:
    under ``torch.profiler`` for the kernel's share of the prefill's device
    time and the kernels that take the most; then, on the flash paths, one
    more prefill with every flash call held against the plain version on
-   the inputs the path gives it), decode 16 tokens unbudgeted
-   and 16 at ``layer_budget=1``, and the decode step's logits at position
+   the inputs the path gives it), the decode step's logits at position
    S held against ``forward`` over S+1 tokens (qwen2-moe-a2.7b's on a copy
-   of the config whose expert capacity drops no token);
+   of the config whose expert capacity drops no token), and 16 tokens
+   unbudgeted and 16 at ``layer_budget=1``, each from its own copy of the
+   prefill's caches: eagerly (``server.graphs = False``), then through
+   the server's CUDA graphs (the first decode of a caches object
+   captures its step: capture seconds and the graph pool's bytes), then
+   again on the same storage with the prompt's caches put back, replays
+   only, under ``torch.cuda.set_sync_debug_mode("error")``, and once more
+   under ``torch.profiler`` for the device ms of a replay; every run's
+   tokens equal the eager run's; beside them the bytes one decode step
+   must read (the weights it uses, W's planes, the caches) and their time
+   at 3.35 TB/s;
    then yi-6b, glm4-9b, starcoder2-7b and llama4-maverick-400b-a17b at
    their smoke widths: the card's forward against the host's on the same
    parameters, decode against forward, and serving through the server;
 8. the ``deadline_ms`` mode with the head as runtime jobs on
-   the ``cuda`` backend, at the llama3-8b smoke width: an expired deadline
-   releases resolution 0 only, a generous one all 2m-1;
+   the ``cuda`` backend (the hidden step replayed from its CUDA graph), at
+   the llama3-8b smoke width: an expired deadline releases resolution 0
+   only, a generous one all 2m-1; then the example twins through their
+   ``main`` on the card: ``repro_torch.examples.quickstart`` (kernel 1
+   launched twice by its part 2, bit-exact) and
+   ``repro_torch.examples.serve_progressive`` (served through the CUDA
+   graphs), each to its closing "OK" line;
 9. training (``launch.train.train_loop``, AdamW, lr 3e-4, warmup 2, on
    ``SyntheticLM`` at 4 x 1024 tokens, full width): internvl2-1b 20 steps
    (flash attention in the forward pass), mamba2-370m 20 (the SSD scan)
@@ -104,8 +119,16 @@ main paths and checks what comes out:
    step's loss and gradient norm against the same step through the
    kernels' plain versions, falling loss over the run, and one step under
    ``torch.profiler``;
-10. the mesh layer, after training (so the process-worker forks above
-   come before any NCCL init), on one rank of a real NCCL group, where
+10. ``cells_four_ranks_host``: the sharded cells that failed on this
+   machine's torch before the port laid out their pads, flattens and
+   decode masks shard by shard (ROADMAP F5), llama3-8b, qwen2-moe-a2.7b,
+   mamba2-370m, recurrentgemma-9b (serve and train), whisper-tiny and
+   internvl2-1b on (data 2, model 2) and llama3-8b, yi-6b and
+   llama4-maverick on (1, 4), at smoke width in fp32 on four spawned gloo
+   ranks on the host CPU, each rank's outputs within 1e-4 of the
+   one-rank cell's (``tests/_torch_dist.py``, as
+   ``tests/test_torch_cells_ranks.py``); then the mesh layer, on one rank
+   of a real NCCL group, where
    every collective is trivial and the card's work is real: the sharding
    rules of all ten configs at full width on stand-ins of the production
    meshes (16 x 16 and 2 x 16 x 16; bytes per device computed, not
@@ -154,6 +177,7 @@ without the repository beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -163,6 +187,7 @@ import subprocess
 import sys
 import time
 import traceback
+import weakref
 
 HERE = pathlib.Path(__file__).resolve().parent
 SRC = HERE / "src"
@@ -826,17 +851,19 @@ def phase_serve_gateway(torch, dev):
 
 def phase_runtime_process_socket(torch, dev):
     """The host backends beside a CUDA-initialised parent: ``process``
-    (forked workers, shm arena on and off, the hierarchical family) and
+    (workers forked by a fork server, shm arena on and off, the
+    hierarchical family; each transport's start timed, the first booting
+    the fork server) and
     ``socket`` (a LocalCluster of five worker-host interpreters), each
     verified against the host oracle."""
     import os
     import tempfile
 
     from repro_torch.launch import runctl
-    from repro_torch.runtime.transport import shm, socket_host
+    from repro_torch.runtime.transport import process, shm, socket_host
     if not torch.cuda.is_initialized():
         raise AssertionError("CUDA is not initialised in the parent")
-    startups = []
+    startups, process_starts, start_methods = [], [], set()
 
     def timed_cluster(real, *a, **kw):
         t0 = time.perf_counter()
@@ -844,13 +871,22 @@ def phase_runtime_process_socket(torch, dev):
         startups.append(time.perf_counter() - t0)
         return cluster
 
+    def timed_start(real, transport):
+        # the first start in this process also boots the fork server,
+        # which imports the worker's module (torch, numpy) once
+        t0 = time.perf_counter()
+        real(transport)
+        process_starts.append(time.perf_counter() - t0)
+        start_methods.add(transport._mp.get_start_method())
+
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, flags in HOST_BACKENDS.items():
             path = pathlib.Path(tmp) / f"{name}.json"
             reset_kernel_launches()
             t0 = time.perf_counter()
-            with observe(socket_host, "LocalCluster", timed_cluster):
+            with observe(socket_host, "LocalCluster", timed_cluster), \
+                    observe(process.ProcessTransport, "start", timed_start):
                 rc = runctl.main(HOST_SIZE + flags + ["--json", str(path)])
             wall = time.perf_counter() - t0
             if rc != 0:
@@ -879,7 +915,9 @@ def phase_runtime_process_socket(torch, dev):
         raise AssertionError(f"shm segments left behind: {leaked}")
     emit({"phase": "runtime_process_socket", "cuda_initialised": True,
           "argv": HOST_SIZE, "runs": rows, "shm_leak_sweep": leaked,
-          "worker_host_startup_seconds": startups})
+          "worker_host_startup_seconds": startups,
+          "process_start_methods": sorted(start_methods),
+          "process_transport_start_seconds": process_starts})
     return rows
 
 
@@ -1305,6 +1343,99 @@ def served_flash_vs_plain(torch, fn, want_kernel: str) -> dict:
             "shapes": sorted(shapes)}
 
 
+def _restore(dst, src) -> None:
+    """Copy ``src``'s values into ``dst``'s tensors (a captured decode
+    step keeps writing the same storage)."""
+    from repro_torch.tree import leaves
+    for d, v in zip(leaves(dst), leaves(src)):
+        d.copy_(v)
+
+
+def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
+                   want_rel: int) -> dict:
+    """``G`` tokens at ``budget`` from the prefill's ``caches``, each run
+    from its own copy: eager (``server.graphs = False``), then through the
+    CUDA graphs, whose first decode of a caches object captures its step,
+    then again from the same storage with the prompt's caches put back
+    (replays only) under ``torch.cuda.set_sync_debug_mode("error")``, and
+    once more under ``torch.profiler`` for the device time of a replay.
+    Every run's tokens must equal the eager run's."""
+    B = prompt.shape[0]
+    runs = {}
+
+    def run(label, fresh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = server.decode(prompt[:, -1:], fresh, S, G,
+                                   layer_budget=budget)
+        torch.cuda.synchronize()
+        runs[label] = (out, (time.perf_counter() - t0) * 1e3 / G)
+        if (tuple(out.shape) != (B, G)
+                or stats.released_at_layer != [want_rel] * G
+                or stats.full_resolution != (G if budget is None else 0)):
+            raise AssertionError(f"{label}: {tuple(out.shape)} released "
+                                 f"{stats.released_at_layer}")
+        return stats
+
+    fresh = _clone(caches)
+    server.graphs = False
+    stats = run("eager", fresh)
+    del fresh
+    server.graphs = True
+    fresh = _clone(caches)
+    captures = len(server.graph_log)
+    run("graph_first", fresh)
+    if len(server.graph_log) != captures + 1:
+        raise AssertionError(f"{len(server.graph_log) - captures} captures "
+                             f"in the first graph decode, want 1")
+    capture = server.graph_log[-1]
+    _restore(fresh, caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run("graph", fresh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _restore(fresh, caches)
+    profiled = prefill_device_profile(
+        torch, lambda: server.decode(prompt[:, -1:], fresh, S, G,
+                                     layer_budget=budget), "")
+    if len(server.graph_log) != captures + 1:
+        raise AssertionError("a replayed decode captured again")
+    eager = runs["eager"][0]
+    for label, (out, _) in runs.items():
+        if not torch.equal(out, eager):
+            raise AssertionError(f"{label} tokens differ from eager: "
+                                 f"{(out != eager).sum().item()} of "
+                                 f"{eager.numel()}")
+    del fresh
+    return {"released_at_layer": stats.released_at_layer,
+            "eager_ms_per_token": runs["eager"][1],
+            "graph_ms_per_token": runs["graph"][1],
+            "first_graph_decode_ms_per_token": runs["graph_first"][1],
+            "capture_seconds": capture["capture_seconds"],
+            "graph_pool_bytes": capture["pool_bytes"],
+            "replay_device_ms": profiled["all_device_ms"] / G,
+            "replay_top_device_ms": profiled["top_device_ms"][:4],
+            "graph_tokens_equal_eager": True,
+            "sync_debug_mode_during_replays": "error"}
+
+
+def decode_token_bytes(params, server, caches) -> int:
+    """The bytes one decode step must read at least: every parameter the
+    step uses (all but the embedding table, of which it reads a row a
+    token, and the encoder, which ran in the prefill; every expert of an
+    MoE layer, as the reference's dispatch evaluates each), W's int8
+    planes for the head, and the whole KV cache and recurrent state once."""
+    from repro_torch.tree import leaves, leaves_with_path
+    weights = sum(t.numel() * t.element_size()
+                  for path, t in leaves_with_path(params)
+                  if path[0] not in ("embed", "lm_head", "encoder"))
+    planes = server.lm_head.planes
+    return (weights + planes.numel() * planes.element_size()
+            + sum(t.numel() * t.element_size() for t in leaves(caches)))
+
+
 def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
            want_kernel: str, kernel_name: str):
     """Serve ``arch`` at full width: prefill (launches counted, all of
@@ -1406,24 +1537,11 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
                              f"{rel} of the largest logit (tolerance "
                              f"{DECODE_TOL})")
 
-    decode = {}
-    for label, budget, want_rel in (("unbudgeted", None, 2),
-                                    ("layer_budget_1", 1, 1)):
-        fresh = _clone(caches)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, stats = server.decode(prompt[:, -1:], fresh, S, G,
-                                   layer_budget=budget)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        if (tuple(out.shape) != (B, G)
-                or stats.released_at_layer != [want_rel] * G
-                or stats.full_resolution != (G if budget is None else 0)):
-            raise AssertionError(f"{arch} {label}: {tuple(out.shape)} "
-                                 f"released {stats.released_at_layer}")
-        decode[label] = {"ms_per_token": ms / G,
-                         "released_at_layer": stats.released_at_layer}
-        del fresh
+    decode = {label: graph_vs_eager(torch, server, prompt, caches, S, G,
+                                    budget, want_rel)
+              for label, budget, want_rel in (("unbudgeted", None, 2),
+                                              ("layer_budget_1", 1, 1))}
+    token_bytes = decode_token_bytes(params, server, caches)
 
     hidden, _ = T.hidden_step(params, prompt[:, -1:], caches, S, cfg)
     series = server.head_series(hidden)
@@ -1455,11 +1573,20 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
            "decode_vs_forward_tolerance": DECODE_TOL,
            "decode_vs_forward_argmax_agreement": argmax_agree,
            "decode": decode,
+           "decode_token_bytes": token_bytes,
+           "decode_token_bound_ms": token_bytes / PEAK_BYTES * 1e3,
            "head_ms_per_resolution_increment": head_ms,
            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     server.close()
+    alive = weakref.ref(server)
     del params, server, caches, tokens, prompt, got, want, hidden, series
     del extras, prefill
+    # whether the server (its parameters, head planes and graphs) went
+    # with its last reference, or waits in a reference cycle for the
+    # collector; collected here either way, so the next phase's peak
+    # memory is its own
+    row["server_freed_without_gc"] = alive() is None
+    gc.collect()
     torch.cuda.empty_cache()
     return row
 
@@ -1518,6 +1645,112 @@ def phase_serve_internvl(torch, dev):
     row = _serve(torch, dev, "internvl2-1b", fa, 24, fa.WGMMA,
                  "flash_attention_wgmma_kernel")
     emit(dict(phase="serve_internvl2_1b", **row))
+    return row
+
+
+def phase_examples(torch, dev):
+    """The example twins on the card, through their ``main`` as a user
+    runs them: ``quickstart`` (its part 2 is ``ops.layered_matmul`` and
+    ``ops.layered_matmul_partials``, two launches of kernel 1, bit-exact
+    on the host) and ``serve_progressive`` (the llama3-8b smoke config
+    served through the CUDA graphs at four budgets).  Each must reach its
+    closing "OK" line, so its own assertions hold."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart, serve_progressive
+    from repro_torch.kernels import layered_matmul as lm
+    rows = {}
+    for name, module in (("quickstart", quickstart),
+                         ("serve_progressive", serve_progressive)):
+        out = io.StringIO()
+        before = lm.launches
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = module.main(["--device", "cuda"])
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        if rc != 0 or not text.rstrip().endswith(f"{name} OK"):
+            raise AssertionError(f"{name} exited {rc}:\n{text[-2000:]}")
+        rows[name] = {"wall_seconds": wall,
+                      "layered_matmul_launches": lm.launches - before,
+                      "output": text.splitlines()}
+    if rows["quickstart"]["layered_matmul_launches"] != 2:
+        raise AssertionError(f"quickstart launched kernel 1 "
+                             f"{rows['quickstart']['layered_matmul_launches']}"
+                             f" times, want 2")
+    if not any("decode graphs captured" in line
+               for line in rows["serve_progressive"]["output"]):
+        raise AssertionError("serve_progressive captured no decode graph")
+    emit({"phase": "examples", **rows})
+    return rows
+
+
+#: the four-rank cells that failed on the card machine's torch (2.11)
+#: before the prefill's cache pad, the RG-LRU's conv window, the SSM
+#: decode's flatten and the decode attention's mask were laid out shard
+#: by shard (ROADMAP F5): (data, model), arch, parts of ``cell_run``
+FOUR_RANK_CELLS = (
+    [((2, 2), a, ("serve",)) for a in ("llama3-8b", "qwen2-moe-a2.7b",
+                                       "mamba2-370m", "whisper-tiny",
+                                       "internvl2-1b")]
+    + [((2, 2), "recurrentgemma-9b", ("serve", "train"))]
+    + [((1, 4), a, ("serve",)) for a in ("llama3-8b", "yi-6b",
+                                         "llama4-maverick-400b-a17b")])
+CELL_KINDS = {"serve": ("prefill", "decode"), "train": ("train",)}
+
+
+def phase_cells_four_ranks_host(torch, dev):
+    """The sharded cells of :data:`FOUR_RANK_CELLS` on four spawned gloo
+    ranks on the host CPU (smoke width, fp32; three spawns at a time),
+    each rank's outputs against the one-rank cell computed in this
+    process meanwhile, on a gloo group of its own: the check of
+    ``tests/test_torch_cells_ranks.py`` (``tests/_torch_dist.py``'s
+    ``cell_run`` and ``cell_mismatches``, 1e-4 of each leaf's scale)
+    under this machine's torch.  Needs no process group before it and
+    leaves none."""
+    import concurrent.futures
+    import tempfile
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(HERE / "tests"))
+    import _torch_dist
+    if dist.is_initialized():
+        raise AssertionError("a process group is already up")
+    t0 = time.perf_counter()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(3) as pool:
+        dirs = [pathlib.Path(tmp) / str(i)
+                for i in range(len(FOUR_RANK_CELLS))]
+        for d in dirs:
+            d.mkdir()
+        spawned = [pool.submit(_torch_dist.run_ranks, d, 4,
+                               _torch_dist.cell_run, arch, *mesh, parts)
+                   for d, (mesh, arch, parts) in zip(dirs, FOUR_RANK_CELLS)]
+        want = {}
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            for arch in dict.fromkeys(a for _, a, _ in FOUR_RANK_CELLS):
+                want[arch] = _torch_dist.cell_run(0, 1, arch, 1, 1)
+        finally:
+            dist.destroy_process_group()
+        for (mesh, arch, parts), job in zip(FOUR_RANK_CELLS, spawned):
+            runs = job.result()
+            for rank, got in enumerate(runs):
+                for kind in (k for p in parts for k in CELL_KINDS[p]):
+                    bad = _torch_dist.cell_mismatches(got[kind],
+                                                      want[arch][kind])
+                    if bad:
+                        raise AssertionError(f"{mesh} {arch} rank {rank} "
+                                             f"{kind}: {bad[:5]}")
+            rows.append({"mesh": list(mesh), "arch": arch,
+                         "parts": list(parts), "ranks": 4,
+                         "coords": [r["coords"] for r in runs]})
+    row = {"torch": torch.__version__, "cells": rows,
+           "wall_seconds": time.perf_counter() - t0}
+    emit({"phase": "cells_four_ranks_host", **row})
     return row
 
 
@@ -2702,9 +2935,11 @@ def main() -> int:
                         ("serve_internvl2_1b", phase_serve_internvl),
                         ("serve_smoke_archs", phase_serve_smoke_archs),
                         ("serve_deadline", phase_serve_deadline),
+                        ("examples", phase_examples),
                         ("train", phase_train),
-                        # after train: the process-worker forks of
-                        # runtime_process_socket come before any NCCL init
+                        # before any NCCL group: a gloo group of its own
+                        ("cells_four_ranks_host",
+                         phase_cells_four_ranks_host),
                         ("sharding_rules", phase_sharding_rules),
                         ("elastic_restore_mamba2_370m",
                          phase_elastic_restore),

@@ -31,7 +31,7 @@ from repro_torch.launch.sharding import NamedSharding, fix_spec
 
 __all__ = ["constrain", "mesh_context", "current_mesh", "current_profile",
            "placements", "local_shards", "einsum", "stack",
-           "contiguous_strides", "laid_out_like"]
+           "contiguous_strides", "laid_out_like", "spec_of", "local_like"]
 
 _STATE = threading.local()
 
@@ -186,6 +186,37 @@ def local_shards(fn, mesh, args: tuple, in_specs: tuple, out,
         in_grad_placements=grad_pl, device_mesh=mesh,
         redistribute_inputs=True)(*args)
     return mapped[0] if one else mapped
+
+
+def spec_of(x: DTensor) -> tuple:
+    """The spec of a DTensor's layout: per dim the mesh axes that split
+    it (a name, a tuple of names, or ``None``), pod-major as
+    ``NamedSharding`` lays tuples out.  A partial sum is no layout a spec
+    can name, and raises."""
+    names = x.device_mesh.mesh_dim_names
+    split = [[] for _ in range(x.ndim)]
+    for name, p in zip(names, x.placements):
+        if p.is_partial():
+            raise ValueError(f"{x.placements} holds a partial sum")
+        if p.is_shard():
+            split[p.dim].append(name)
+    return tuple(None if not s else s[0] if len(s) == 1 else tuple(s)
+                 for s in split)
+
+
+def local_like(fn, x: torch.Tensor, shape=None, whole=()) -> torch.Tensor:
+    """``fn(x)`` for a DTensor ``x``, each rank on its shard in ``x``'s own
+    layout, the dims in ``whole`` gathered first; the output, of
+    ``shape`` (``x``'s by default) and as many dims, comes back laid out
+    like ``x``.  A plain tensor is ``fn(x)``.  For pads and slices along a
+    dim, which DTensor lays out op by op and differently from one torch
+    release to the next (:func:`local_shards`)."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    spec = tuple(None if d in whole else s
+                 for d, s in enumerate(spec_of(x)))
+    return local_shards(fn, x.device_mesh, (x,), (spec,),
+                        (tuple(x.shape if shape is None else shape), spec))
 
 
 def einsum(equation: str, *operands) -> torch.Tensor:

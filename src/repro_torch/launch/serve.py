@@ -30,6 +30,16 @@ takes its stub patch embeddings (``extra_embeds``), an encoder-decoder's
 its stub frame embeddings (``audio_embeds``); the encoder's K/V ride in
 the caches (``(caches, enc_kvs)``) through every decode step.
 
+On the card a decode step is compiled, as the reference ``jax.jit``s its
+hidden step and head series with the position traced: the server
+captures one greedy step (``hidden_step`` at a position held in a device
+buffer, then in the budget modes the head series and the argmax fed back
+into the token buffer) in a ``torch.cuda.CUDAGraph`` the first time a
+caches object is decoded, and replays it once per token.  In
+``deadline_ms`` mode only the hidden step is captured; the head stays a
+runtime job.  ``graphs=False`` decodes eagerly on the card, op by op, as
+the CPU always does.
+
     python -m repro_torch.launch.serve --arch llama3-8b --batch 4 \\
         --prompt-len 1024 --gen 16                      # on the card
     python -m repro_torch.launch.serve --arch llama3-8b-smoke \\
@@ -44,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -56,6 +67,7 @@ from repro_torch.core import progressive
 from repro_torch.kernels import flash_attention
 from repro_torch.models import transformer as T
 from repro_torch.runtime import RuntimeConfig, ServingGateway
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["ProgressiveServer", "ServeStats", "main"]
 
@@ -118,21 +130,93 @@ class _RuntimeHead:
         self.gateway.stop()
 
 
+class _DecodeGraph:
+    """One greedy decode step (:meth:`ProgressiveServer._step`) captured in
+    a CUDA graph against one caches object.
+
+    ``tok`` (B, 1) and ``pos`` (0-d) are the device buffers the step reads
+    and updates in place; ``out`` is its static output (the hidden state
+    without a ``release``, else the released logits), overwritten by every
+    :meth:`replay`.  The graph holds ``caches`` alive: it writes their
+    storage.
+    """
+
+    def __init__(self, server: "ProgressiveServer", caches, batch: int,
+                 release: Optional[int]):
+        dev = server.device
+        self.caches = caches
+        self.tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        # warm-up (cuBLAS handles and workspaces) on a side stream, on
+        # scratch caches of the same shapes: the step updates its caches in
+        # place, so warming up on the live ones would advance them
+        scratch = tree_map(torch.zeros_like, caches)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.no_grad():
+            for _ in range(2):
+                server._step(self.tok.clone(), self.pos.clone(), scratch,
+                             release)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del scratch
+        self.graph = torch.cuda.CUDAGraph()
+        start = time.perf_counter()
+        # torch.cuda.graph synchronizes and empties the cache on entry, so
+        # what is reserved during the capture is the graph's private pool
+        with torch.no_grad(), torch.cuda.graph(self.graph):
+            reserved = torch.cuda.memory_reserved(dev)
+            self.out = server._step(self.tok, self.pos, caches, release)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        torch.cuda.synchronize(dev)
+        self.capture_seconds = time.perf_counter() - start
+
+    def start(self, tokens: torch.Tensor, pos: int) -> None:
+        """Load the first token (B, 1) and its position."""
+        self.tok.copy_(tokens)
+        self.pos.fill_(pos)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def _storage_key(caches) -> tuple:
+    """What a captured step baked in of a caches object: every tensor's
+    address, shape, strides and type."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in leaves(caches))
+
+
 class ProgressiveServer:
     """Greedy batched decoding with a layered LM head.
 
     ``device`` is where the server runs, the card unless the caller asks
     for the CPU; ``params`` must already live there (``models.convert`` or
     ``init_params(..., device=...)`` put them there).
+
+    ``graphs`` (default: on for a card server) decodes through CUDA graphs
+    (the module docstring); ``graphs=False`` decodes eagerly; the CPU has
+    no graphs, so ``graphs=True`` there raises.  A capture or replay that
+    fails raises: nothing falls back to eager.  ``graph_log`` records each
+    capture's batch, release, seconds and private-pool bytes.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *, m: int = 2,
-                 d: int = 7, device: str | torch.device = "cuda"):
+                 d: int = 7, device: str | torch.device = "cuda",
+                 graphs: Optional[bool] = None):
         dev = resolve_device(device)
         pdev = params["embed"].device
         if pdev.type != dev.type:
             raise ValueError(f"parameters are on {pdev}, the server was "
                              f"asked for {dev}")
+        if graphs is None:
+            graphs = pdev.type == "cuda"
+        if graphs and pdev.type != "cuda":
+            raise ValueError(f"graphs=True needs a card server; this one "
+                             f"is on {pdev}")
+        self.graphs = graphs
+        self.graph_log: list[dict] = []
+        self._graphs: dict[tuple, _DecodeGraph] = {}
+        self._graphs_key: Optional[tuple] = None
         self.cfg = cfg
         self.params = params
         self.device = pdev
@@ -154,7 +238,9 @@ class ProgressiveServer:
         return head
 
     def close(self) -> None:
-        """Stop every runtime-head gateway fleet (idempotent)."""
+        """Stop every runtime-head gateway fleet and drop the captured
+        decode steps (idempotent)."""
+        self._graphs, self._graphs_key = {}, None
         heads, self._runtime_heads = self._runtime_heads, {}
         for head in heads.values():
             head.close()
@@ -185,6 +271,39 @@ class ProgressiveServer:
         return progressive.resolution_series(self.lm_head,
                                              hidden.to(torch.float32))
 
+    def _step(self, tok: torch.Tensor, pos: torch.Tensor, caches,
+              release: Optional[int]) -> torch.Tensor:
+        """One greedy decode step on device buffers, as the server captures
+        it: ``hidden_step`` of ``tok`` (B, 1) at ``pos`` (0-d int64) with
+        the caches written in place, then ``pos`` advanced by one.  With a
+        ``release`` (1..m) the head series follows and the argmax of that
+        resolution is written into ``tok``; returns those logits, else
+        the hidden state (B, D) for a runtime head."""
+        hidden, _ = T.hidden_step(self.params, tok, caches, pos, self.cfg)
+        pos.add_(1)
+        if release is None:
+            return hidden
+        logits = self.head_series(hidden)[release - 1]
+        tok.copy_(torch.argmax(logits, dim=-1)[:, None])
+        return logits
+
+    def _graph(self, caches, batch: int,
+               release: Optional[int]) -> _DecodeGraph:
+        """The captured step for these caches, batch and release, captured
+        now if it is not yet.  Steps captured on other caches are dropped
+        (their pools freed)."""
+        key = _storage_key(caches)
+        if key != self._graphs_key:
+            self._graphs, self._graphs_key = {}, key
+        graph = self._graphs.get((batch, release))
+        if graph is None:
+            graph = _DecodeGraph(self, caches, batch, release)
+            self._graphs[(batch, release)] = graph
+            self.graph_log.append({"batch": batch, "release": release,
+                                   "capture_seconds": graph.capture_seconds,
+                                   "pool_bytes": graph.pool_bytes})
+        return graph
+
     def decode(self, tokens: torch.Tensor, caches, start_pos: int,
                num_tokens: int, *, layer_budget: Optional[int] = None,
                deadline_ms: Optional[float] = None):
@@ -203,12 +322,23 @@ class ProgressiveServer:
         stats = ServeStats(resolutions=(2 * self.m - 1
                                         if deadline_ms is not None
                                         else self.m))
+        budget = (None if deadline_ms is not None
+                  else self.m if layer_budget is None
+                  else max(1, min(layer_budget, self.m)))
         tok = tokens.to(self.device)
+        graph = None
+        if self.graphs:
+            graph = self._graph(caches, tok.shape[0], budget)
+            graph.start(tok, start_pos)
         out = []
         for i in range(num_tokens):
-            with torch.no_grad():
-                hidden, caches = T.hidden_step(self.params, tok, caches,
-                                               start_pos + i, self.cfg)
+            if graph is not None:
+                graph.replay()
+                hidden = graph.out  # the released logits, given a budget
+            else:
+                with torch.no_grad():
+                    hidden, caches = T.hidden_step(self.params, tok, caches,
+                                                   start_pos + i, self.cfg)
             if deadline_ms is not None:
                 head = self._runtime_head(int(hidden.shape[0]))
                 logits_np, rel, svc = head.step(
@@ -216,15 +346,20 @@ class ProgressiveServer:
                     deadline_ms / 1e3)
                 release = rel + 1
                 stats.head_service_seconds.append(svc)
-                logits = torch.from_numpy(logits_np)
+                tok = torch.argmax(torch.from_numpy(logits_np),
+                                   dim=-1)[:, None].to(self.device)
+                if graph is not None:
+                    graph.tok.copy_(tok)
+            elif graph is not None:
+                release = budget
+                tok = graph.tok.clone()     # the graph wrote the argmax
             else:
-                release = (self.m if layer_budget is None
-                           else max(1, min(layer_budget, self.m)))
+                release = budget
                 logits = self.head_series(hidden)[release - 1]
+                tok = torch.argmax(logits, dim=-1)[:, None]
             stats.steps += 1
             stats.full_resolution += int(release == stats.resolutions)
             stats.released_at_layer.append(release)
-            tok = torch.argmax(logits, dim=-1)[:, None].to(self.device)
             out.append(tok)
         return torch.cat(out, dim=1), stats
 

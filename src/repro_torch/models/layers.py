@@ -20,7 +20,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import AttentionConfig
-from repro_torch.launch.axes import constrain, einsum
+from repro_torch.launch.axes import constrain, einsum, local_shards, spec_of
 
 __all__ = [
     "rms_norm", "layer_norm", "apply_norm", "rope", "attention",
@@ -120,6 +120,24 @@ def group_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(B, S, n_kv, H // n_kv, Dh)
 
 
+def _add_bias(logits: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``logits + bias``.  On DTensor logits each rank adds the bias of
+    its own shard: the bias is laid out like the logits on every dim it
+    does not broadcast over (a key dim split over ranks, as a
+    context-parallel KV cache splits it), where DTensor's own broadcast
+    of a whole bias against split logits differs between releases."""
+    if not isinstance(logits, DTensor):
+        return logits + bias
+    mesh = logits.device_mesh
+    spec = spec_of(logits)
+    if not isinstance(bias, DTensor):
+        bias = DTensor.from_local(bias, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    bspec = tuple(None if n == 1 else s for n, s in zip(bias.shape, spec))
+    return local_shards(torch.add, mesh, (logits, bias), (spec, bspec),
+                        (tuple(logits.shape), spec))
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
     """Grouped attention core.
@@ -134,7 +152,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k.to(torch.float32)) * scale
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
-    logits = logits + bias
+    logits = _add_bias(logits, bias)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return einsum("bhgqk,bkhd->bqhgd", probs, v)
 

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RGLRUConfig
-from repro_torch.launch.axes import constrain, einsum
+from repro_torch.launch.axes import constrain, einsum, local_like
 from repro_torch.models.layers import init_linear
 from repro_torch.models.ssm import _causal_conv
 
@@ -147,7 +147,9 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: RGLRUConfig,
     # the conv window: the last K - 1 inputs, zeros before the first (as
     # the causal conv pads), so a prompt shorter than the window works too
     K = params["conv_w"].shape[0]
-    conv = F.pad(conv_in, (0, 0, K - 1, 0))[:, -(K - 1):, :]
+    B, _, C = conv_in.shape
+    conv = local_like(lambda t: F.pad(t, (0, 0, K - 1, 0))[:, -(K - 1):, :],
+                      conv_in, (B, K - 1, C), whole=(1,))
     return y, {"conv": conv, "h": hh[:, -1, :]}
 
 

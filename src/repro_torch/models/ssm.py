@@ -26,7 +26,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
-from repro_torch.launch.axes import constrain, einsum, local_shards
+from repro_torch.launch.axes import (constrain, einsum, local_shards,
+                                     spec_of)
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models.layers import init_linear, rms_norm
 
@@ -251,7 +252,16 @@ def ssm_decode_step(params: dict, x: torch.Tensor, cache: dict,
     state = cache["state"] * dA[:, :, None, None] + dBx
     y = einsum("bhpn,bhn->bhp", state, Ch.to(torch.float32))
     y = y + params["D"][None, :, None] * xh
-    y = y.reshape(Bsz, 1, d_in).to(x.dtype)
+    if isinstance(y, DTensor):
+        # (B, H, P) -> (B, 1, d_in) shard by shard: heads outermost, so
+        # each rank's heads flatten into its own slice of d_in
+        b, h, _ = spec_of(y)
+        y = local_shards(lambda t: t.reshape(t.shape[0], 1, -1),
+                         y.device_mesh, (y,), ((b, h, None),),
+                         ((Bsz, 1, d_in), (b, None, h)))
+    else:
+        y = y.reshape(Bsz, 1, d_in)
+    y = y.to(x.dtype)
     y = rms_norm(y * F.silu(gate), params["norm_scale"])
     out = y @ params["out_proj"].to(x.dtype)
     return out, {"conv_x": win_x[:, 1:], "conv_B": win_B[:, 1:],

@@ -61,7 +61,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.launch.axes import constrain, einsum, local_shards, stack
+from repro_torch.launch.axes import (constrain, einsum, local_like,
+                                     local_shards, stack)
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -96,8 +97,9 @@ def _quant_kv(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _dequant_kv(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if x.dtype != torch.int8:
         return x
-    return x.to(cfg.cdtype()) / torch.tensor(_KV_SCALE, dtype=cfg.cdtype(),
-                                             device=x.device)
+    # a fill on the device, not a host copy (a CUDA graph captures it)
+    return x.to(cfg.cdtype()) / torch.full((), _KV_SCALE, dtype=cfg.cdtype(),
+                                           device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -372,15 +374,26 @@ def _cross_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
-def _write_slot(cache: torch.Tensor, index: int,
+def _write_slot(cache: torch.Tensor, index,
                 value: torch.Tensor) -> None:
     """``cache[:, index:index + n] = value`` in place (n = value's dim 1).
+
+    ``index`` is an int, or for a plain cache a 0-d int64 tensor on its
+    device (a traced position: the write is an ``index_copy_`` that reads
+    the slot on the device, so a CUDA graph replays it at every step).
 
     A DTensor cache may be split along dim 1 (a context-parallel KV cache);
     DTensor would gather such a dim to slice it and write into the copy,
     so each rank writes the slots it holds into its own shard instead.
     """
     n = value.shape[1]
+    if isinstance(index, torch.Tensor):
+        if isinstance(cache, DTensor):
+            raise TypeError("a sharded cache is written at an int position")
+        slots = index + torch.arange(n, dtype=torch.int64,
+                                     device=cache.device)
+        cache.index_copy_(1, slots, value.to(cache.dtype))
+        return
     if not isinstance(cache, DTensor):
         cache[:, index:index + n] = value
         return
@@ -402,16 +415,21 @@ def _write_slot(cache: torch.Tensor, index: int,
 
 
 def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
-                  cfg: ModelConfig, pos: int, enc_kv=None):
+                  cfg: ModelConfig, pos, enc_kv=None):
     """Single-token layer step against a cache.  Returns (x, new_cache).
 
     The attention KV cache is written in place at slot ``pos`` (the
     reference's ``dynamic_update_slice``); the returned cache holds the
     same tensors.  A ``cross`` layer takes its encoder K/V as ``enc_kv``.
+    ``pos`` is an int or a 0-d int64 tensor on x's device (see
+    :func:`hidden_step`).
     """
     norm = lambda n, h: L.apply_norm(cfg.norm, h, n)
     B = x.shape[0]
-    pos_b = torch.full((B,), pos, dtype=torch.int64, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        pos_b = pos.expand(B)
+    else:
+        pos_b = torch.full((B,), pos, dtype=torch.int64, device=x.device)
     if kind in ("dense", "moe", "local_attn", "cross"):
         a = cfg.attention
         hin = norm(p["ln1"], x)
@@ -429,8 +447,8 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
             slot = pos % W
             _write_slot(cache["k"], slot, _quant_kv(k, cfg))
             _write_slot(cache["v"], slot, _quant_kv(v, cfg))
-            _write_slot(cache["pos"], slot, torch.full(
-                (B, 1), pos, dtype=torch.int32, device=x.device))
+            _write_slot(cache["pos"], slot,
+                        pos_b[:, None].to(torch.int32))
             pc = cache["pos"]
             valid = (pc >= 0) & (pc <= pos) & (pc > pos - W)
             bias = torch.where(valid, 0.0, L._NEG_INF)
@@ -516,8 +534,8 @@ def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   ) -> torch.Tensor:
     x = _lookup(params["embed"], tokens).to(cfg.cdtype())
     if cfg.family == "hybrid":  # gemma-style embedding scale
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
     if cfg.num_image_tokens and extra_embeds is not None:
         n = cfg.num_image_tokens
         x = torch.cat([extra_embeds.to(x.dtype), x[:, n:]], dim=1)
@@ -679,9 +697,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         for u, kind in enumerate(unit):
             c = caches[g][u]
             if kind in ("dense", "moe", "cross"):
-                # (reps, B, S, n_kv, dh) -> (reps, B, max_len, n_kv, dh)
-                c = {n: F.pad(_quant_kv(c[n], cfg),
-                              (0, 0, 0, 0, 0, max_len - S))
+                # (reps, B, S, n_kv, dh) -> (reps, B, max_len, n_kv, dh);
+                # on a mesh each rank pads its shard, the sequence whole
+                pad = lambda t: F.pad(t, (0, 0, 0, 0, 0, max_len - S))
+                c = {n: local_like(pad, _quant_kv(c[n], cfg),
+                                   c[n].shape[:2] + (max_len,)
+                                   + c[n].shape[3:], whole=(2,))
                      for n in ("k", "v")}
             elif kind == "local_attn":
                 c = dict(c, k=_quant_kv(c["k"], cfg),
@@ -693,10 +714,16 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return logits[:, -1, :], padded
 
 
-def hidden_step(params: dict, token: torch.Tensor, caches, pos: int,
+def hidden_step(params: dict, token: torch.Tensor, caches, pos,
                 cfg: ModelConfig, *, enc_kvs=None):
     """One decode step up to the final norm: token (B, 1) at position
     ``pos``.  Returns (normed hidden (B, D), caches).
+
+    ``pos`` is an int, or a 0-d int64 tensor on the caches' device: then
+    every position-dependent step (rope, the cache slot, the ring's slot
+    and mask) is device arithmetic, nothing reads it on the host, and one
+    captured CUDA graph serves every position (the reference traces
+    ``pos`` under ``jax.jit``).  A sharded (DTensor) cache takes an int.
 
     Caches are updated in place: the stacked tensors of ``caches`` hold the
     new entries when this returns (the reference donates them instead).
@@ -704,7 +731,12 @@ def hidden_step(params: dict, token: torch.Tensor, caches, pos: int,
     unless ``enc_kvs`` is passed apart; they are returned as given.
     """
     _unsupported(cfg)
-    pos = int(pos)
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype != torch.int64:
+            raise TypeError(f"a tensor position is a 0-d int64 tensor, got "
+                            f"{pos.dtype} of shape {tuple(pos.shape)}")
+    else:
+        pos = int(pos)
     given = caches
     if cfg.is_encdec and enc_kvs is None:
         caches, enc_kvs = caches
@@ -728,9 +760,10 @@ def hidden_step(params: dict, token: torch.Tensor, caches, pos: int,
     return x[:, 0, :], given
 
 
-def decode_step(params: dict, token: torch.Tensor, caches, pos: int,
+def decode_step(params: dict, token: torch.Tensor, caches, pos,
                 cfg: ModelConfig, *, enc_kvs=None):
-    """One serving step: token (B, 1) at position ``pos``.
+    """One serving step: token (B, 1) at position ``pos`` (an int or a
+    0-d int64 tensor, as :func:`hidden_step`).
 
     Returns (logits (B, V), caches), the caches updated in place (see
     :func:`hidden_step`).

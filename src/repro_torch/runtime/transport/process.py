@@ -44,22 +44,26 @@ Timestamps: workers stamp ``finished_at`` with ``time.monotonic``, which
 is CLOCK_MONOTONIC — system-wide, comparable across processes on Linux
 (the platform this backend targets; the CI smoke job pins it).
 
-Start method: ``fork`` where available (cheap, and child workers inherit
-the already-imported numpy/BLAS/torch state instead of paying a
-multi-second re-import that would pollute the first measured rounds),
-else ``spawn``; the worker entrypoint and all its arguments are picklable
-either way.  Forking a process whose parent has live torch threads — or
-has initialised CUDA, as a master next to the ``cuda`` backend has —
-draws CPython's fork-safety warning, and a forked child that touched
-``torch.cuda`` would raise.  The children here touch only numpy and pipe
-I/O: :class:`_WorkerLoop` builds host compute (``make_compute`` with no
-device), and nothing on the child's path reaches torch, let alone CUDA.
-The master still watches liveness
-(:meth:`ProcessTransport.dead_worker_map` via
-:meth:`~repro_torch.runtime.transport.base.WorkerTransport.assert_alive`) so a
-child lost for *any* reason fails the run promptly instead of hanging an
-unbounded fusion wait.  Pass ``start_method="spawn"`` to opt out of fork
-entirely.
+Start method: ``forkserver`` where available, else ``spawn``.  The
+master's process is usually multi-threaded (torch's and BLAS's pools, a
+test runner's I/O threads, XLA's beside it), and a child ``fork``ed
+from it inherits that state half-way: it may hang on a lock another
+thread held, or die of a segmentation fault before it runs a line of
+its own (workers forked from a pytest-xdist worker that had run torch
+and JAX did, so that none of them came up).  A fork
+server is a fresh single-threaded interpreter, started once per master
+process, that imports this module (and with it torch and numpy) before
+it forks anything; each worker is a fork of it, so it starts in
+milliseconds with those imports done and inherits no thread state and
+no file descriptor but its own pipe end (which the server passes it).
+Workers compute on host BLAS and never touch CUDA, so a master that has
+initialised CUDA is no concern either way.  The master still watches
+liveness (:meth:`ProcessTransport.dead_worker_map` via
+:meth:`~repro_torch.runtime.transport.base.WorkerTransport.assert_alive`)
+so a child lost for *any* reason fails the run promptly instead of
+hanging an unbounded fusion wait.  ``start_method="fork"`` or
+``"spawn"`` picks another method (under ``fork`` each child closes the
+pipes of its siblings that it inherited, :data:`_FORK_CONNS`).
 """
 
 from __future__ import annotations
@@ -383,8 +387,8 @@ class _WorkerLoop:
 #: SIGKILLed worker's pipe keeps open read ends in every sibling process,
 #: the master never sees EPIPE, and a send to the corpse blocks forever
 #: once the kernel buffer fills — the exact hang the fault supervisor
-#: exists to prevent.  Under spawn the module is re-imported (global is
-#: None) and nothing is inherited anyway.
+#: exists to prevent.  Under forkserver and spawn the child's copy of the
+#: module never saw it (global is None) and nothing is inherited anyway.
 _FORK_CONNS: Optional[list] = None
 
 
@@ -435,8 +439,13 @@ class ProcessTransport(WorkerTransport):
         super().__init__(cfg, sink, rng, tracer)
         if start_method is None:
             methods = multiprocessing.get_all_start_methods()
-            start_method = "fork" if "fork" in methods else "spawn"
+            start_method = ("forkserver" if "forkserver" in methods
+                            else "spawn")
         self._mp = multiprocessing.get_context(start_method)
+        if start_method == "forkserver":
+            # the server imports the worker's module once, before any fork
+            # (a no-op for a server this process already started)
+            self._mp.set_forkserver_preload([__name__])
         self._conns = []
         self.processes = []
         for p in range(cfg.num_workers):

@@ -21,6 +21,8 @@ import traceback
 
 import torch
 
+from repro_torch.tree import leaves, leaves_with_path
+
 #: seconds a spawned-rank test waits for all its ranks
 RANK_TIMEOUT = 60.0
 
@@ -252,6 +254,46 @@ def cell_run(rank, world, arch, data, model, parts=("serve", "train"),
                                    leaves((new_params, new_opt))
                                    if isinstance(x, DTensor)]
     return out
+
+
+#: archs whose cells run on each four-rank mesh (one spawn of four ranks each)
+SPAWNED = {(2, 2): ["llama3-8b", "qwen2-moe-a2.7b", "mamba2-370m",
+                    "recurrentgemma-9b", "whisper-tiny", "internvl2-1b"],
+           (1, 4): ["llama3-8b", "yi-6b", "llama4-maverick-400b-a17b"]}
+
+
+def cell_mismatches(got, want, tol: float = 1e-4) -> list:
+    """The leaves where a rank's cell output ``got`` departs from the
+    one-rank cell's ``want`` (both trees of full tensors, as
+    :func:`cell_run` returns them): an integer leaf or a plain value not
+    equal, or a floating leaf off by more than ``tol`` of its leaf's
+    largest value, or of ``tol`` of its part's (the parameters, each
+    moment, the metrics) where that is larger.  Empty when they agree."""
+    g, w = leaves(got), leaves_with_path(want)
+    if len(g) != len(w):
+        return [("leaf count", len(g), len(w))]
+    # the scale of a leaf's part of the tree: a gradient that is zero in
+    # exact arithmetic (a top-1 router's) leaves only rounding noise
+    part_max = {}
+    for path, b in w:
+        if isinstance(b, torch.Tensor) and b.is_floating_point():
+            part_max[path[:2]] = max(part_max.get(path[:2], 0.0),
+                                     b.abs().max().item())
+    bad = []
+    for a, (path, b) in zip(g, w):
+        if not isinstance(b, torch.Tensor):
+            if a != b:
+                bad.append((path, a, b))
+        elif not b.is_floating_point():
+            if not torch.equal(a, b):
+                bad.append((path, "integers differ"))
+        else:
+            scale = max(b.abs().max().item(), tol * part_max[path[:2]],
+                        1e-30)
+            err = (a.double() - b.double()).abs().max().item()
+            if not err <= tol * scale:
+                bad.append((path, err / scale))
+    return bad
 
 
 def train_loop_ranks(rank, world, arch, ckpt_dir):

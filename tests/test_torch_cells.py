@@ -19,17 +19,10 @@ and cache specs, ``launch.steps.build_cell``, ``train_loop(mesh=)``).
   ``test_torch_models.py``), the train step's parameters, moments and
   gradient norm within rtol 1e-5 at the default ``TrainConfig``'s first
   learning rate (as ``test_torch_train.py``).
-* The cells on four spawned gloo ranks, (data 2, model 2) and (data 1,
-  model 4), against the one-rank cell in this process, in fp32: every
-  output, new parameter and moment within 1e-4 of its leaf's largest
-  value (the ranks sum partial products in another order, through the
-  layers and back; the worst seen is 3e-5), or of 1e-4 of its part's (the
-  parameters, each AdamW moment) where that is larger: a top-1 router's
-  gradient is zero in exact arithmetic, rounding noise in both runs; every
-  integer output equal; each placement the one the reference's rules give on a
-  stand-in mesh of the same axis sizes.  llama3-8b's smoke config (4
-  query heads, 1 KV head) on (1, 4) is the grouped-query case where the
-  query heads split over ``model`` and the KV head does not.
+* The cells on four spawned gloo ranks, (data 2, model 2): each
+  placement the one the reference's rules give on a stand-in mesh of the
+  same axis sizes.  Their values against the one-rank cell are held in
+  ``test_torch_cells_ranks.py``, which needs no JAX.
 * ``train_loop(mesh=)`` for 3 steps against ``train_loop()`` (losses within
   rtol 1e-5), also on (2, 2) with a checkpoint and a resume.
 """
@@ -350,35 +343,11 @@ def test_one_rank_cell_equals_the_plain_steps(one_rank):
 # Four gloo ranks against one
 # ---------------------------------------------------------------------------
 
-#: archs run on each four-rank mesh (one spawn of four ranks each)
-SPAWNED = {(2, 2): ["llama3-8b", "qwen2-moe-a2.7b", "mamba2-370m",
-                    "recurrentgemma-9b", "whisper-tiny", "internvl2-1b"],
-           (1, 4): ["llama3-8b", "yi-6b", "llama4-maverick-400b-a17b"]}
-
-
-@functools.lru_cache(maxsize=None)
-def _one_rank_cells(arch):
-    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    try:
-        return _torch_dist.cell_run(0, 1, arch, 1, 1)
-    finally:
-        dist.destroy_process_group()
-
-
-_spawned_runs = {}
-
-
-def _spawned(tmp_path_factory, mesh_shape, arch, part):
-    """Each rank's :func:`_torch_dist.cell_run` of ``arch``'s ``part``
-    ("serve": prefill and decode, or "train") on four spawned ranks (once
-    per mesh, arch and part in this process)."""
-    key = (mesh_shape, arch, part)
-    if key not in _spawned_runs:
-        _spawned_runs[key] = _torch_dist.run_ranks(
-            tmp_path_factory.mktemp("cells"), 4, _torch_dist.cell_run,
-            arch, *mesh_shape, (part,))
-    return _spawned_runs[key]
+def _spawned(tmp_path_factory, arch):
+    """Each rank's :func:`_torch_dist.cell_run` of ``arch``'s serve and
+    train parts on four spawned ranks on (data 2, model 2)."""
+    return _torch_dist.run_ranks(tmp_path_factory.mktemp("cells"), 4,
+                                 _torch_dist.cell_run, arch, 2, 2)
 
 
 def _expected_placements(spec, mesh_axes):
@@ -391,51 +360,14 @@ def _expected_placements(spec, mesh_axes):
     return tuple(out)
 
 
-_KINDS = {"serve": ("prefill", "decode"), "train": ("train",)}
-
-
-@pytest.mark.parametrize("part", sorted(_KINDS))
-@pytest.mark.parametrize("mesh_shape,arch", [
-    (m, a) for m, archs in SPAWNED.items() for a in archs],
-    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
-def test_four_rank_cells_match_one_rank(tmp_path_factory, mesh_shape,
-                                        arch, part):
-    assert not dist.is_initialized()
-    runs = _spawned(tmp_path_factory, mesh_shape, arch, part)
-    want = _one_rank_cells(arch)
-    for r, got in enumerate(runs):
-        for kind in _KINDS[part]:
-            g, w = leaves(got[kind]), leaves_with_path(want[kind])
-            assert len(g) == len(w), (r, kind)
-            # the scale of a leaf's part of the tree (the parameters, each
-            # moment, the metrics): a gradient that is zero in exact
-            # arithmetic (a top-1 router's) leaves only rounding noise
-            part_max = {}
-            for path, b in w:
-                if isinstance(b, torch.Tensor) and b.is_floating_point():
-                    part_max[path[:2]] = max(part_max.get(path[:2], 0.0),
-                                             b.abs().max().item())
-            for a, (path, b) in zip(g, w):
-                if not isinstance(b, torch.Tensor):
-                    assert a == b
-                elif not b.is_floating_point():
-                    assert torch.equal(a, b), (r, kind, path)
-                else:
-                    scale = max(b.abs().max().item(),
-                                1e-4 * part_max[path[:2]], 1e-30)
-                    err = (a.double() - b.double()).abs().max().item()
-                    assert err <= 1e-4 * scale, (r, kind, path, err / scale)
-
-
-@pytest.mark.parametrize("arch", SPAWNED[(2, 2)])
+@pytest.mark.parametrize("arch", _torch_dist.SPAWNED[(2, 2)])
 def test_four_rank_placements_follow_the_reference_rules(tmp_path_factory,
                                                          arch):
     """Each parameter's and AdamW state's layout on (data 2, model 2) is
     the reference's ``param_specs``/``opt_state_specs`` on a stand-in
     mesh of those sizes, and the prefill's logits and caches its logits
     spec and ``cache_specs_tree``."""
-    train = _spawned(tmp_path_factory, (2, 2), arch, "train")[0]
-    serve = _spawned(tmp_path_factory, (2, 2), arch, "serve")[0]
+    train = serve = _spawned(tmp_path_factory, arch)[0]
     fake = FakeMesh(data=2, model=2)
     jcfg = jreg.get_smoke_config(arch)
     jparams = jax.eval_shape(functools.partial(JT.init_params, cfg=jcfg),

@@ -670,8 +670,9 @@ def test_runctl_defaults_to_cuda_and_verifies(hopper, tmp_path, capsys):
 @pytest.mark.parametrize("shm", ["on", "off"])
 def test_forked_process_workers_never_touch_cuda(hopper, shm):
     """A ``process`` run after CUDA is initialised in this process: the
-    workers are forked from it, and a forked child that touched CUDA
-    would raise and die.  The run verifies, and every worker exits 0."""
+    workers are forks of the transport's fork server, which never
+    initialised CUDA, and a child that touched CUDA would raise and die.
+    The run verifies, and every worker exits 0."""
     from repro_torch.runtime import (FusionNode, RoundContext,
                                      RuntimeConfig, make_transport,
                                      run_jobs)
@@ -700,6 +701,142 @@ def test_forked_process_workers_never_touch_cuda(hopper, shm):
     finally:
         transport.shutdown()
     assert [p.exitcode for p in transport.processes] == [0, 0, 0]
+
+
+#: a smoke config of each decode path the server captures: attention
+#: caches, the SSM state and conv windows, the RG-LRU state and the local
+#: ring, top-k routing, and an encoder's K/V in the caches
+GRAPH_ARCHS = ["llama3-8b", "mamba2-370m", "recurrentgemma-9b",
+               "qwen2-moe-a2.7b", "whisper-tiny"]
+_GB, _GS, _GG = 2, 16, 6       # batch, prompt (a multiple of the ring), gen
+
+
+def _graph_case(arch, dev, **server_kw):
+    """A card server of ``arch``'s smoke config (its own dtype), a seeded
+    prompt and the prefill's caches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import ProgressiveServer
+    from repro_torch.models import transformer as T
+    cfg = registry.get_smoke_config(arch)
+    params = T.init_params(cfg, seed=0, device=dev)
+    server = ProgressiveServer(cfg, params, device=dev, **server_kw)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (_GB, _GS), generator=gen,
+                           device=dev)
+    _, caches = server.prefill(prompt, _GS + _GG,
+                               **T.stub_extras(cfg, _GB, dev, seed=2))
+    return server, prompt, caches
+
+
+def _copy(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(torch.clone, tree)
+
+
+def _restore(dst, src):
+    """Put ``src``'s values back into ``dst``'s storage (a captured step
+    keeps writing the same tensors)."""
+    from repro_torch.tree import leaves
+    for d, s in zip(leaves(dst), leaves(src)):
+        d.copy_(s)
+
+
+@pytest.mark.parametrize("budget", [None, 1])
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_decode_equals_eager_decode(hopper, arch, budget):
+    """``ProgressiveServer.decode`` through its CUDA graphs gives the eager
+    card decode's tokens and stats, and each replay's released logits are
+    the eager step's on the same buffers: within 1e-2 of the largest
+    logit (the same kernels in the same dtype: 0 expected, the largest
+    difference printed)."""
+    server, prompt, caches = _graph_case(arch, hopper)
+    assert server.graphs
+    eager_caches, graph_caches = _copy(caches), _copy(caches)
+    server.graphs = False
+    want, want_stats = server.decode(prompt[:, -1:], eager_caches, _GS, _GG,
+                                     layer_budget=budget)
+    server.graphs = True
+    got, stats = server.decode(prompt[:, -1:], graph_caches, _GS, _GG,
+                               layer_budget=budget)
+    assert torch.equal(got, want)
+    assert stats == want_stats
+    assert len(server.graph_log) == 1
+    assert server.graph_log[0]["pool_bytes"] > 0
+
+    # step by step: the replay's logits against the same step run eagerly
+    release = server.m if budget is None else budget
+    _restore(graph_caches, caches)
+    graph = server._graph(graph_caches, _GB, release)
+    assert len(server.graph_log) == 1          # the same caches: no capture
+    graph.start(prompt[:, -1:], _GS)
+    tok, pos = prompt[:, -1:].clone(), torch.tensor(_GS, device=hopper)
+    step_caches = _copy(caches)
+    worst = 0.0
+    with torch.no_grad():
+        for _ in range(_GG):
+            graph.replay()
+            want_logits = server._step(tok, pos, step_caches, release)
+            scale = want_logits.float().abs().max()
+            diff = ((graph.out.float() - want_logits.float()).abs().max()
+                    / scale).item()
+            worst = max(worst, diff)
+            assert diff <= 1e-2
+            assert torch.equal(graph.tok, tok)
+    print(f"{arch} budget {budget}: graph vs eager logits, largest "
+          f"difference {worst} of the largest logit")
+    server.close()
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_replay_makes_no_host_sync(hopper, arch):
+    """Once captured, a whole graph decode runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no replay, token copy
+    or bookkeeping step waits for the card."""
+    server, prompt, caches = _graph_case(arch, hopper)
+    live = _copy(caches)
+    first, _ = server.decode(prompt[:, -1:], live, _GS, _GG)
+    _restore(live, caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, _ = server.decode(prompt[:, -1:], live, _GS, _GG)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert len(server.graph_log) == 1
+    assert torch.equal(again, first)
+    server.close()
+
+
+def test_graphs_on_a_cpu_server_raise(hopper):
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import ProgressiveServer
+    from repro_torch.models import transformer as T
+    cfg = registry.get_smoke_config("llama3-8b")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    assert not ProgressiveServer(cfg, params, device="cpu").graphs
+    with pytest.raises(ValueError, match="graphs=True needs a card"):
+        ProgressiveServer(cfg, params, device="cpu", graphs=True)
+
+
+def test_a_capture_that_fails_raises(hopper, monkeypatch):
+    """A step that reads the card on the host cannot be captured: the
+    decode raises, captures nothing and does not fall back to eager."""
+    from repro_torch.models import transformer as T
+    server, prompt, caches = _graph_case("llama3-8b", hopper)
+    real = T.hidden_step
+
+    def syncing(params, token, caches, pos, cfg, **kw):
+        int(pos.item())                       # a host read of the card
+        return real(params, token, caches, pos, cfg, **kw)
+
+    monkeypatch.setattr(T, "hidden_step", syncing)
+    with pytest.raises(RuntimeError):
+        server.decode(prompt[:, -1:], caches, _GS, _GG)
+    assert server.graph_log == []
+    monkeypatch.setattr(T, "hidden_step", real)
+    torch.cuda.synchronize()
+    server.close()
 
 
 @pytest.fixture

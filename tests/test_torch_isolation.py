@@ -64,7 +64,10 @@ def test_port_has_modules_and_smoke_script():
             "launch/mesh.py", "launch/sharding.py", "launch/fault.py",
             "optim/layered_grads.py", "launch/axes.py",
             "launch/op_costs.py", "launch/roofline.py",
-            "launch/dryrun.py"} <= names
+            "launch/dryrun.py", "examples/__init__.py",
+            "examples/quickstart.py", "examples/runtime_deadline.py",
+            "examples/serve_progressive.py", "examples/train_lm.py",
+            "examples/fault_tolerance.py"} <= names
     for kernel in ("layered_matmul", "flash_attention", "ssd_scan"):
         assert (PORT / "kernels" / "csrc" / f"{kernel}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
@@ -103,6 +106,8 @@ def test_entry_points_import_with_jax_and_reference_blocked():
         "import repro_torch.launch.fault, repro_torch.optim.layered_grads\n"
         "import repro_torch.launch.axes, repro_torch.launch.op_costs\n"
         "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
+        "from repro_torch.examples import (fault_tolerance, quickstart,\n"
+        "    runtime_deadline, serve_progressive, train_lm)\n"
         "from repro_torch.configs import registry\n"
         "[registry.get_config(a) for a in registry.ARCH_IDS]\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"

@@ -6,6 +6,16 @@ server's budget and deadline modes, the latter on the ``thread`` runtime
 backend), run on the port; the JAX package's own server runs beside it on
 the same weights (carried with ``models.convert``), and the port's greedy
 tokens at full budget must equal the JAX server's.
+
+Then the step the server captures in a CUDA graph on the card, run here
+eagerly: ``hidden_step`` at a 0-d tensor position gives bit-equal hidden
+states and caches to the int position over four chained steps for a
+smoke config of each family (the hybrid's prompt a multiple of its
+window, where the reference's ring is right, ROADMAP R6), whose logits
+match the reference's ``decode_step`` at fp32 within 1e-4 (absolute and
+relative, as ``test_torch_models.py``); and the server's step on static
+buffers updated in place gives ``ProgressiveServer.decode``'s tokens,
+caches and stats.
 """
 
 import dataclasses
@@ -18,17 +28,20 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import registry as jreg  # noqa: E402
 from repro.configs.base import AttentionConfig as JAttn  # noqa: E402
 from repro.configs.base import ModelConfig as JModel  # noqa: E402
 from repro.core import progressive as jprog  # noqa: E402
 from repro.launch.serve import ProgressiveServer as JServer  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import AttentionConfig, ModelConfig  # noqa
 from repro_torch.core import progressive  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.serve import ProgressiveServer  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
 
 def _f(a):
@@ -242,3 +255,128 @@ def test_stats_defaults_are_independent():
     a, b = serve.ServeStats(), serve.ServeStats()
     a.released_at_layer.append(1)
     assert b.released_at_layer == [] and dataclasses.is_dataclass(a)
+
+
+# ---------------------------------------------------------------------------
+# The captured step, run eagerly
+# ---------------------------------------------------------------------------
+
+#: one smoke config per family
+FAMILIES = {"dense": "llama3-8b", "ssm": "mamba2-370m",
+            "hybrid": "recurrentgemma-9b", "moe": "qwen2-moe-a2.7b",
+            "audio": "whisper-tiny", "vlm": "internvl2-1b"}
+#: batch, prompt (a multiple of the hybrid's window of 8), decode steps
+_B, _S, _STEPS = 2, 16, 4
+
+
+def _family_case(family, dtype):
+    """A family's smoke config in both packages at ``dtype``, the JAX
+    package's parameters carried over, seeded tokens and extras."""
+    arch = FAMILIES[family]
+    jcfg = dataclasses.replace(jreg.get_smoke_config(arch),
+                               compute_dtype=dtype)
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              compute_dtype=dtype)
+    jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    params = convert.to_torch(jax.tree.map(np.asarray, jparams), "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (_B, _S + _STEPS)).astype(np.int32)
+    extras = {}
+    if cfg.is_encdec:
+        extras["audio_embeds"] = rng.normal(
+            size=(_B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.num_image_tokens:
+        extras["extra_embeds"] = rng.normal(
+            size=(_B, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    return cfg, params, (jcfg, jparams), toks, extras
+
+
+def _clone(tree):
+    return [_clone(x) for x in tree] if isinstance(tree, (list, tuple)) \
+        else {k: _clone(v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree.clone()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_tensor_position_steps_equal_int_position_steps(family, dtype):
+    cfg, params, (jcfg, jparams), toks, extras = _family_case(family, dtype)
+    tt = torch.from_numpy(toks).long()
+    tkw = {k: torch.from_numpy(v) for k, v in extras.items()}
+    _, by_int = T.prefill(params, tt[:, :_S], cfg, max_len=_S + _STEPS,
+                          **tkw)
+    by_tensor = _clone(by_int)
+    jdecode = jax.jit(lambda p, t, c, i: JT.decode_step(p, t, c, i, jcfg))
+    _, jcaches = jax.jit(lambda p, t, e: JT.prefill(
+        p, t, jcfg, _S + _STEPS, **e))(
+        jparams, jnp.asarray(toks[:, :_S]),
+        {k: jnp.asarray(v) for k, v in extras.items()})
+    for i in range(_STEPS):
+        tok = tt[:, _S + i:_S + i + 1]
+        want, _ = T.hidden_step(params, tok, by_int, _S + i, cfg)
+        pos = torch.tensor(_S + i, dtype=torch.int64)
+        got, _ = T.hidden_step(params, tok, by_tensor, pos, cfg)
+        assert torch.equal(got, want), f"step {i}"
+        assert pos.item() == _S + i            # read, never advanced
+        for a, b in zip(leaves(by_tensor), leaves(by_int)):
+            assert torch.equal(a, b), f"caches after step {i}"
+        jlogits, jcaches = jdecode(jparams, jnp.asarray(toks[:, _S + i:
+                                                             _S + i + 1]),
+                                   jcaches, jnp.int32(_S + i))
+        if dtype == "float32":
+            np.testing.assert_allclose(
+                T._head(params, got, cfg).numpy(), np.asarray(jlogits),
+                atol=1e-4, rtol=1e-4, err_msg=f"decode step {i}")
+
+
+def test_tensor_position_must_be_a_0d_int64():
+    cfg, params, _, toks, _ = _family_case("dense", "float32")
+    tt = torch.from_numpy(toks).long()
+    _, caches = T.prefill(params, tt[:, :_S], cfg, max_len=_S + _STEPS)
+    for bad in (torch.tensor([_S]), torch.tensor(_S, dtype=torch.int32)):
+        with pytest.raises(TypeError, match="0-d int64"):
+            T.hidden_step(params, tt[:, _S:_S + 1], caches, bad, cfg)
+
+
+@pytest.mark.parametrize("budget", [None, 1])
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_captured_step_run_eagerly_equals_decode(family, budget):
+    """``ProgressiveServer._step`` (what the card server captures), run
+    eagerly on static buffers updated in place, gives ``decode``'s tokens,
+    caches and stats."""
+    cfg, params, _, toks, extras = _family_case(family, "float32")
+    tt = torch.from_numpy(toks).long()
+    tkw = {k: torch.from_numpy(v) for k, v in extras.items()}
+    server = ProgressiveServer(cfg, params, device="cpu")
+    assert not server.graphs
+    _, caches = server.prefill(tt[:, :_S], _S + _STEPS, **tkw)
+    static_caches = _clone(caches)
+    want, stats = server.decode(tt[:, _S - 1:_S], caches, _S, _STEPS,
+                                layer_budget=budget)
+    release = server.m if budget is None else budget
+    tok, pos = tt[:, _S - 1:_S].clone(), torch.tensor(_S)
+    got = []
+    with torch.no_grad():
+        for _ in range(_STEPS):
+            logits = server._step(tok, pos, static_caches, release)
+            assert logits.shape == (_B, cfg.vocab_size)
+            got.append(tok.clone())
+    assert torch.equal(torch.cat(got, dim=1), want)
+    assert pos.item() == _S + _STEPS
+    for a, b in zip(leaves(static_caches), leaves(caches)):
+        assert torch.equal(a, b)
+    assert stats.steps == _STEPS
+    assert stats.released_at_layer == [release] * _STEPS
+    assert stats.full_resolution == (_STEPS if release == server.m else 0)
+
+
+def test_graphs_need_a_card_server():
+    """``graphs`` defaults to off on the CPU, and asking for it there
+    raises."""
+    cfg = ModelConfig(**_CFG, attention=AttentionConfig(**_ATTN))
+    params = T.init_params(cfg, device="cpu")
+    assert not ProgressiveServer(cfg, params, device="cpu").graphs
+    assert not ProgressiveServer(cfg, params, device="cpu",
+                                 graphs=False).graphs
+    with pytest.raises(ValueError, match="graphs=True needs a card"):
+        ProgressiveServer(cfg, params, device="cpu", graphs=True)
