@@ -89,13 +89,15 @@ main paths and checks what comes out:
    S held against ``forward`` over S+1 tokens (qwen2-moe-a2.7b's on a copy
    of the config whose expert capacity drops no token), and 16 tokens
    unbudgeted and 16 at ``layer_budget=1``, each from its own copy of the
-   prefill's caches: eagerly (``server.graphs = False``), then through
-   the server's CUDA graphs (the first decode of a caches object
-   captures its step: capture seconds and the graph pool's bytes), then
-   again on the same storage with the prompt's caches put back, replays
-   only, under ``torch.cuda.set_sync_debug_mode("error")``, and once more
-   under ``torch.profiler`` for the device ms of a replay; every run's
-   tokens equal the eager run's; beside them the bytes one decode step
+   prefill's caches, as each request brings its own: eagerly
+   (``server.graphs = False``), then through the server's CUDA graphs
+   (the first decode of a caches shape and release captures its step:
+   its ms per token with the capture, capture seconds and the graph
+   pool's bytes), then from a new copy, replays only, under
+   ``torch.cuda.set_sync_debug_mode("error")``, and once more under
+   ``torch.profiler`` for the device ms of the decode and of the replays
+   alone; every run's tokens equal the eager run's, the caches the
+   graph decode writes back the eager run's; beside them the bytes one decode step
    must read (the weights it uses, W's planes, the caches) and their time
    at 3.35 TB/s;
    then yi-6b, glm4-9b, starcoder2-7b and llama4-maverick-400b-a17b at
@@ -1343,23 +1345,19 @@ def served_flash_vs_plain(torch, fn, want_kernel: str) -> dict:
             "shapes": sorted(shapes)}
 
 
-def _restore(dst, src) -> None:
-    """Copy ``src``'s values into ``dst``'s tensors (a captured decode
-    step keeps writing the same storage)."""
-    from repro_torch.tree import leaves
-    for d, v in zip(leaves(dst), leaves(src)):
-        d.copy_(v)
-
-
 def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
                    want_rel: int) -> dict:
     """``G`` tokens at ``budget`` from the prefill's ``caches``, each run
-    from its own copy: eager (``server.graphs = False``), then through the
-    CUDA graphs, whose first decode of a caches object captures its step,
-    then again from the same storage with the prompt's caches put back
-    (replays only) under ``torch.cuda.set_sync_debug_mode("error")``, and
-    once more under ``torch.profiler`` for the device time of a replay.
-    Every run's tokens must equal the eager run's."""
+    from its own copy, as each request brings caches of its own: eager
+    (``server.graphs = False``), then through the CUDA graphs, whose first
+    decode of a caches shape and release captures its step, then from a
+    new copy (new storage: replays only) under
+    ``torch.cuda.set_sync_debug_mode("error")``, and once more from a new
+    copy under ``torch.profiler`` for the device time of a decode (the
+    replays and the copies of the caches in and out).  Every run's tokens
+    must equal the eager run's, and the caches the first graph decode
+    writes back the eager run's within 1e-2 of their largest value."""
+    from repro_torch.tree import leaves
     B = prompt.shape[0]
     runs = {}
 
@@ -1377,10 +1375,9 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
                                  f"{stats.released_at_layer}")
         return stats
 
-    fresh = _clone(caches)
+    eager_caches = _clone(caches)
     server.graphs = False
-    stats = run("eager", fresh)
-    del fresh
+    stats = run("eager", eager_caches)
     server.graphs = True
     fresh = _clone(caches)
     captures = len(server.graph_log)
@@ -1389,19 +1386,36 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
         raise AssertionError(f"{len(server.graph_log) - captures} captures "
                              f"in the first graph decode, want 1")
     capture = server.graph_log[-1]
-    _restore(fresh, caches)
+    caches_diff = 0.0
+    for g, e in zip(leaves(fresh), leaves(eager_caches)):
+        diff = (g.float() - e.float()).abs().max().item()
+        scale = max(e.float().abs().max().item(), 1.0)
+        if not diff <= 1e-2 * scale:
+            raise AssertionError(f"graph decode's caches differ from "
+                                 f"eager by {diff} (largest {scale})")
+        caches_diff = max(caches_diff, diff)
+    del eager_caches, fresh
+    fresh = _clone(caches)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         run("graph", fresh)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    _restore(fresh, caches)
+    fresh = _clone(caches)
     profiled = prefill_device_profile(
         torch, lambda: server.decode(prompt[:, -1:], fresh, S, G,
                                      layer_budget=budget), "")
     if len(server.graph_log) != captures + 1:
-        raise AssertionError("a replayed decode captured again")
+        raise AssertionError("a decode of caches of the captured shape "
+                             "captured again")
+    # the replays alone, from the prompt's position again
+    release = server.m if budget is None else budget
+    graph = next(g for (_, b, r), g in server._graphs.items()
+                 if (b, r) == (B, release))
+    graph.start(prompt[:, -1:], S)
+    replays = prefill_device_profile(
+        torch, lambda: [graph.replay() for _ in range(G)], "")
     eager = runs["eager"][0]
     for label, (out, _) in runs.items():
         if not torch.equal(out, eager):
@@ -1415,8 +1429,13 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
             "first_graph_decode_ms_per_token": runs["graph_first"][1],
             "capture_seconds": capture["capture_seconds"],
             "graph_pool_bytes": capture["pool_bytes"],
-            "replay_device_ms": profiled["all_device_ms"] / G,
-            "replay_top_device_ms": profiled["top_device_ms"][:4],
+            "server_cache_bytes": sum(
+                t.numel() * t.element_size()
+                for t in leaves(next(iter(server._graph_caches.values())))),
+            "replay_device_ms": replays["all_device_ms"] / G,
+            "replay_top_device_ms": replays["top_device_ms"][:4],
+            "decode_device_ms_per_token": profiled["all_device_ms"] / G,
+            "graph_caches_max_abs_diff_vs_eager": caches_diff,
             "graph_tokens_equal_eager": True,
             "sync_debug_mode_during_replays": "error"}
 

@@ -31,8 +31,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="where to serve: cuda (default) or cpu")
-    ap.add_argument("--gen", type=int, default=24,
-                    help="tokens to generate per budget")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -43,7 +41,7 @@ def main(argv=None) -> int:
     params = T.init_params(cfg, seed=0, device=device)
     with ProgressiveServer(cfg, params, m=4, d=4, device=device) as server:
         rng = np.random.default_rng(0)
-        B, prompt_len, gen = 4, 32, args.gen
+        B, prompt_len, gen = 4, 32, 24
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                                (B, prompt_len)))
         max_len = prompt_len + gen

@@ -21,6 +21,9 @@ import math
 from repro_torch.configs.base import AttentionConfig, ModelConfig, TrainConfig
 from repro_torch.launch.train import train_loop
 
+#: the model's vocabulary, the reference example's
+VOCAB = 32_768
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -31,16 +34,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--d-model", type=int, default=768)
-    ap.add_argument("--vocab", type=int, default=32_768,
-                    help="vocabulary size (the twin's 32768; a small one "
-                         "learns its chain in a few dozen steps on a CPU)")
     ap.add_argument("--ckpt-dir", default="results/ckpt_train_lm")
     args = ap.parse_args(argv)
 
     heads = max(args.d_model // 64, 2)
     cfg = ModelConfig(
         name="train-lm-100m", family="dense", num_layers=args.layers,
-        d_model=args.d_model, d_ff=4 * args.d_model, vocab_size=args.vocab,
+        d_model=args.d_model, d_ff=4 * args.d_model, vocab_size=VOCAB,
         attention=AttentionConfig(num_heads=heads,
                                   num_kv_heads=max(heads // 4, 1),
                                   head_dim=64),
@@ -52,7 +52,7 @@ def main(argv=None) -> int:
                      ckpt_every=100, log_every=10, device=args.device)
     first, last = out["losses"][0][1], out["losses"][-1][1]
     print(f"\nloss: {first:.3f} -> {last:.3f} (chain entropy floor ~2.08, "
-          f"vocab ceiling ~{math.log(args.vocab):.1f})")
+          f"vocab ceiling ~{math.log(VOCAB):.1f})")
     assert last < first - 1.0, "model failed to learn the bigram chain"
     print("train_lm OK")
     return 0

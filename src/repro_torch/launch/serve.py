@@ -34,11 +34,14 @@ On the card a decode step is compiled, as the reference ``jax.jit``s its
 hidden step and head series with the position traced: the server
 captures one greedy step (``hidden_step`` at a position held in a device
 buffer, then in the budget modes the head series and the argmax fed back
-into the token buffer) in a ``torch.cuda.CUDAGraph`` the first time a
-caches object is decoded, and replays it once per token.  In
-``deadline_ms`` mode only the hidden step is captured; the head stays a
-runtime job.  ``graphs=False`` decodes eagerly on the card, op by op, as
-the CPU always does.
+into the token buffer) in a ``torch.cuda.CUDAGraph`` and replays it once
+per token.  As ``jax.jit`` compiles once per shape, the server captures
+once per caches shape, batch and release: it keeps one set of caches of
+each shape it has served, a decode copies the caller's caches in, replays,
+and copies them back out, so every request of a shape after the first
+replays only.  In ``deadline_ms`` mode only the hidden step is captured;
+the head stays a runtime job.  ``graphs=False`` decodes eagerly on the
+card, op by op, as the CPU always does.
 
     python -m repro_torch.launch.serve --arch llama3-8b --batch 4 \\
         --prompt-len 1024 --gen 16                      # on the card
@@ -67,7 +70,7 @@ from repro_torch.core import progressive
 from repro_torch.kernels import flash_attention
 from repro_torch.models import transformer as T
 from repro_torch.runtime import RuntimeConfig, ServingGateway
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 __all__ = ["ProgressiveServer", "ServeStats", "main"]
 
@@ -132,13 +135,14 @@ class _RuntimeHead:
 
 class _DecodeGraph:
     """One greedy decode step (:meth:`ProgressiveServer._step`) captured in
-    a CUDA graph against one caches object.
+    a CUDA graph against the server's own ``caches`` of one shape.
 
     ``tok`` (B, 1) and ``pos`` (0-d) are the device buffers the step reads
     and updates in place; ``out`` is its static output (the hidden state
     without a ``release``, else the released logits), overwritten by every
-    :meth:`replay`.  The graph holds ``caches`` alive: it writes their
-    storage.
+    :meth:`replay`.  ``caches`` are the server's own for this shape: the
+    warm-up before the capture (cuBLAS handles and workspaces, on a side
+    stream) runs on them, and each decode copies its caches in first.
     """
 
     def __init__(self, server: "ProgressiveServer", caches, batch: int,
@@ -147,18 +151,13 @@ class _DecodeGraph:
         self.caches = caches
         self.tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((), dtype=torch.int64, device=dev)
-        # warm-up (cuBLAS handles and workspaces) on a side stream, on
-        # scratch caches of the same shapes: the step updates its caches in
-        # place, so warming up on the live ones would advance them
-        scratch = tree_map(torch.zeros_like, caches)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), torch.no_grad():
             for _ in range(2):
-                server._step(self.tok.clone(), self.pos.clone(), scratch,
+                server._step(self.tok.clone(), self.pos.clone(), caches,
                              release)
         torch.cuda.current_stream(dev).wait_stream(side)
-        del scratch
         self.graph = torch.cuda.CUDAGraph()
         start = time.perf_counter()
         # torch.cuda.graph synchronizes and empties the cache on entry, so
@@ -179,11 +178,29 @@ class _DecodeGraph:
         self.graph.replay()
 
 
-def _storage_key(caches) -> tuple:
+def _shape_key(caches) -> tuple:
     """What a captured step baked in of a caches object: every tensor's
-    address, shape, strides and type."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                 for t in leaves(caches))
+    place in the tree, shape and type."""
+    return tuple((path, tuple(t.shape), t.dtype)
+                 for path, t in leaves_with_path(caches))
+
+
+def _copy_into(dst, src) -> None:
+    for d, s in zip(leaves(dst), leaves(src)):
+        d.copy_(s)
+
+
+def _cache_len(cfg: ModelConfig, caches) -> Optional[int]:
+    """The positions the attention caches hold (their length), or None
+    where no layer has one (a ring of the last W positions or a
+    recurrent state takes any position)."""
+    if cfg.is_encdec:
+        caches = caches[0]
+    lens = [c["k"].shape[2]
+            for (unit, _), group in zip(T.block_groups(cfg), caches)
+            for kind, c in zip(unit, group)
+            if kind in ("dense", "moe", "cross")]
+    return min(lens, default=None)
 
 
 class ProgressiveServer:
@@ -196,8 +213,10 @@ class ProgressiveServer:
     ``graphs`` (default: on for a card server) decodes through CUDA graphs
     (the module docstring); ``graphs=False`` decodes eagerly; the CPU has
     no graphs, so ``graphs=True`` there raises.  A capture or replay that
-    fails raises: nothing falls back to eager.  ``graph_log`` records each
-    capture's batch, release, seconds and private-pool bytes.
+    fails raises: nothing falls back to eager.  The server holds one set
+    of caches and its captured steps per caches shape until
+    :meth:`close`.  ``graph_log`` records each capture's batch, release,
+    seconds and private-pool bytes.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *, m: int = 2,
@@ -216,7 +235,7 @@ class ProgressiveServer:
         self.graphs = graphs
         self.graph_log: list[dict] = []
         self._graphs: dict[tuple, _DecodeGraph] = {}
-        self._graphs_key: Optional[tuple] = None
+        self._graph_caches: dict[tuple, object] = {}
         self.cfg = cfg
         self.params = params
         self.device = pdev
@@ -239,8 +258,8 @@ class ProgressiveServer:
 
     def close(self) -> None:
         """Stop every runtime-head gateway fleet and drop the captured
-        decode steps (idempotent)."""
-        self._graphs, self._graphs_key = {}, None
+        decode steps with their caches (idempotent)."""
+        self._graphs, self._graph_caches = {}, {}
         heads, self._runtime_heads = self._runtime_heads, {}
         for head in heads.values():
             head.close()
@@ -289,16 +308,18 @@ class ProgressiveServer:
 
     def _graph(self, caches, batch: int,
                release: Optional[int]) -> _DecodeGraph:
-        """The captured step for these caches, batch and release, captured
-        now if it is not yet.  Steps captured on other caches are dropped
-        (their pools freed)."""
-        key = _storage_key(caches)
-        if key != self._graphs_key:
-            self._graphs, self._graphs_key = {}, key
-        graph = self._graphs.get((batch, release))
+        """The captured step for caches of ``caches``' shape, this batch
+        and release, captured now if it is not yet (on the server's caches
+        of that shape, made now if need be)."""
+        shape = _shape_key(caches)
+        graph = self._graphs.get((shape, batch, release))
         if graph is None:
-            graph = _DecodeGraph(self, caches, batch, release)
-            self._graphs[(batch, release)] = graph
+            own = self._graph_caches.get(shape)
+            if own is None:
+                own = tree_map(torch.zeros_like, caches)
+            graph = _DecodeGraph(self, own, batch, release)
+            self._graph_caches[shape] = own
+            self._graphs[(shape, batch, release)] = graph
             self.graph_log.append({"batch": batch, "release": release,
                                    "capture_seconds": graph.capture_seconds,
                                    "pool_bytes": graph.pool_bytes})
@@ -313,12 +334,19 @@ class ProgressiveServer:
         With ``deadline_ms``, ``stats.released_at_layer`` counts layered
         resolutions (1..2m-1: the runtime decomposes BOTH operands);
         otherwise head planes (1..m).  ``stats.resolutions`` carries the
-        scale in use.  ``caches`` are updated in place.
+        scale in use.  ``caches`` are updated in place.  Raises
+        ``ValueError`` before any step if the last position would not fit
+        the attention caches.
         """
         if layer_budget is not None and deadline_ms is not None:
             raise ValueError(
                 "layer_budget and deadline_ms are mutually exclusive "
                 "budgets; pass one or the other")
+        limit = _cache_len(self.cfg, caches)
+        if limit is not None and start_pos + num_tokens > limit:
+            raise ValueError(f"{num_tokens} tokens from position "
+                             f"{start_pos} overrun caches of {limit} "
+                             f"positions")
         stats = ServeStats(resolutions=(2 * self.m - 1
                                         if deadline_ms is not None
                                         else self.m))
@@ -329,6 +357,7 @@ class ProgressiveServer:
         graph = None
         if self.graphs:
             graph = self._graph(caches, tok.shape[0], budget)
+            _copy_into(graph.caches, caches)
             graph.start(tok, start_pos)
         out = []
         for i in range(num_tokens):
@@ -361,6 +390,8 @@ class ProgressiveServer:
             stats.full_resolution += int(release == stats.resolutions)
             stats.released_at_layer.append(release)
             out.append(tok)
+        if graph is not None:
+            _copy_into(caches, graph.caches)
         return torch.cat(out, dim=1), stats
 
 

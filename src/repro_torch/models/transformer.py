@@ -381,6 +381,8 @@ def _write_slot(cache: torch.Tensor, index,
     ``index`` is an int, or for a plain cache a 0-d int64 tensor on its
     device (a traced position: the write is an ``index_copy_`` that reads
     the slot on the device, so a CUDA graph replays it at every step).
+    A plain cache raises ``IndexError`` for slots past its end, at an int
+    as at a tensor (where on the card it is a device-side assert).
 
     A DTensor cache may be split along dim 1 (a context-parallel KV cache);
     DTensor would gather such a dim to slice it and write into the copy,
@@ -395,6 +397,9 @@ def _write_slot(cache: torch.Tensor, index,
         cache.index_copy_(1, slots, value.to(cache.dtype))
         return
     if not isinstance(cache, DTensor):
+        if index + n > cache.shape[1]:     # as index_copy_ at a tensor index
+            raise IndexError(f"slots {index}..{index + n - 1} are out of "
+                             f"bounds for a cache of {cache.shape[1]}")
         cache[:, index:index + n] = value
         return
     mesh, pl = cache.device_mesh, cache.placements

@@ -61,9 +61,8 @@ initialised CUDA is no concern either way.  The master still watches
 liveness (:meth:`ProcessTransport.dead_worker_map` via
 :meth:`~repro_torch.runtime.transport.base.WorkerTransport.assert_alive`)
 so a child lost for *any* reason fails the run promptly instead of
-hanging an unbounded fusion wait.  ``start_method="fork"`` or
-``"spawn"`` picks another method (under ``fork`` each child closes the
-pipes of its siblings that it inherited, :data:`_FORK_CONNS`).
+hanging an unbounded fusion wait.  ``start_method`` (the reference's
+parameter) takes ``"forkserver"`` or ``"spawn"``; ``"fork"`` raises.
 """
 
 from __future__ import annotations
@@ -382,23 +381,8 @@ class _WorkerLoop:
         self._results.put(stats)
 
 
-#: Fork-start handoff: every pipe of the transport being started, so each
-#: child can close its *siblings'* inherited ends.  Without this, a
-#: SIGKILLed worker's pipe keeps open read ends in every sibling process,
-#: the master never sees EPIPE, and a send to the corpse blocks forever
-#: once the kernel buffer fills — the exact hang the fault supervisor
-#: exists to prevent.  Under forkserver and spawn the child's copy of the
-#: module never saw it (global is None) and nothing is inherited anyway.
-_FORK_CONNS: Optional[list] = None
-
-
 def _worker_main(worker_id: int, cfg: RuntimeConfig, conn) -> None:
     """Child-process entrypoint (module-level: picklable under spawn)."""
-    if _FORK_CONNS is not None:
-        for parent, child in _FORK_CONNS:
-            parent.close()
-            if child is not conn:
-                child.close()
     loop = _WorkerLoop(worker_id, cfg, conn, _PipeResults(conn))
     try:
         loop.run()
@@ -441,6 +425,10 @@ class ProcessTransport(WorkerTransport):
             methods = multiprocessing.get_all_start_methods()
             start_method = ("forkserver" if "forkserver" in methods
                             else "spawn")
+        if start_method not in ("forkserver", "spawn"):
+            raise ValueError(f"start_method {start_method!r}: workers start "
+                             f"from a fork server or by spawn (the module "
+                             f"docstring)")
         self._mp = multiprocessing.get_context(start_method)
         if start_method == "forkserver":
             # the server imports the worker's module once, before any fork
@@ -485,13 +473,8 @@ class ProcessTransport(WorkerTransport):
 
     # -- master side ---------------------------------------------------------
     def start(self) -> None:
-        global _FORK_CONNS
-        _FORK_CONNS = self._conns
-        try:
-            for proc in self.processes:
-                proc.start()
-        finally:
-            _FORK_CONNS = None
+        for proc in self.processes:
+            proc.start()
         for _, child in self._conns:
             child.close()        # parent keeps only its end of each pipe
         self._drainer.start()

@@ -734,8 +734,8 @@ def _copy(tree):
 
 
 def _restore(dst, src):
-    """Put ``src``'s values back into ``dst``'s storage (a captured step
-    keeps writing the same tensors)."""
+    """Put ``src``'s values into ``dst``'s storage (the server's own
+    caches, which its captured step writes)."""
     from repro_torch.tree import leaves
     for d, s in zip(leaves(dst), leaves(src)):
         d.copy_(s)
@@ -745,10 +745,11 @@ def _restore(dst, src):
 @pytest.mark.parametrize("arch", GRAPH_ARCHS)
 def test_graph_decode_equals_eager_decode(hopper, arch, budget):
     """``ProgressiveServer.decode`` through its CUDA graphs gives the eager
-    card decode's tokens and stats, and each replay's released logits are
-    the eager step's on the same buffers: within 1e-2 of the largest
-    logit (the same kernels in the same dtype: 0 expected, the largest
-    difference printed)."""
+    card decode's tokens, stats and caches (written back in place), and
+    each replay's released logits are the eager step's on the same
+    buffers: within 1e-2 of the largest logit (the same kernels in the
+    same dtype: 0 expected, the largest difference printed)."""
+    from repro_torch.tree import leaves
     server, prompt, caches = _graph_case(arch, hopper)
     assert server.graphs
     eager_caches, graph_caches = _copy(caches), _copy(caches)
@@ -762,12 +763,15 @@ def test_graph_decode_equals_eager_decode(hopper, arch, budget):
     assert stats == want_stats
     assert len(server.graph_log) == 1
     assert server.graph_log[0]["pool_bytes"] > 0
+    for g, e in zip(leaves(graph_caches), leaves(eager_caches)):
+        scale = max(e.float().abs().max().item(), 1.0)
+        assert (g.float() - e.float()).abs().max().item() <= 1e-2 * scale
 
     # step by step: the replay's logits against the same step run eagerly
     release = server.m if budget is None else budget
-    _restore(graph_caches, caches)
-    graph = server._graph(graph_caches, _GB, release)
-    assert len(server.graph_log) == 1          # the same caches: no capture
+    graph = server._graph(caches, _GB, release)
+    assert len(server.graph_log) == 1          # the same shape: no capture
+    _restore(graph.caches, caches)
     graph.start(prompt[:, -1:], _GS)
     tok, pos = prompt[:, -1:].clone(), torch.tensor(_GS, device=hopper)
     step_caches = _copy(caches)
@@ -789,22 +793,35 @@ def test_graph_decode_equals_eager_decode(hopper, arch, budget):
 
 @pytest.mark.parametrize("arch", GRAPH_ARCHS)
 def test_graph_replay_makes_no_host_sync(hopper, arch):
-    """Once captured, a whole graph decode runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: no replay, token copy
-    or bookkeeping step waits for the card."""
+    """Once captured, a whole graph decode of another request's caches of
+    the same shape (new storage) captures nothing and runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no replay, cache or
+    token copy, or bookkeeping step waits for the card."""
     server, prompt, caches = _graph_case(arch, hopper)
-    live = _copy(caches)
-    first, _ = server.decode(prompt[:, -1:], live, _GS, _GG)
-    _restore(live, caches)
+    first, _ = server.decode(prompt[:, -1:], _copy(caches), _GS, _GG)
+    other = _copy(caches)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        again, _ = server.decode(prompt[:, -1:], live, _GS, _GG)
+        again, _ = server.decode(prompt[:, -1:], other, _GS, _GG)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert len(server.graph_log) == 1
     assert torch.equal(again, first)
+    server.close()
+
+
+def test_graph_decode_past_the_caches_raises(hopper):
+    """A decode whose last position would not fit the attention caches
+    raises on the host before any replay (a replay would hit
+    ``index_copy_``'s device-side assert)."""
+    server, prompt, caches = _graph_case("llama3-8b", hopper)
+    with pytest.raises(ValueError, match="overrun caches"):
+        server.decode(prompt[:, -1:], caches, _GS, _GG + 1)
+    assert server.graph_log == []
+    out, _ = server.decode(prompt[:, -1:], caches, _GS, _GG)
+    assert out.shape == (_GB, _GG)
     server.close()
 
 

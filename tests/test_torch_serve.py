@@ -338,6 +338,53 @@ def test_tensor_position_must_be_a_0d_int64():
             T.hidden_step(params, tt[:, _S:_S + 1], caches, bad, cfg)
 
 
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_a_write_past_the_caches_raises(as_tensor):
+    """A step at a position past the attention caches raises
+    ``IndexError`` at an int position as at a tensor position (there the
+    ``index_copy_``'s own bound check; on the card a device-side assert,
+    which ``decode`` forestalls on the host)."""
+    cfg, params, _, toks, _ = _family_case("dense", "float32")
+    tt = torch.from_numpy(toks).long()
+    _, caches = T.prefill(params, tt[:, :_S], cfg, max_len=_S + 1)
+    T.hidden_step(params, tt[:, _S:_S + 1], caches, _S, cfg)   # the last
+    pos = torch.tensor(_S + 1) if as_tensor else _S + 1
+    with pytest.raises(IndexError, match="out of bounds"):
+        T.hidden_step(params, tt[:, _S:_S + 1], caches, pos, cfg)
+
+
+@pytest.mark.parametrize("family", ["dense", "audio"])
+def test_decode_past_the_caches_raises_before_a_step(family):
+    cfg, params, _, toks, extras = _family_case(family, "float32")
+    tt = torch.from_numpy(toks).long()
+    tkw = {k: torch.from_numpy(v) for k, v in extras.items()}
+    server = ProgressiveServer(cfg, params, device="cpu")
+    _, caches = server.prefill(tt[:, :_S], _S + _STEPS, **tkw)
+    before = _clone(caches)
+    with pytest.raises(ValueError, match="overrun caches of 20 positions"):
+        server.decode(tt[:, _S - 1:_S], caches, _S, _STEPS + 1)
+    for a, b in zip(leaves(caches), leaves(before)):
+        assert torch.equal(a, b)
+    out, _ = server.decode(tt[:, _S - 1:_S], caches, _S, _STEPS)
+    assert out.shape == (_B, _STEPS)
+
+
+def test_captured_steps_are_keyed_by_the_caches_shape():
+    """Two prompts' caches of one shape share a captured step (as
+    ``jax.jit`` compiles once per shape); another length or batch does
+    not."""
+    cfg, params, _, toks, _ = _family_case("dense", "float32")
+    tt = torch.from_numpy(toks).long()
+    first = T.prefill(params, tt[:, :_S], cfg, max_len=_S + _STEPS)[1]
+    second = T.prefill(params, tt[:, 1:_S + 1], cfg, max_len=_S + _STEPS)[1]
+    assert leaves(first)[0].data_ptr() != leaves(second)[0].data_ptr()
+    assert serve._shape_key(first) == serve._shape_key(second)
+    for other in (T.prefill(params, tt[:, :_S], cfg,
+                            max_len=_S + _STEPS + 1)[1],
+                  T.init_cache(cfg, _B + 1, _S + _STEPS, device="cpu")):
+        assert serve._shape_key(first) != serve._shape_key(other)
+
+
 @pytest.mark.parametrize("budget", [None, 1])
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_captured_step_run_eagerly_equals_decode(family, budget):

@@ -269,6 +269,15 @@ class TestProcessArenaPath:
             pool.shutdown()
         assert shm.leaked_segments(pool._arena_prefix) == []
 
+    def test_workers_start_from_a_fork_server_never_a_fork(self):
+        """Workers are forks of a fork server (or spawned): a ``fork`` of
+        the multi-threaded master is refused."""
+        cfg = RuntimeConfig(backend="process", mu=MU1, straggler="none")
+        pool = ProcessTransport(cfg, lambda r: True)
+        assert pool._mp.get_start_method() == "forkserver"
+        with pytest.raises(ValueError, match="start_method 'fork'"):
+            ProcessTransport(cfg, lambda r: True, start_method="fork")
+
     def test_sigkill_mid_round_leaks_no_segments(self):
         """SIGKILL a worker while it holds in-flight arena rounds: the
         master's shutdown still unlinks every segment (workers only ever
