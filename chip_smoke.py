@@ -8,12 +8,13 @@ builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 main paths and checks what comes out:
 
 1. environment: card name and power limit, torch/CUDA versions, build time;
-2. the two layered int8 matmul kernels against their plain PyTorch
+2. the three layered int8 matmul kernels against their plain PyTorch
    version on the card, bit-exactly: the tensor-core (wgmma) kernel at the
    llama3-8b LM-head contraction (K=4096, M=64, N=128256), a square
-   4096^3 and a ragged m=3 case, each case checking which kernel
-   launched, with CUDA-event medians of the kernel, the plain version and
-   (as a reference point only) m^2 int8 ``torch._int_mm`` calls, the
+   4096^3 and a ragged m=3 case, the grouped kernel (m >= 5, seven
+   layers a CTA) at a square 4096^3 with m=5 and a ragged m=8 case, each
+   case checking which kernel launched, with CUDA-event medians of the
+   kernel, the plain version and (as a reference point only) m^2 int8 ``torch._int_mm`` calls, the
    kernel's device time from ``torch.profiler``, and the kernel's bound;
    at the head and square shapes also the mma.sync kernel (its earlier
    route), held against the plain version before it is timed;
@@ -110,7 +111,9 @@ main paths and checks what comes out:
    ``main`` on the card: ``repro_torch.examples.quickstart`` (kernel 1
    launched twice by its part 2, bit-exact) and
    ``repro_torch.examples.serve_progressive`` (served through the CUDA
-   graphs), each to its closing "OK" line;
+   graphs), each to its closing "OK" line, and
+   ``repro_torch.examples.hetero_cluster_sim --fast`` (the paper's §IV
+   figures on the event simulator, host only) to its summary;
 9. training (``launch.train.train_loop``, AdamW, lr 3e-4, warmup 2, on
    ``SyntheticLM`` at 4 x 1024 tokens, full width): internvl2-1b 20 steps
    (flash attention in the forward pass), mamba2-370m 20 (the SSD scan)
@@ -119,8 +122,13 @@ main paths and checks what comes out:
    launches, all on the tensor-core kernels), every gradient finite and
    those of the attention and SSD parameters nonzero in every layer, the
    step's loss and gradient norm against the same step through the
-   kernels' plain versions, falling loss over the run, and one step under
-   ``torch.profiler``;
+   kernels' plain versions, falling loss over the run (eagerly,
+   ``graphs=False``), one step under ``torch.profiler``; then the same
+   run with its step replayed from a CUDA graph (the card's default): one
+   capture (the wrappers' launches: two warm-up steps and the capture),
+   every step's loss and gradient norm and the final parameters and
+   state bit-equal to the eager run's, step wall ms beside the eager
+   run's, and a profiled replay that runs the kernel 24, 48 and 12 times;
 10. ``cells_four_ranks_host``: the sharded cells that failed on this
    machine's torch before the port laid out their pads, flattens and
    decode masks shard by shard (ROADMAP F5), llama3-8b, qwen2-moe-a2.7b,
@@ -151,21 +159,29 @@ main paths and checks what comes out:
    before it: 32 flash launches, all on the tensor-core kernel), its
    logits and caches against ``make_prefill_step`` on the same plain
    tensors (bit-equal expected; any difference printed and held to 5e-2
-   of the largest value), wall, CUDA-event and profiled device ms of
-   both; 16 steps of its decode cell against ``make_serve_step``, ms per
-   token of both; mamba2-370m trained 5 steps by ``train_loop(mesh=)``
-   (48 SSD launches a step, all on the tensor-core kernel; step 1's
-   gradients through the cell's layout all finite, its loss and gradient
-   norm against the plain step within 2e-2); ``Cell.costs()`` of the
+   of the largest value), then the same cell from its CUDA graph (the
+   card's default; one capture, outputs bit-equal to the eager cell's and
+   left alone by a later call, 32 flash kernels in a profiled replay),
+   wall, CUDA-event and profiled device ms of the three; 16 steps of its
+   decode cell from its graph (one capture for the 16 positions) and
+   eagerly against ``make_serve_step``, every graph step bit-equal to the
+   eager cell's, ms per token of the three; mamba2-370m trained 5 steps
+   by ``train_loop(mesh=)`` eagerly (48 SSD launches a step, all on the
+   tensor-core kernel; step 1's gradients through the cell's layout all
+   finite, its loss and gradient norm against the plain step within
+   2e-2) and from its graph (one capture, losses, gradient norms,
+   parameters and state bit-equal to the eager run's, 48 SSD kernels in a
+   profiled replay); ``Cell.costs()`` of the
    three cells and their roofline terms on ``H100_SXM`` beside the
    measured times; and two production dry-run cells
    (``python -m repro_torch.launch.dryrun``), each in a subprocess
    (a fake process group cannot share a process with NCCL), ``status:
    ok``, per-device bytes beside the 80 GB;
 12. one ``{"kernels": [...]}`` line with every kernel's launches on its
-   main paths (the cells' among them), its largest difference from its
-   plain version, its times and its bound (and those of its other timed
-   main-path shapes).
+   main paths (the cells' among them, counted on their eager runs; the
+   graph replays' kernels, counted by the profiler, beside them), its
+   largest difference from its plain version, its times and its bound
+   (and those of its other timed main-path shapes).
 
 After every phase the dh-256 flash kernel's fault word is read
 (``kernels.flash_attention.check_faults``): a ring wait that gave up
@@ -202,7 +218,8 @@ PEAK_BYTES = 3.35e12
 
 #: Every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu).
 KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul",
-                  "flash_attention", "flash_attention_wgmma",
+                  "layered_matmul_grouped", "flash_attention",
+                  "flash_attention_wgmma",
                   "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
@@ -243,6 +260,9 @@ SEED = 0
 HEAD = dict(K=4096, M=64, N=128256, m=2, d=7)      # llama3-8b LM head
 SQUARE = dict(K=4096, M=4096, N=4096, m=2, d=7)
 RAGGED = dict(K=1000, M=200, N=328, m=3, d=5)
+#: past four planes (the grouped kernel): a square at m = 5, a ragged m = 8
+SQUARE_M5 = dict(K=4096, M=4096, N=4096, m=5, d=3)
+RAGGED_M8 = dict(K=1000, M=200, N=328, m=8, d=2)
 TIMED_RUNS = 20
 REPS = 5          # back-to-back launches per timed run
 
@@ -392,9 +412,10 @@ def phase_environment(torch, dev):
     return smi
 
 
-#: torch.profiler name substrings of the two layered-matmul kernels
+#: torch.profiler name substrings of the three layered-matmul kernels
 LM_PROFILE = {"layered_matmul_wgmma": "layered_matmul_wgmma_kernel",
-              "layered_matmul": "layered_matmul_kernel"}
+              "layered_matmul": "layered_matmul_kernel",
+              "layered_matmul_grouped": "layered_matmul_grouped_kernel"}
 
 
 def phase_kernel_vs_plain(torch, dev):
@@ -407,7 +428,9 @@ def phase_kernel_vs_plain(torch, dev):
     for name, s, kernel, earlier in (
             ("llama3_8b_head", HEAD, lm.WGMMA, True),
             ("square_4096", SQUARE, lm.WGMMA, True),
-            ("ragged_m3", RAGGED, lm.WGMMA, False)):
+            ("ragged_m3", RAGGED, lm.WGMMA, False),
+            ("square_4096_m5", SQUARE_M5, lm.GROUPED, False),
+            ("ragged_m8", RAGGED_M8, lm.GROUPED, False)):
         K, M, N, m, d = s["K"], s["M"], s["N"], s["m"], s["d"]
         a = random_ints(torch, gen, m, d, (K, M), dev)
         b = random_ints(torch, gen, m, d, (K, N), dev)
@@ -450,8 +473,12 @@ def phase_kernel_vs_plain(torch, dev):
         del got, want
         ms = cuda_ms(torch, call)
         dev_ms = device_ms(torch, call, LM_PROFILE[kernel])
+        # past four planes the plain version's m^2 float64 products take
+        # tens of ms: fewer timed runs
+        runs = TIMED_RUNS if m <= 4 else 3
         plain_ms = cuda_ms(torch,
-                           lambda: lm.layered_matmul_plain(pa, pb, m=m))
+                           lambda: lm.layered_matmul_plain(pa, pb, m=m),
+                           runs=runs, warmup=1)
         bt = pb[0].T        # (K, N) column-major: the int8 "TN" layout
         int_mm_ms = cuda_ms(torch, lambda: torch._int_mm(pa[0], bt))
         row.update(ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
@@ -1672,8 +1699,10 @@ def phase_examples(torch, dev):
     runs them: ``quickstart`` (its part 2 is ``ops.layered_matmul`` and
     ``ops.layered_matmul_partials``, two launches of kernel 1, bit-exact
     on the host) and ``serve_progressive`` (the llama3-8b smoke config
-    served through the CUDA graphs at four budgets).  Each must reach its
-    closing "OK" line, so its own assertions hold."""
+    served through the CUDA graphs at four budgets), each to its closing
+    "OK" line, so its own assertions hold; then ``hetero_cluster_sim
+    --fast`` (the paper's §IV figures on the event simulator, on the
+    host) to its summary."""
     import contextlib
     import io
 
@@ -1701,6 +1730,20 @@ def phase_examples(torch, dev):
     if not any("decode graphs captured" in line
                for line in rows["serve_progressive"]["output"]):
         raise AssertionError("serve_progressive captured no decode graph")
+    # the paper's §IV figures on the event simulator (no card), CSVs into
+    # the git-ignored results/
+    from repro_torch.examples import hetero_cluster_sim
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = hetero_cluster_sim.main(
+            ["--fast", "--out", str(HERE / "results" / "paper_figures")])
+    text = out.getvalue()
+    if rc != 0 or "summary of paper-claim checks:" not in text:
+        raise AssertionError(f"hetero_cluster_sim exited {rc}:\n"
+                             f"{text[-2000:]}")
+    rows["hetero_cluster_sim"] = {"wall_seconds": time.perf_counter() - t0,
+                                  "output": text.splitlines()}
     emit({"phase": "examples", **rows})
     return rows
 
@@ -1897,11 +1940,15 @@ def _train(torch, dev, arch: str) -> dict:
 
     with contextlib.redirect_stdout(io.StringIO()):
         out = train.train_loop(cfg, tcfg, batch=B, seq=S, steps=n_steps,
-                               log_every=1, seed=SEED, device=dev)
+                               log_every=1, seed=SEED, device=dev,
+                               graphs=False)
     losses = [l for _, l in out["losses"]]
     if (len(losses) != n_steps or not all(math.isfinite(l) for l in losses)
             or not statistics.mean(losses[-5:]) < losses[0]):
         raise AssertionError(f"{arch}: losses {losses} do not fall")
+    eager_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    graph = graph_train_loop(torch, cfg, tcfg, out, n_steps, mod, kernel,
+                             want, dev)
 
     # one more step under the profiler: device time by kernel
     from torch.profiler import ProfilerActivity, profile
@@ -1938,6 +1985,7 @@ def _train(torch, dev, arch: str) -> dict:
            "step_wall_ms_median_after_first": 1e3 * statistics.median(
                out["step_seconds"][1:]),
            "step_wall_ms": [1e3 * t for t in out["step_seconds"]],
+           "graph": graph,
            "profiled_step": {"wall_ms": profiled_wall_ms,
                              "all_device_ms": all_ms,
                              "kernel_device_ms": kernel_ms,
@@ -1945,10 +1993,71 @@ def _train(torch, dev, arch: str) -> dict:
                              "top_device_ms": [(e.key[:100], e.count,
                                                 e.device_time_total / 1e3)
                                                for e in top]},
-           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+           "peak_memory_gb": eager_peak_gb}
     del out, batch, b, m
     torch.cuda.empty_cache()
     return row
+
+
+def graph_train_loop(torch, cfg, tcfg, eager, n_steps: int, mod,
+                     kernel: str, want: int, dev) -> dict:
+    """``train_loop`` again with its step replayed from a CUDA graph (the
+    card's default): every step's loss and gradient norm and the final
+    parameters and state equal the eager run's (``eager``) bit for bit;
+    one capture; the kernel's wrapper runs at the capture only (the two
+    warm-up steps and the capture: 3 ``want`` launches), and a profiled
+    replay of one more step launches ``want`` of ``kernel`` on the card;
+    wall ms of the steps after the first, and the replay's device ms."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+    mod.launches = 0
+    mod.kernel_launches.update(dict.fromkeys(mod.KERNELS, 0))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train.train_loop(cfg, tcfg, batch=SERVE["batch"],
+                               seq=SERVE["prompt"], steps=n_steps,
+                               log_every=1, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    g = out["graph"]
+    if g is None or g.captures != 1:
+        raise AssertionError(f"{cfg.name}: graph train loop captured "
+                             f"{None if g is None else g.captures} times")
+    if (mod.launches != 3 * want
+            or mod.kernel_launches[kernel] != 3 * want):
+        raise AssertionError(f"{cfg.name}: the capture launched "
+                             f"{dict(mod.kernel_launches)}, want "
+                             f"{3 * want} of {kernel}")
+    same = {key: out[key] == eager[key] for key in ("losses", "grad_norms")}
+    same["params_and_state"] = all(
+        torch.equal(a, b) for a, b in zip(
+            leaves((out["params"], out["opt_state"])),
+            leaves((eager["params"], eager["opt_state"]))))
+    if not all(same.values()):
+        raise AssertionError(f"{cfg.name}: graph train loop differs from "
+                             f"eager: {same}; losses {out['losses']} "
+                             f"against {eager['losses']}")
+    # one more replay under the profiler (of the last batch, on the
+    # graph's buffers): the kernels in the graph
+    name = {"flash_attention": "flash_attention_wgmma_kernel",
+            "ssd_scan": "ssd_wgmma_output"}[mod.__name__.rsplit(".", 1)[1]]
+    prof = prefill_device_profile(torch, g.graphs[0].replay, name)
+    if prof["kernel_launches"] != want:
+        raise AssertionError(f"{cfg.name}: a profiled replay ran "
+                             f"{prof['kernel_launches']} of {name}, want "
+                             f"{want}")
+    return {"captures": g.captures, "log": g.log,
+            "bit_equal_to_eager": same,
+            "wall_launches_at_capture": dict(mod.kernel_launches),
+            "step_wall_ms_median_after_first": 1e3 * statistics.median(
+                out["step_seconds"][1:]),
+            "eager_step_wall_ms_median_after_first": 1e3 * statistics.median(
+                eager["step_seconds"][1:]),
+            "first_step_wall_ms": 1e3 * out["step_seconds"][0],
+            "profiled_replay": prof,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
 def phase_train(torch, dev):
@@ -2599,25 +2708,37 @@ def _timed(torch, fn, runs: int = CELL_RUNS) -> dict:
 
 def _max_diff(torch, got, want) -> tuple[float, float]:
     """(largest |difference| over the leaves of two trees, the largest
-    |value| of ``want``); DTensors are read whole."""
+    |value| of ``want``); DTensors on either side are read whole."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.tree import leaves
     diff = scale = 0.0
     for g, w in zip(leaves(got), leaves(want)):
         g = g.full_tensor() if isinstance(g, DTensor) else g
+        w = w.full_tensor() if isinstance(w, DTensor) else w
         diff = max(diff, (g.float() - w.float()).abs().max().item())
         scale = max(scale, w.float().abs().max().item())
     return diff, scale
 
 
+def _reset(mod) -> None:
+    mod.launches = 0
+    mod.kernel_launches.update(dict.fromkeys(mod.KERNELS, 0))
+
+
 def phase_cell_prefill(torch, dev, results):
     """llama3-8b's prefill cell at full width on the card's one-rank mesh,
-    on serve_llama3_8b's prompt: its launches (reset before it: 32 flash
-    launches, all on the tensor-core kernel), its logits and caches
+    on serve_llama3_8b's prompt, run eagerly and from its CUDA graph (the
+    card's default).  Eagerly: its launches (reset before it: 32 flash
+    launches, all on the tensor-core kernel) and its logits and caches
     against ``make_prefill_step`` on the same plain tensors (bit-equal
     expected; any difference printed and held to :data:`DECODE_TOL` of
-    the largest value), and the wall and device ms of both."""
+    the largest value).  From the graph: the capture (its wrapper calls:
+    two warm-up steps and the capture, 3 x 32), the outputs bit-equal to
+    the eager cell's, left as they were by a later call on another
+    prompt, one capture for every call, and a profiled replay that runs
+    32 flash kernels.  Wall, CUDA-event and profiled device ms of the
+    graph, the eager cell and the plain step."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import flash_attention as fa
@@ -2634,15 +2755,16 @@ def phase_cell_prefill(torch, dev, results):
     mesh = mesh_lib.make_test_mesh(1, 1)
     # the cell's seq_len is its cache length: the prompt plus G tokens
     shape = ShapeConfig("prefill_4x1024", S + G, B, "prefill")
-    cell = steps.build_cell(cfg, shape, mesh)
-    placed = steps.laid_out(params, mesh, cell.in_shardings[0])
+    gcell = steps.build_cell(cfg, shape, mesh)
+    if gcell.graph is None:
+        raise AssertionError("a card cell runs eagerly by default")
+    placed = steps.laid_out(params, mesh, gcell.in_shardings[0])
     batch = {"tokens": tokens[:, :S]}
     plain = steps.make_prefill_step(cfg, max_len=S + G)
 
-    fa.launches = 0
-    fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
+    _reset(fa)
     torch.cuda.synchronize()
-    logits, caches = cell.fn(placed, batch)
+    logits, caches = gcell.eager(placed, batch)
     torch.cuda.synchronize()
     by_source = {"flash_attention": dict(fa.kernel_launches)}
     if (fa.launches != c["flash_launches"]
@@ -2658,8 +2780,35 @@ def phase_cell_prefill(torch, dev, results):
     if (tuple(logits.shape) != (B, cfg.vocab_size)
             or not torch.isfinite(local).all()):
         raise AssertionError(f"bad cell logits {tuple(logits.shape)}")
-    cell_t = _timed(torch, lambda: cell.fn(placed, batch))
+
+    _reset(fa)
+    t0 = time.perf_counter()
+    g_logits, g_caches = gcell.fn(placed, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    at_capture = dict(fa.kernel_launches)
+    if at_capture[fa.WGMMA] != 3 * c["flash_launches"]:
+        raise AssertionError(f"the prefill capture launched {at_capture}")
+    gdiff, _ = _max_diff(torch, (g_logits, g_caches), (logits, caches))
+    kept = g_logits.to_local().clone()
+    other = gcell.fn(placed, {"tokens": torch.roll(tokens[:, :S], 1, 1)})
+    torch.cuda.synchronize()
+    left_alone = torch.equal(kept, g_logits.to_local())
+    del other
+    if gdiff != 0.0 or not left_alone:
+        raise AssertionError(f"graph prefill cell differs from the eager "
+                             f"cell by {gdiff}; earlier output kept: "
+                             f"{left_alone}")
+    prof = prefill_device_profile(torch, lambda: gcell.fn(placed, batch),
+                                  "flash_attention_wgmma_kernel")
+    if prof["kernel_launches"] != c["flash_launches"]:
+        raise AssertionError(f"a profiled graph prefill ran "
+                             f"{prof['kernel_launches']} flash kernels")
+    graph_t = _timed(torch, lambda: gcell.fn(placed, batch))
+    cell_t = _timed(torch, lambda: gcell.eager(placed, batch))
     plain_t = _timed(torch, lambda: plain(params, batch))
+    if gcell.graph.captures != 1:
+        raise AssertionError(f"{gcell.graph.captures} prefill captures")
     row = {"arch": c["arch"], "shape": [shape.name, S + G, B, "prefill"],
            "prompt": S, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
            "launches_by_source": by_source,
@@ -2668,35 +2817,65 @@ def phase_cell_prefill(torch, dev, results):
            "largest_value": scale, "tolerance": DECODE_TOL,
            "cell": cell_t, "plain_step": plain_t,
            "dtensor_host_overhead_wall_ms": cell_t["wall_ms"]
-           - plain_t["wall_ms"]}
+           - plain_t["wall_ms"],
+           "graph": {"captures": gcell.graph.captures,
+                     "log": gcell.graph.log,
+                     "first_call_wall_ms": first_ms,
+                     "wrapper_launches_at_capture": at_capture,
+                     "bit_equal_to_eager_cell": gdiff == 0.0,
+                     "earlier_output_left_alone": left_alone,
+                     "profiled_replay": prof, **graph_t}}
     emit(dict(phase="cell_prefill_llama3_8b", **row))
     results["_cell_llama"] = {"cfg": cfg, "params": params, "placed": placed,
                               "tokens": tokens, "caches": caches,
+                              "graph_caches": g_caches,
                               "plain_caches": want[1], "mesh": mesh,
-                              "prefill_cell": cell}
+                              "prefill_cell": _without_graph(gcell)}
     return row
+
+
+def _without_graph(cell):
+    """``cell`` as the roofline phase needs it, its eager step and shapes:
+    its captures (the parameters they read in place, their buffers and
+    pools) are freed with the graph cell."""
+    import dataclasses
+    return dataclasses.replace(cell, fn=cell.eager, graph=None)
 
 
 def phase_cell_decode(torch, dev, results):
     """16 steps of llama3-8b's decode cell from the prefill cell's caches,
-    each step's logits against ``make_serve_step`` on the plain prefill's
-    caches, both fed the plain step's next token; ms per token of each."""
+    from its CUDA graph and eagerly, each on its own copy of the caches
+    (the graph's prefill's and the eager one's), beside ``make_serve_step``
+    on the plain prefill's caches, all fed the plain step's next token:
+    every graph step bit-equal to the eager cell's (logits and next token,
+    and the caches after the last), the eager cell against the plain step
+    (bit-equal expected; held to :data:`DECODE_TOL`), one capture for the
+    16 positions; ms per token of each, and one more graph step profiled
+    (device ms: decode runs none of the port's kernels)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
     st = results.pop("_cell_llama")
     c = CELL
     B, S, G = c["batch"], c["prompt"], c["gen"]
     cfg, mesh = st["cfg"], st["mesh"]
-    cell = steps.build_cell(cfg, ShapeConfig("decode_4x1040", S + G, B,
-                                             "decode"), mesh)
+    shape = ShapeConfig("decode_4x1040", S + G, B, "decode")
+    gcell = steps.build_cell(cfg, shape, mesh)
     serve = steps.make_serve_step(cfg)
     token = st["tokens"][:, S:]
     caches, plain_caches = st["caches"], st["plain_caches"]
-    diffs, cell_ms, plain_ms = [], [], []
+    g_caches = st["graph_caches"]
+    diffs, gdiffs, cell_ms, graph_ms, plain_ms = [], [], [], [], []
     for i in range(G):
         t0 = time.perf_counter()
-        logits, _, caches = cell.fn(st["placed"], {
-            "token": token, "pos": S + i, "caches": caches})
+        g_logits, g_next, _ = gcell.fn(st["placed"], {
+            "token": token, "pos": S + i, "caches": g_caches})
+        torch.cuda.synchronize()
+        graph_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        # the eager step at the position tensor the graph reads
+        logits, nxt, _ = gcell.eager(st["placed"], {
+            "token": token, "caches": caches,
+            "pos": torch.tensor(S + i, dtype=torch.int64, device=dev)})
         torch.cuda.synchronize()
         cell_ms.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
@@ -2710,29 +2889,54 @@ def phase_cell_decode(torch, dev, results):
             raise AssertionError(f"decode cell step {i} differs from the "
                                  f"plain step by {diff} (largest {scale})")
         diffs.append(diff)
+        gdiff, _ = _max_diff(torch, (g_logits, g_next), (logits, nxt))
+        if gdiff != 0.0:
+            raise AssertionError(f"graph decode cell step {i} differs from "
+                                 f"the eager cell by {gdiff}")
+        gdiffs.append(gdiff)
+    cache_diff, _ = _max_diff(torch, g_caches, caches)
+    if cache_diff != 0.0 or gcell.graph.captures != 1:
+        raise AssertionError(f"graph decode caches differ by {cache_diff}; "
+                             f"{gcell.graph.captures} captures")
+    prof = prefill_device_profile(torch, lambda: gcell.fn(st["placed"], {
+        "token": token, "pos": S + G - 1, "caches": g_caches}), "flash")
     row = {"arch": c["arch"], "steps": G, "from_position": S,
            "max_abs_diff_by_step": diffs,
            "bit_equal_to_plain_step": max(diffs) == 0.0,
            "tolerance": DECODE_TOL,
            "cell_ms_per_token_median": statistics.median(cell_ms[1:]),
            "plain_ms_per_token_median": statistics.median(plain_ms[1:]),
-           "cell_ms_per_token": cell_ms, "plain_ms_per_token": plain_ms}
+           "cell_ms_per_token": cell_ms, "plain_ms_per_token": plain_ms,
+           "graph": {"captures": gcell.graph.captures,
+                     "log": gcell.graph.log,
+                     "bit_equal_to_eager_cell_every_step":
+                         max(gdiffs) == 0.0,
+                     "caches_bit_equal": cache_diff == 0.0,
+                     "first_call_ms": graph_ms[0],
+                     "ms_per_token_median": statistics.median(graph_ms[1:]),
+                     "ms_per_token": graph_ms,
+                     "profiled_step_device_ms": prof["all_device_ms"],
+                     "profiled_step_top_device_ms": prof["top_device_ms"]}}
     emit(dict(phase="cell_decode_llama3_8b", **row))
-    results["_cells"] = {"prefill": st["prefill_cell"], "decode": cell,
-                         "mesh": mesh}
-    del st, caches, plain_caches
+    results["_cells"] = {"prefill": st["prefill_cell"],
+                         "decode": _without_graph(gcell), "mesh": mesh}
+    del st, caches, plain_caches, g_caches
     torch.cuda.empty_cache()
     return row
 
 
 def phase_cell_train(torch, dev, results):
     """mamba2-370m trained 5 steps through ``train_loop(mesh=...)`` on the
-    card's one-rank mesh (remat off, the train phase's AdamW): 48 SSD
-    launches a step in that run, all on the tensor-core kernel; one more
-    set of gradients through the train cell's layout every one finite;
-    step 1's loss and gradient norm against ``make_train_step`` on plain
-    tensors within :data:`TRAIN_VS_PLAIN_TOL`; the step times beside the
-    plain step's."""
+    card's one-rank mesh (remat off, the train phase's AdamW), eagerly and
+    from its CUDA graph.  Eagerly: 48 SSD launches a step, all on the
+    tensor-core kernel; one more set of gradients through the train
+    cell's layout every one finite; step 1's loss and gradient norm
+    against ``make_train_step`` on plain tensors within
+    :data:`TRAIN_VS_PLAIN_TOL`.  From the graph: one capture (3 x 48
+    wrapper calls), every step's loss and gradient norm and the final
+    parameters and state bit-equal to the eager run's, and a profiled
+    replay that runs 48 SSD kernels.  The step times of the graph, the
+    eager cell and the plain step."""
     import contextlib
     import io
 
@@ -2750,8 +2954,8 @@ def phase_cell_train(torch, dev, results):
     batch = _batch(data, 0)
     step, optimizer = steps.make_train_step(cfg, tcfg)
     _, _, plain_metrics = step(params, optimizer.init(params), batch)
-    cell = steps.build_cell(cfg, ShapeConfig("train_4x1024", S, B, "train"),
-                            mesh, tcfg)
+    shape = ShapeConfig("train_4x1024", S, B, "train")
+    cell = steps.build_cell(cfg, shape, mesh, tcfg)
     placed = steps.laid_out(params, mesh, cell.in_shardings[0])
     grad_fn = steps.make_grad_fn(cfg, tcfg)
     with mesh_context(mesh), implicit_replication():
@@ -2765,18 +2969,22 @@ def phase_cell_train(torch, dev, results):
     n_grads = len(leaves(grads))
     del grads, placed
 
-    ss.launches = 0
-    ss.kernel_launches.update(dict.fromkeys(ss.KERNELS, 0))
-    with contextlib.redirect_stdout(io.StringIO()):
-        out = train.train_loop(cfg, tcfg, batch=B, seq=S,
-                               steps=c["train_steps"], log_every=1,
-                               seed=SEED, mesh=mesh)
-    torch.cuda.synchronize()
     steps_run = c["train_steps"]
+    runs = {}
+    for graphs in (False, True):
+        _reset(ss)
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[graphs] = train.train_loop(
+                cfg, tcfg, batch=B, seq=S, steps=steps_run, log_every=1,
+                seed=SEED, mesh=mesh, graphs=graphs)
+        torch.cuda.synchronize()
+        runs[graphs]["launches"] = dict(ss.kernel_launches)
+        runs[graphs]["launches_total"] = ss.launches
+    out, gout = runs[False], runs[True]
     by_source = {"ssd_scan": {k: n // steps_run
-                              for k, n in ss.kernel_launches.items()}}
-    per_step = ss.launches / steps_run
-    if (per_step != c["ssd_launches"] or ss.kernel_launches[ss.WGMMA]
+                              for k, n in out["launches"].items()}}
+    per_step = out["launches_total"] / steps_run
+    if (per_step != c["ssd_launches"] or out["launches"][ss.WGMMA]
             != c["ssd_launches"] * steps_run):
         raise AssertionError(f"train_loop launched {by_source} a step in "
                              f"{steps_run} steps, want {c['ssd_launches']} "
@@ -2795,8 +3003,27 @@ def phase_cell_train(torch, dev, results):
                                  f"{vs_plain[f'plain_{key}']}")
     if not all(math.isfinite(l) for _, l in out["losses"]):
         raise AssertionError(f"train cell losses {out['losses']}")
+    g = gout["graph"]
+    same = {key: gout[key] == out[key] for key in ("losses", "grad_norms")}
+    pdiff, _ = _max_diff(torch, (gout["params"], gout["opt_state"]),
+                         (out["params"], out["opt_state"]))
+    same["params_and_state"] = pdiff == 0.0
+    if (g is None or g.captures != 1 or not all(same.values())
+            or gout["launches"][ss.WGMMA] != 3 * c["ssd_launches"]):
+        raise AssertionError(f"graph train cell: {same}, captures "
+                             f"{None if g is None else g.captures}, "
+                             f"launches {gout['launches']}")
+    prof = prefill_device_profile(torch, g.graphs[0].replay,
+                                  "ssd_wgmma_output")
+    if prof["kernel_launches"] != c["ssd_launches"]:
+        raise AssertionError(f"a profiled train-cell replay ran "
+                             f"{prof['kernel_launches']} SSD kernels")
     state, params_t = out["opt_state"], out["params"]
-    del out
+    # train_loop's own step times (each ends in a read of its loss)
+    loop_ms = {k: 1e3 * statistics.median(r["step_seconds"][1:])
+               for k, r in (("eager", out), ("graph", gout))}
+    graph_first_ms = 1e3 * gout["step_seconds"][0]
+    del out, gout, runs
     plain_state = optimizer.init(params)
     plain_t = _timed(torch, lambda: step(params, plain_state, batch),
                      runs=2)
@@ -2808,11 +3035,16 @@ def phase_cell_train(torch, dev, results):
            "grads_finite": n_grads, "step1_vs_plain": vs_plain,
            "tolerance": TRAIN_VS_PLAIN_TOL,
            "plain_step": plain_t}
-    cell_t = _timed(torch, lambda: cell.fn(params_t, state, batch), runs=2)
-    row["cell_step"] = cell_t
+    row["cell_step"] = _timed(
+        torch, lambda: cell.eager(params_t, state, batch), runs=2)
+    row["train_loop_step_wall_ms_median_after_first"] = loop_ms
+    row["graph"] = {"captures": g.captures, "log": g.log,
+                    "bit_equal_to_eager": same,
+                    "first_step_wall_ms": graph_first_ms,
+                    "profiled_replay": prof}
     emit(dict(phase="cell_train_mamba2_370m", **row))
     results["_cells"]["train"] = cell
-    del params, params_t, state, plain_state
+    del params, params_t, state, plain_state, g
     torch.cuda.empty_cache()
     return row
 
@@ -3006,7 +3238,9 @@ def main() -> int:
             "name": "layered_matmul", "route": "cuda",
             # the main path's source first, then its earlier route
             "source": "src/repro_torch/kernels/csrc/layered_matmul_wgmma.cu"
-                      ", src/repro_torch/kernels/csrc/layered_matmul.cu",
+                      ", src/repro_torch/kernels/csrc/layered_matmul.cu"
+                      ", src/repro_torch/kernels/csrc/"
+                      "layered_matmul_grouped.cu",
             "replaces": "src/repro/kernels/layered_matmul.py:71",
             "launches": results["layered_main_path"],
             "max_abs_err": max(errs), "ms": head["ms"],
@@ -3045,6 +3279,18 @@ def main() -> int:
         if cell_path[0] in results:
             paths[cell_path[0]] = results[cell_path[0]][cell_path[1]][name]
         by_path = {p: sum(n.values()) for p, n in paths.items()}
+        # the same paths replayed from CUDA graphs: the wrappers ran at
+        # the capture only, the kernels in a profiled replay
+        replays = {}
+        for arch, trow in results.get("train", {}).items():
+            if TRAIN[arch][1] == name:
+                replays[f"train_{arch}"] = trow["graph"][
+                    "profiled_replay"]["kernel_launches"]
+        cell_replay = {"flash_attention": "cell_prefill_llama3_8b",
+                       "ssd_scan": "cell_train_mamba2_370m"}[name]
+        if cell_replay in results:
+            replays[cell_replay] = results[cell_replay]["graph"][
+                "profiled_replay"]["kernel_launches"]
         by_source = {}
         for counts in paths.values():
             for src, n in counts.items():
@@ -3065,6 +3311,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path, "launches_by_source": by_source,
+            "graph_replay_launches_by_path": replays,
             "max_abs_err": max(r["max_abs_err"]
                                for r in results[cmp_phase].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

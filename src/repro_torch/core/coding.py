@@ -24,8 +24,9 @@ Two arithmetic modes:
   trick, reused) so accumulation never overflows uint64.
 
 The 1-D special case (``n2 = 1``) is a classic Reed-Solomon-style MDS code
-over matrix blocks — exposed as :class:`MDSCode` (the JAX package's
-coded data-parallel gradient path uses it; that path is not ported yet).
+over matrix blocks — exposed as :class:`MDSCode`, in both packages a code
+of its own: coded data parallelism (``core.layered_matmul.GradientCoder``)
+builds its own encoding and uses no :class:`MDSCode`.
 
 The host paths are NumPy, as in the JAX package.  Where operands are
 torch tensors, encoding and the coded products run in float64 on the

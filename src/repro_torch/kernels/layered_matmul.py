@@ -1,4 +1,4 @@
-"""Layered-resolution int8 digit-plane matmul: two CUDA kernels + plain
+"""Layered-resolution int8 digit-plane matmul: three CUDA kernels + plain
 version.
 
 Port of the TPU kernel ``layered_matmul_kernel_call``
@@ -11,7 +11,7 @@ returns the ``L = 2m - 1`` exact, unscaled, non-cumulative int32 partials
 and leaves the ``2**((i+j) d)`` scales and the cumulative sum to the
 fusion (``ops.layered_matmul``).
 
-On a CUDA tensor the wrapper launches one of two hand-written Hopper
+On a CUDA tensor the wrapper launches one of three hand-written Hopper
 kernels, chosen by :func:`kernel_for` from ``(m, M, N, K)``:
 
 - ``layered_matmul_wgmma`` (``csrc/layered_matmul_wgmma.cu``): m <= 3,
@@ -21,14 +21,19 @@ kernels, chosen by :func:`kernel_for` from ``(m, M, N, K)``:
 - ``layered_matmul`` (``csrc/layered_matmul.cu``): m = 4, whose seven
   layers of accumulators do not fit the wgmma tile's registers.  int8
   ``mma.sync``, one CTA per 64x64 output tile.
+- ``layered_matmul_grouped`` (``csrc/layered_matmul_grouped.cu``): m >= 5,
+  whose ``2m - 1`` layers of accumulators fit no tile's registers.  int8
+  ``mma.sync``, one CTA per 64x64 output tile and group of at most seven
+  layers (the groups on ``grid.z``), each running only its layers' plane
+  pairs.  The Pallas kernel takes any m, and so does this one.
 
-Both need K-contiguous planes, ``(m, M, K)`` and ``(m, N, K)``, with K a
+All three need K-contiguous planes, ``(m, M, K)`` and ``(m, N, K)``, with K a
 multiple of :data:`K_ALIGN`, so :func:`layered_matmul_kmajor` takes that
 layout (padding K with zeros where a caller's planes lack it) and
 :func:`layered_matmul_kernel_call` keeps the reference's ``(m, K, M)`` /
 ``(m, K, N)`` layout by transposing first.  On a CPU tensor the wrapper
 runs :func:`layered_matmul_plain`.  There is no fallback: a CUDA tensor
-that neither kernel takes raises, and so does a failed launch.
+that no kernel takes raises, and so does a failed launch.
 :data:`launches` counts every call that launches a kernel;
 :data:`kernel_launches` counts them per kernel source.
 """
@@ -43,7 +48,7 @@ import torch
 from repro_torch.core import layering
 from repro_torch.kernels import _build
 
-__all__ = ["K_ALIGN", "KERNELS", "MAX_PLANES", "kernel_for",
+__all__ = ["K_ALIGN", "KERNELS", "kernel_for",
            "kernel_launches", "layered_matmul_kernel_call",
            "layered_matmul_kmajor", "layered_matmul_plain", "launches"]
 
@@ -52,16 +57,18 @@ __all__ = ["K_ALIGN", "KERNELS", "MAX_PLANES", "kernel_for",
 #: and their start addresses are multiples of this.
 K_ALIGN = 16
 
-#: The two kernels, by source name (``csrc/<name>.cu``).
+#: The three kernels, by source name (``csrc/<name>.cu``).
 WGMMA = "layered_matmul_wgmma"
 MMA_SYNC = "layered_matmul"
-KERNELS = (WGMMA, MMA_SYNC)
+GROUPED = "layered_matmul_grouped"
+KERNELS = (WGMMA, MMA_SYNC, GROUPED)
 
-#: Most planes each kernel is built for.
+#: Most planes the two register-resident kernels are built for; more go
+#: to :data:`GROUPED`, which takes any number.
 WGMMA_MAX_PLANES = 3
-MAX_PLANES = 4
+MMA_SYNC_MAX_PLANES = 4
 
-#: Kernel launches so far, of both kernels (incremented only where a CUDA
+#: Kernel launches so far, of all three kernels (incremented only where a CUDA
 #: kernel is launched; a caller resets it to 0 to count one run).
 launches = 0
 #: The same count per kernel; a caller resets each entry to 0 with it.
@@ -100,15 +107,17 @@ def kernel_for(m: int, M: int, N: int, K: int) -> str:
     on the card.
 
     m <= 3 -> :data:`WGMMA` (its L layers of 64-wide int32 accumulators
-    fit a warpgroup's registers); m = 4 -> :data:`MMA_SYNC`.  Raises
-    ``ValueError`` for more planes than either kernel is built for and for
-    an empty shape.
+    fit a warpgroup's registers); m = 4 -> :data:`MMA_SYNC`; m >= 5 ->
+    :data:`GROUPED` (at most seven layers a CTA).  Raises ``ValueError``
+    for m < 1 and for an empty shape.
     """
-    if not 1 <= m <= MAX_PLANES:
-        raise ValueError(f"kernel supports m <= {MAX_PLANES}, got m={m}")
+    if m < 1:
+        raise ValueError(f"kernel needs m >= 1 planes, got m={m}")
     if M <= 0 or N <= 0 or K <= 0:
         raise ValueError(f"empty product: M={M} N={N} K={K}")
-    return WGMMA if m <= WGMMA_MAX_PLANES else MMA_SYNC
+    if m <= WGMMA_MAX_PLANES:
+        return WGMMA
+    return MMA_SYNC if m <= MMA_SYNC_MAX_PLANES else GROUPED
 
 
 def _entry(name: str):
@@ -127,7 +136,7 @@ def _entry(name: str):
 def _kernel_operand(planes: torch.Tensor) -> torch.Tensor:
     """``planes`` as the kernel reads them: contiguous, 16-byte aligned,
     with K padded by zeros to a multiple of :data:`K_ALIGN`.  Planes from
-    ``ops`` already are; other planes are copied.  Both kernels take
+    ``ops`` already are; other planes are copied.  All three kernels take
     this: TMA zero-fills the rest of the wgmma kernel's 128-byte K
     slices."""
     R, K = planes.shape[1:]
@@ -154,8 +163,11 @@ def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int,
     N = b_km.shape[1]
     chosen = kernel_for(m, M, N, K)
     kernel = kernel or chosen
-    if kernel == WGMMA and chosen != WGMMA:
+    if kernel == WGMMA and m > WGMMA_MAX_PLANES:
         raise ValueError(f"{WGMMA} takes m <= {WGMMA_MAX_PLANES}, got m={m}")
+    if kernel == MMA_SYNC and m > MMA_SYNC_MAX_PLANES:
+        raise ValueError(f"{MMA_SYNC} takes m <= {MMA_SYNC_MAX_PLANES}, "
+                         f"got m={m}")
     _build.require_hopper(dev, kernel)
     fn = _entry(kernel)
     a_km = _kernel_operand(a_km)

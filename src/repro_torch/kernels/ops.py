@@ -92,10 +92,13 @@ def layered_matmul(a: torch.Tensor, b: torch.Tensor, *, m: int = 2,
     in int64/fp64 on the host.
     """
     partials = layered_matmul_partials(a, b, m=m, d=d)
-    L = partials.shape[0]
-    scales = torch.tensor([float(1 << ((2 * m - 2 - l) * d))
-                           for l in range(L)], dtype=torch.float32,
-                          device=partials.device)
+    # 2**((2m-2-l) d) as float32, built on the device from its exponent
+    # bits (exact for any m; no int64 shift, which ends at 2^62, and no
+    # copy from host memory); past 2^127 it is inf, as float32 of the
+    # reference's Python int is
+    shifts = d * torch.arange(2 * m - 2, -1, -1, dtype=torch.int32,
+                              device=partials.device)
+    scales = ((shifts.clamp(max=128) + 127) << 23).view(torch.float32)
     scaled = partials.to(torch.float32) * scales[:, None, None]
     return torch.cumsum(scaled, dim=0)
 

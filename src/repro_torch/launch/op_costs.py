@@ -232,7 +232,7 @@ def _fake_dtensor(meta: torch.Tensor, mesh, spec) -> DTensor:
 
 
 def cell_costs(cell, *, peak_memory: bool = False) -> Any:
-    """``cell.fn``'s per-device :class:`ModuleCosts` on fake DTensors shaped
+    """``cell.eager``'s per-device :class:`ModuleCosts` on fake DTensors shaped
     like ``cell.arg_shapes`` and laid out by ``cell.in_shardings``.  A
     decode cell steps at the last slot of its caches.  With
     ``peak_memory``, returns ``(costs, peak bytes per device)``, the peak
@@ -250,13 +250,13 @@ def cell_costs(cell, *, peak_memory: bool = False) -> Any:
         if cell.kind == "decode":
             args[1]["pos"] = cell.shape.seq_len - 1
         if not peak_memory:
-            return module_costs(cell.fn, *args)
+            return module_costs(cell.eager, *args)
         from torch.distributed._tools.mem_tracker import MemTracker
         tracker = MemTracker()
         tracker.track_external(*[x for a in args for x in tree_leaves(a)
                                  if isinstance(x, torch.Tensor)])
         with tracker:
-            costs = module_costs(cell.fn, *args)
+            costs = module_costs(cell.eager, *args)
         peak = tracker.get_tracker_snapshot("peak")
         # the mesh's device only: a meta tensor holds no memory
         return costs, float(max((snap.get("Total", 0)

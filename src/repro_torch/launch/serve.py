@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -68,6 +67,7 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import progressive
 from repro_torch.kernels import flash_attention
+from repro_torch.launch import graphs as graphs_lib
 from repro_torch.models import transformer as T
 from repro_torch.runtime import RuntimeConfig, ServingGateway
 from repro_torch.tree import leaves, leaves_with_path, tree_map
@@ -151,23 +151,16 @@ class _DecodeGraph:
         self.caches = caches
         self.tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((), dtype=torch.int64, device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.no_grad():
-            for _ in range(2):
-                server._step(self.tok.clone(), self.pos.clone(), caches,
-                             release)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        start = time.perf_counter()
-        # torch.cuda.graph synchronizes and empties the cache on entry, so
-        # what is reserved during the capture is the graph's private pool
-        with torch.no_grad(), torch.cuda.graph(self.graph):
-            reserved = torch.cuda.memory_reserved(dev)
-            self.out = server._step(self.tok, self.pos, caches, release)
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - start
+        # the warm-up steps copies of tok and pos: the capture starts
+        # from the buffers as they are
+        with torch.no_grad():
+            rec = graphs_lib.record(
+                lambda: server._step(self.tok, self.pos, caches, release),
+                dev, warm=lambda: server._step(
+                    self.tok.clone(), self.pos.clone(), caches, release))
+        self.graph, self.out = rec.graph, rec.out
+        self.pool_bytes, self.capture_seconds = (rec.pool_bytes,
+                                                 rec.capture_seconds)
 
     def start(self, tokens: torch.Tensor, pos: int) -> None:
         """Load the first token (B, 1) and its position."""

@@ -16,6 +16,11 @@ card), then applies the optimizer.  ``TrainConfig.bf16_weight_gather``
 casts the fp32 master weights to the compute dtype before use, and
 ``bf16_grads`` differentiates with respect to that cast copy and takes
 the gradients back to fp32 for the update, as the reference's do.
+
+The reference ``jax.jit``s every cell; on a card ``build_cell``'s ``fn``
+replays the cell from CUDA graphs instead (``launch.graphs``, one capture
+per argument signature), and :func:`graph_step` does the same for a step
+on plain tensors (``launch.train.train_loop``'s).
 """
 
 from __future__ import annotations
@@ -33,13 +38,16 @@ from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, \
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.axes import (laid_out_like, mesh_context,
                                      placements)
+from repro_torch.launch.graphs import (COPY, DONATE, INOUT, REF,
+                                       GraphedStep, wants_graphs)
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
 from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 __all__ = ["make_grad_fn", "make_train_step", "make_prefill_step",
-           "make_serve_step", "build_cell", "Cell", "laid_out"]
+           "make_serve_step", "build_cell", "Cell", "graph_step",
+           "laid_out"]
 
 
 def _cast_for_compute(params, cfg: ModelConfig):
@@ -174,10 +182,14 @@ class Cell:
     ``fn(*args)`` takes ``arg_shapes``'s structure: plain tensors are
     placed by ``in_shardings``' specs, DTensors redistributed to them; the
     step runs inside ``mesh_context(mesh, profile)`` (plain tensors made
-    inside it, such as positions, count as replicated), and its outputs
-    come back laid out by ``out_shardings``.  ``costs()`` is the
-    reference's ``lower()``: the per-device :class:`~repro_torch.launch.
-    op_costs.ModuleCosts` of one call on fake copies of ``arg_shapes``.
+    inside it count as replicated), and its outputs come back laid out by
+    ``out_shardings``.  A decode cell's ``fn`` takes the position as an
+    int or a 0-d int64 tensor and steps at a tensor either way.  On a
+    card ``fn`` replays ``graph`` (a :class:`~repro_torch.launch.graphs.
+    GraphedStep`; None where the cell runs eagerly); ``eager`` is the
+    same step run op by op.  ``costs()`` is the reference's ``lower()``:
+    the per-device :class:`~repro_torch.launch.op_costs.ModuleCosts` of
+    one ``eager`` call on fake copies of ``arg_shapes``.
     """
 
     cfg: ModelConfig
@@ -189,9 +201,11 @@ class Cell:
     in_shardings: tuple          # NamedSharding trees, as arg_shapes
     out_shardings: Any
     profile: str = "tp_fsdp"
+    eager: Optional[Callable] = None
+    graph: Any = None
 
     def costs(self, *, peak_memory: bool = False):
-        """Per-device costs of one call of ``fn`` on fake DTensors shaped
+        """Per-device costs of one ``eager`` call on fake DTensors shaped
         like ``arg_shapes`` (see ``launch.op_costs.cell_costs``)."""
         from repro_torch.launch.op_costs import cell_costs
         return cell_costs(self, peak_memory=peak_memory)
@@ -207,12 +221,26 @@ def _spec_tree(tree):
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig | str, mesh,
                tcfg: Optional[TrainConfig] = None,
-               profile: str = "tp_fsdp") -> Cell:
+               profile: str = "tp_fsdp",
+               graphs: Optional[bool] = None) -> Cell:
     """The (arch x shape x mesh) cell with the reference's specs:
     parameters by ``sharding.param_specs``, optimizer state by
     ``opt_state_specs``, the batch over the batch axes, decode caches by
     ``cache_specs_tree``; logits with batch over the batch axes and vocab
-    over ``model``."""
+    over ``model``.
+
+    ``graphs`` (default: on for a card mesh) runs ``fn`` from CUDA graphs,
+    the counterpart of the reference's ``jax.jit``
+    (:class:`~repro_torch.launch.graphs.GraphedStep`, one capture per
+    argument signature): a train cell donates its parameters and
+    optimizer state (it returns them updated in the graph's buffers,
+    which a caller passes back), prefill and decode read the parameters
+    in place (parameters laid out beforehand, :func:`laid_out`, share
+    one capture; plain ones are placed anew each call, and each call
+    then captures anew in place of the last), decode writes the caller's
+    caches as eagerly, and every other output is a copy of its own.  ``graphs=False`` runs eagerly; a
+    CPU mesh has no graphs, so ``graphs=True`` there raises.
+    """
     if isinstance(shape, str):
         shape = SHAPES[shape]
     kind, batch_shapes = registry.input_specs(cfg, shape)
@@ -262,8 +290,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig | str, mesh,
     named_in = sh.named(mesh, in_specs)
     named_out = sh.named(mesh, out_specs)
 
-    def run(*args, _step=step):
-        args = tuple(laid_out(a, mesh, s) for a, s in zip(args, in_specs))
+    def body(*args, _step=step):
+        """The step on arguments already laid out, its outputs laid out."""
         with mesh_context(mesh, profile), implicit_replication():
             out = _step(*args)
         if kind == "train":
@@ -275,6 +303,47 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig | str, mesh,
                      for k, v in metrics.items()})
         return laid_out(out, mesh, out_specs)
 
+    def place(args):
+        return tuple(laid_out(a, mesh, s) for a, s in zip(args, in_specs))
+
+    def eager(*args):
+        return body(*place(args))
+
+    graph = None
+    if wants_graphs(graphs, mesh.device_type):
+        graph = graph_step(body, kind)
+
+    def run(*args):
+        if kind == "decode" and not isinstance(args[1]["pos"],
+                                               torch.Tensor):
+            # one position tensor, so one capture serves every position
+            args = (args[0], dict(args[1], pos=torch.tensor(
+                args[1]["pos"], dtype=torch.int64,
+                device=mesh.device_type)))
+        args = place(args)
+        return body(*args) if graph is None else graph(*args)
+
     return Cell(cfg=cfg, shape=shape, mesh=mesh, kind=kind, fn=run,
                 arg_shapes=arg_shapes, in_shardings=named_in,
-                out_shardings=named_out, profile=profile)
+                out_shardings=named_out, profile=profile, eager=eager,
+                graph=graph)
+
+
+def graph_step(step: Callable, kind: str) -> GraphedStep:
+    """``step`` (a ``make_*_step`` function of ``kind``: train, prefill or
+    decode) replayed from CUDA graphs, with a cell's argument roles:
+    ``build_cell``'s ``graphs`` for steps on plain tensors."""
+    return GraphedStep(step, _CELL_ROLES[kind],
+                       writeback={0: 0, 1: 1} if kind == "train" else None)
+
+
+#: each cell argument's role in its CUDA graph (``launch.graphs``): a
+#: train step donates its parameters and optimizer state, as the
+#: reference's ``donate_argnums=(0, 1)``; prefill and decode read the
+#: parameters in place; decode updates its caches in place
+_CELL_ROLES = {
+    "train": lambda a, path: DONATE if a < 2 else COPY,
+    "prefill": lambda a, path: REF if a == 0 else COPY,
+    "decode": lambda a, path: (REF if a == 0 else
+                               INOUT if path[0] == "caches" else COPY),
+}

@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import signal
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -45,6 +46,7 @@ from repro_torch.configs.base import (AttentionConfig, ModelConfig,
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import fault
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.graphs import wants_graphs
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_map
 
@@ -92,7 +94,8 @@ def _whole(tree):
 def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,
                steps: int, ckpt_dir: str | None = None, ckpt_every: int = 100,
                resume: bool = False, log_every: int = 10, seed: int = 0,
-               device: str | torch.device = "cuda", mesh=None) -> dict:
+               device: str | torch.device = "cuda", mesh=None,
+               graphs: Optional[bool] = None) -> dict:
     """Train ``steps`` steps (from the latest checkpoint with ``resume``),
     on ``device`` or, with ``mesh``, through the mesh's train cell (the
     mesh's device; parameters and state come back as DTensors).
@@ -102,23 +105,39 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,
     reference's driver feeds zeros, on which internvl2-1b's gradients
     overflow at full depth (ROADMAP R7).
 
+    ``graphs`` (default: on for a card) replays the train step from a
+    CUDA graph, as the reference steps through its jitted cell: the first
+    step captures forward, backward, the optimizer's update and the
+    write-back of the new parameters and state into the graph's buffers
+    (the counterpart of ``donate_argnums=(0, 1)``; a resume loads the
+    checkpoint before that), each later step copies its batch into the
+    graph's and replays, the loss and gradient norm are read only on
+    logged steps, checkpoints are saved from the graph's buffers, and
+    those are what comes back.  ``graphs=False`` steps eagerly; the CPU
+    has no graphs, so ``graphs=True`` there raises.
+
     Returns ``losses`` ([(step, loss)] every ``log_every`` steps and at
     the last), ``grad_norms`` (the same steps' gradient norms, before
     clipping), ``step_seconds`` (host wall time of each step run, each
     ending in a read of its loss where one is logged), ``params`` and
-    ``opt_state``.
+    ``opt_state``, and ``graph`` (the step's
+    :class:`~repro_torch.launch.graphs.GraphedStep`, or None eagerly).
     """
     _check_unsupported(tcfg)
     dev = resolve_device(mesh.device_type if mesh is not None else device)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
                        global_batch=batch, seed=seed, device=str(dev))
     train_step, optimizer = steps_lib.make_train_step(cfg, tcfg)
+    graph = None
+    if mesh is None and wants_graphs(graphs, dev.type):
+        train_step = graph = steps_lib.graph_step(train_step, "train")
     params = T.init_params(cfg, seed=seed, device=dev)
     opt_state = optimizer.init(params)
     if mesh is not None:
         cell = steps_lib.build_cell(cfg, ShapeConfig("train", seq, batch,
-                                                     "train"), mesh, tcfg)
-        train_step = cell.fn
+                                                     "train"), mesh, tcfg,
+                                    graphs=graphs)
+        train_step, graph = cell.fn, cell.graph
         # a restore needs only the shapes: the cell's meta stand-ins, so
         # no rank keeps a whole copy beside its shards
         template = {"params": cell.arg_shapes[0], "opt": cell.arg_shapes[1]}
@@ -190,7 +209,7 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, batch: int, seq: int,
             signal.signal(signal.SIGTERM, previous_handler)
     return {"losses": losses, "grad_norms": grad_norms,
             "step_seconds": step_seconds, "params": params,
-            "opt_state": opt_state}
+            "opt_state": opt_state, "graph": graph}
 
 
 def main(argv=None) -> int:

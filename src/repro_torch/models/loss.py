@@ -41,8 +41,10 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                                   targets[..., None].to(torch.int64))[..., 0]
     nll = lse - true_logit                                     # (B, S)
     if mask is None:
-        denom = torch.tensor(float(nll.numel()), dtype=torch.float32,
-                             device=nll.device)
+        # a fill on the device, not a copy from host memory (which a CUDA
+        # graph capture refuses)
+        denom = torch.full((), float(nll.numel()), dtype=torch.float32,
+                           device=nll.device)
         loss = _total(nll) / denom
     else:
         m = mask.to(torch.float32)

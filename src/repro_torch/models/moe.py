@@ -79,6 +79,14 @@ def _expert_ffn(expert_in, wg, wu, wd):
     return einsum("gecf,efd->gecd", h, wd)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as a comparison: the same int64 values, with
+    no range check (``one_hot`` reads the indices' min and max on the host
+    for a CPU tensor, which a CUDA graph's capture path must not do)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(
+        torch.int64)
+
+
 def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
               group_size: int | None = None) -> torch.Tensor:
     """Apply the routed-expert FFN to x (..., D); returns the same shape."""
@@ -105,7 +113,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
     # a running count over the group's (token, choice) pairs per expert,
     # taken along the innermost dim (a scan along an outer dim of a CUDA
     # tensor runs one thread per column)
-    flat = F.one_hot(idx, E).to(torch.int32).reshape(G, Tg * k, E)
+    flat = _one_hot(idx, E).to(torch.int32).reshape(G, Tg * k, E)
     # dim=2, not -1: DTensor scans a sharded dim named from the end
     # shard by shard (torch 2.13)
     pos = torch.cumsum(flat.transpose(1, 2), dim=2).transpose(1, 2) - 1
@@ -119,8 +127,8 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
     # (G, Tg, E, C) dispatch/combine pair is live.
     dispatch = combine = None
     for kk in range(k):
-        oh = (F.one_hot(idx[..., kk], E).to(dtype)[..., None]
-              * F.one_hot(pos[..., kk], capacity + 1)[..., :capacity]
+        oh = (_one_hot(idx[..., kk], E).to(dtype)[..., None]
+              * _one_hot(pos[..., kk], capacity + 1)[..., :capacity]
               .to(dtype)[..., None, :])            # (G, Tg, E, C)
         weighted = oh * gates[..., kk, None, None].to(dtype)
         dispatch = oh if dispatch is None else dispatch + oh

@@ -378,25 +378,24 @@ def _write_slot(cache: torch.Tensor, index,
                 value: torch.Tensor) -> None:
     """``cache[:, index:index + n] = value`` in place (n = value's dim 1).
 
-    ``index`` is an int, or for a plain cache a 0-d int64 tensor on its
-    device (a traced position: the write is an ``index_copy_`` that reads
-    the slot on the device, so a CUDA graph replays it at every step).
-    A plain cache raises ``IndexError`` for slots past its end, at an int
-    as at a tensor (where on the card it is a device-side assert).
+    ``index`` is an int or a 0-d int64 tensor on the cache's device (a
+    traced position: the write reads the slot on the device, so a CUDA
+    graph replays it at every step).  A plain cache raises ``IndexError``
+    for slots past its end, at an int as at a tensor (where on the card it
+    is a device-side assert).
 
     A DTensor cache may be split along dim 1 (a context-parallel KV cache);
     DTensor would gather such a dim to slice it and write into the copy,
-    so each rank writes the slots it holds into its own shard instead.
+    so each rank writes the slots it holds into its own shard instead
+    (:func:`_write_local`), at an int or at a tensor position alike.
     """
     n = value.shape[1]
-    if isinstance(index, torch.Tensor):
-        if isinstance(cache, DTensor):
-            raise TypeError("a sharded cache is written at an int position")
-        slots = index + torch.arange(n, dtype=torch.int64,
-                                     device=cache.device)
-        cache.index_copy_(1, slots, value.to(cache.dtype))
-        return
     if not isinstance(cache, DTensor):
+        if isinstance(index, torch.Tensor):
+            slots = index + torch.arange(n, dtype=torch.int64,
+                                         device=cache.device)
+            cache.index_copy_(1, slots, value.to(cache.dtype))
+            return
         if index + n > cache.shape[1]:     # as index_copy_ at a tensor index
             raise IndexError(f"slots {index}..{index + n - 1} are out of "
                              f"bounds for a cache of {cache.shape[1]}")
@@ -414,9 +413,35 @@ def _write_slot(cache: torch.Tensor, index,
         if p.is_shard(1):
             shard = shard * mesh.size(dim) + coordinate[dim]
     lo = shard * local.shape[1]
+    if isinstance(index, torch.Tensor):
+        if isinstance(index, DTensor):     # a position, the same on every rank
+            index = index.to_local()
+        _write_local(local, index - lo, value)
+        return
     first, last = max(index, lo), min(index + n, lo + local.shape[1])
     if first < last:
         local[:, first - lo:last - lo] = value[:, first - index:last - index]
+
+
+def _write_local(local: torch.Tensor, start: torch.Tensor,
+                 value: torch.Tensor) -> None:
+    """``local[:, start:start + n] = value`` for the slots that lie in
+    ``local`` (``start`` a 0-d device tensor, maybe negative or past the
+    end), with static shapes and no host read: the slots ``start + i``
+    of each run of at most ``S = local.shape[1]`` consecutive ones are
+    distinct mod S, so ``index_copy_`` at ``(start + i) mod S`` writes each
+    slot once, the value where it lies in the shard and the slot's own
+    entry back where it does not."""
+    S = local.shape[1]
+    bcast = (1, -1) + (1,) * (local.ndim - 2)
+    for c0 in range(0, value.shape[1], S):
+        v = value[:, c0:c0 + S].to(local.dtype)
+        k = start + c0 + torch.arange(v.shape[1], dtype=torch.int64,
+                                      device=local.device)
+        slots = torch.remainder(k, S)
+        inside = ((k >= 0) & (k < S)).view(bcast)
+        local.index_copy_(1, slots, torch.where(
+            inside, v, local.index_select(1, slots)))
 
 
 def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
@@ -571,11 +596,14 @@ def _run_layer(remat: bool, kind: str, p: dict, x: torch.Tensor,
                cfg: ModelConfig, positions: torch.Tensor, enc_kv=None):
     """One layer's forward; with ``remat`` under grad, its activations
     are recomputed in backward (``torch.utils.checkpoint``, the
-    reference's ``_remat``) and no cache is kept."""
+    reference's ``_remat``) and no cache is kept.  The forward draws no
+    random numbers, so the recompute keeps no RNG state (saving the
+    card's RNG state is refused inside a CUDA graph capture)."""
     if remat and torch.is_grad_enabled():
         return checkpoint(lambda h: _layer_fwd(kind, p, h, cfg, positions,
                                                enc_kv)[0],
-                          x, use_reentrant=False), None
+                          x, use_reentrant=False,
+                          preserve_rng_state=False), None
     return _layer_fwd(kind, p, x, cfg, positions, enc_kv)
 
 
@@ -728,7 +756,10 @@ def hidden_step(params: dict, token: torch.Tensor, caches, pos,
     every position-dependent step (rope, the cache slot, the ring's slot
     and mask) is device arithmetic, nothing reads it on the host, and one
     captured CUDA graph serves every position (the reference traces
-    ``pos`` under ``jax.jit``).  A sharded (DTensor) cache takes an int.
+    ``pos`` under ``jax.jit``).  So on a mesh too, where ``pos`` may be a
+    replicated 0-d DTensor: each rank writes the slots its cache shards
+    hold (:func:`_write_slot`), a context-parallel split of the cache
+    among them, and nothing is gathered.
 
     Caches are updated in place: the stacked tensors of ``caches`` hold the
     new entries when this returns (the reference donates them instead).

@@ -191,6 +191,55 @@ def _full(tree):
                                else x), tree)
 
 
+def _owned_tree(tree):
+    """A tree's tensors copied into storage of their own, DTensors laid out
+    as they were."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    def one(x):
+        if isinstance(x, DTensor):
+            return DTensor.from_local(x.to_local().clone(), x.device_mesh,
+                                      x.placements, run_check=False,
+                                      shape=x.shape, stride=x.stride())
+        return x.clone() if isinstance(x, torch.Tensor) else x
+    return tree_map(one, tree)
+
+
+def write_slot_run(rank, world, data, model):
+    """``models.transformer._write_slot`` on a (data, model) mesh of this
+    group, into DTensor caches (B 4, S 8, H 4, D 3) laid out with the
+    batch over ``data`` and S (a context-parallel split), the heads, or
+    nothing over ``model``: each case written at an int index and at the
+    same index as a 0-d int64 tensor, runs of 1 to 8 slots, some within
+    one shard, some straddling shards, one covering all.  Returns, by
+    case, (the int write, the tensor write, the plain write), each whole."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    mesh = mesh_lib.make_test_mesh(data, model, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    base = torch.randn(4, 8, 4, 3, generator=gen)
+    layouts = {"seq": [Shard(0), Shard(1)], "heads": [Shard(0), Shard(2)],
+               "replicated": [Replicate(), Replicate()]}
+    out = {}
+    for name, pl in layouts.items():
+        for index, n in ((0, 1), (5, 1), (7, 1), (1, 3), (3, 2), (0, 8),
+                         (6, 2)):
+            value = torch.randn(4, n, 4, 3, generator=gen)
+            at_int = distribute_tensor(base.clone(), mesh, pl)
+            at_tensor = distribute_tensor(base.clone(), mesh, pl)
+            T._write_slot(at_int, index, value)
+            T._write_slot(at_tensor, torch.tensor(index), value)
+            want = base.clone()
+            want[:, index:index + n] = value
+            out[(name, index, n)] = (at_int.full_tensor(),
+                                     at_tensor.full_tensor(), want)
+    return out
+
+
 def cell_inputs(arch: str, dtype: str = "float32", batch: int = 4,
                 seq: int = 16, seed: int = 0):
     """``arch``'s smoke config at ``dtype`` with its seeded host params and
@@ -215,10 +264,11 @@ def cell_run(rank, world, arch, data, model, parts=("serve", "train"),
     """The cells of ``arch``'s smoke config on a (data, model) mesh of this
     group.  Part "serve": prefill of a 16-token prompt (caches for 20,
     which split over 2 and 4 ranks), then one decode step from its caches
-    (DTensors handed on as they come).  Part "train": one AdamW step (the
+    (DTensors handed on as they come); part "prefill": the prefill alone.  Part "train": one AdamW step (the
     default ``TrainConfig``).  Every output as a full tensor, with the
     placements of the prefill's outputs and of the new parameters and opt
-    state, by leaf, and the rank's mesh coordinate."""
+    state, by leaf, and the rank's mesh coordinate.  "decode" steps at a
+    tensor position (``fn``), "decode_int" at the int one (``eager``)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs.base import ShapeConfig, TrainConfig
@@ -230,15 +280,22 @@ def cell_run(rank, world, arch, data, model, parts=("serve", "train"),
                                                        seed=seed)
     B, S = targets.shape
     out = {"coords": mesh.get_coordinate()}
-    if "serve" in parts:
+    if "serve" in parts or "prefill" in parts:
         pre = steps.build_cell(cfg, ShapeConfig("p", S + 4, B, "prefill"),
                                mesh)
         logits, caches = pre.fn(params, dict(extras, tokens=tokens[:, :S]))
         out["prefill"] = _full((logits, caches))
         out["prefill_placements"] = [tuple(x.placements)
                                      for x in leaves((logits, caches))]
+    if "serve" in parts:
         dec = steps.build_cell(cfg, ShapeConfig("d", S + 4, B, "decode"),
                                mesh)
+        # the same step at an int position, on a copy of the caches (the
+        # step writes them in place); then at a tensor one, as ``fn``
+        # steps
+        at_int = dec.eager(params, {"token": tokens[:, S:], "pos": S,
+                                    "caches": _owned_tree(caches)})
+        out["decode_int"] = _full(at_int)
         out["decode"] = _full(dec.fn(params, {"token": tokens[:, S:],
                                               "pos": S, "caches": caches}))
     if "train" in parts:

@@ -146,6 +146,84 @@ def _run_with_faults(cfg, num_jobs, inject, join_timeout=120.0):
     return holder["out"]
 
 
+def _run_stream_with_faults(cfg, min_jobs, inject, *, settle=3.0,
+                            join_timeout=120.0):
+    """:func:`_run_with_faults` with a stream that waits for what the
+    fault schedule tests instead of for the clock.
+
+    Jobs (:func:`make_jobs`' operands, Poisson at ``cfg.arrival_rate``)
+    enter an open :class:`JobQueue` served by ``Master.serve_queue`` until
+    at least ``min_jobs`` have arrived, ``inject()`` has returned and
+    ``settle`` more seconds have passed; then the queue closes and the
+    master drains it.  So a schedule that revives a worker host, whose
+    fresh interpreter may take seconds to start under load, still has
+    rounds running after it is back, for the master to re-dial it.  The
+    whole run is bounded by ``join_timeout``.
+    """
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.runtime import JobQueue, Master, make_jobs
+    from repro_torch.runtime.worker import clock
+
+    start = time.monotonic()
+    master = Master(cfg, verify=True)
+    queue = JobQueue()
+    holder: dict = {}
+
+    def drive():
+        try:
+            holder["out"] = master.serve_queue(queue)
+        except BaseException as e:
+            holder["err"] = e
+
+    def fault():
+        try:
+            inject()
+        except BaseException as e:
+            holder["inject_err"] = e
+        holder["injected_at"] = time.monotonic()
+
+    t = threading.Thread(target=drive, daemon=True, name="fault-stream")
+    t.start()
+    while not master.started.wait(0.05):
+        if not t.is_alive():
+            raise holder.get("err") or RuntimeError("master never started")
+    f = threading.Thread(target=fault, daemon=True, name="fault-inject")
+    f.start()
+    rng = np.random.default_rng(cfg.seed)
+    # operands drawn in batches; arrival stamped on the master's clock
+    gaps = rng.exponential(1.0 / cfg.arrival_rate, size=100_000)
+    jobs, n = [], 0
+    try:
+        while time.monotonic() - start < join_timeout:
+            injected = holder.get("injected_at")
+            if (n >= min_jobs and injected is not None
+                    and time.monotonic() - injected >= settle):
+                break
+            if not t.is_alive():
+                break
+            time.sleep(gaps[n % len(gaps)])
+            if not jobs:
+                jobs = make_jobs(cfg, 64, K=64, M=8, N=8, rng=rng)
+            job = jobs.pop(0)
+            queue.put(dataclasses.replace(
+                job, job_id=n, arrival=clock() - master.t0))
+            n += 1
+    finally:
+        queue.close()
+    t.join(max(1.0, join_timeout - (time.monotonic() - start)))
+    f.join(10.0)
+    if t.is_alive():
+        pytest.fail(f"run hung >{join_timeout:.0f}s under fault injection")
+    if "inject_err" in holder:
+        raise holder["inject_err"]
+    if "err" in holder:
+        raise holder["err"]
+    return holder["out"]
+
+
 def _runtime_worker_threads() -> list[str]:
     return [t.name for t in threading.enumerate()
             if t.name.startswith("runtime-")]

@@ -25,6 +25,12 @@ and cache specs, ``launch.steps.build_cell``, ``train_loop(mesh=)``).
   ``test_torch_cells_ranks.py``, which needs no JAX.
 * ``train_loop(mesh=)`` for 3 steps against ``train_loop()`` (losses within
   rtol 1e-5), also on (2, 2) with a checkpoint and a resume.
+* What the card's CUDA graphs need (``launch.graphs``): the decode cell
+  at a 0-d tensor position against the reference (1e-4) and against the
+  int position (bit-equal); ``_write_slot`` into one-rank DTensor caches
+  at a tensor index; the train, prefill and decode steps of every family
+  with no host read (a dispatch mode that raises on one); and
+  ``graphs=True`` raising on the CPU.
 """
 
 import dataclasses
@@ -40,6 +46,7 @@ import _torch_dist  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 from torch.distributed.tensor import DTensor, Replicate, Shard  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.configs import registry as jreg  # noqa: E402
 from repro.configs.base import TrainConfig as JTrainConfig  # noqa: E402
@@ -339,15 +346,109 @@ def test_one_rank_cell_equals_the_plain_steps(one_rank):
         assert torch.equal(g.full_tensor(), w)
 
 
+def test_one_rank_sharded_cache_writes_at_a_tensor_position(one_rank):
+    """``_write_slot`` into one-rank DTensor caches: at a 0-d tensor index
+    as at the int index, both as a plain slice assignment (the four-rank
+    splits are in ``test_torch_cells_ranks.py``)."""
+    cases = _torch_dist.write_slot_run(0, 1, 1, 1)
+    assert len(cases) == 21
+    for case, (at_int, at_tensor, want) in cases.items():
+        assert torch.equal(at_int, want), case
+        assert torch.equal(at_tensor, want), case
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-370m",
+                                  "recurrentgemma-9b", "whisper-tiny",
+                                  "internvl2-1b", "qwen2-moe-a2.7b"])
+def test_decode_cell_at_a_tensor_position_matches_reference(one_rank, arch):
+    """The decode cell given its position as a 0-d int64 tensor (what its
+    CUDA graph replays at every position) against the reference's serve
+    step with no ambient mesh (ROADMAP R1), as the int position within
+    1e-4; and against the same cell stepped eagerly at the int position,
+    bit for bit."""
+    ref = _reference_run(arch)
+    cfg = ref["cfg"]
+    params = convert.to_torch(ref["params"], "cpu")
+    tokens = torch.from_numpy(ref["tokens"])
+    extras = {k: torch.from_numpy(v) for k, v in ref["extras"].items()}
+    mesh = mesh_lib.make_test_mesh(1, 1, device="cpu")
+    pre = steps.build_cell(cfg, ShapeConfig("p", S + 4, B, "prefill"), mesh)
+    _, caches = pre.fn(params, dict(extras, tokens=tokens[:, :S]))
+    dec = steps.build_cell(cfg, ShapeConfig("d", S + 4, B, "decode"), mesh)
+    at_int = dec.eager(params, {"token": tokens[:, S:], "pos": S,
+                                "caches": _torch_dist._owned_tree(caches)})
+    out = dec.fn(params, {"token": tokens[:, S:],
+                          "pos": torch.tensor(S), "caches": caches})
+    _close_tree(out, ref["decode"], "decode")
+    assert not _torch_dist.cell_mismatches(_torch_dist._full(out),
+                                           _torch_dist._full(at_int),
+                                           tol=0.0)
+
+
+class _NoHostReads(TorchDispatchMode):
+    """Raises on an op that reads a device value on the host (``.item()``,
+    ``bool()``, ``nonzero``): inside a CUDA graph capture each is a sync
+    the capture refuses."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten._local_scalar_dense.default,
+                    torch.ops.aten.nonzero.default):
+            raise AssertionError(f"host read: {func}")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES.values()))
+def test_steps_read_nothing_on_the_host(arch):
+    """The train, prefill and decode steps (the decode at a tensor
+    position) run on the CPU under a dispatch mode that raises on
+    ``aten._local_scalar_dense`` and ``aten.nonzero``: what the card's
+    graphs capture makes no host read (remat on, as the configs train)."""
+    cfg, params, tokens, targets, extras = _torch_dist.cell_inputs(
+        arch, "float32", batch=2, seq=8)
+    step, optimizer = steps.make_train_step(cfg, TrainConfig())
+    state = optimizer.init(params)
+    batch = dict(extras, tokens=tokens[:, :8])
+    with _NoHostReads():
+        step(params, state, dict(batch, targets=targets))
+        _, caches = steps.make_prefill_step(cfg, 12)(params, batch)
+        steps.make_serve_step(cfg)(params, {
+            "token": tokens[:, 8:], "pos": torch.tensor(8),
+            "caches": caches})
+
+
+def test_graphs_true_raises_on_the_cpu(one_rank):
+    """The CPU has no CUDA graphs: asking for them raises, never falls
+    back to eager."""
+    cfg = registry.get_smoke_config("llama3-8b")
+    mesh = mesh_lib.make_test_mesh(1, 1, device="cpu")
+    for kind in KINDS:
+        with pytest.raises(ValueError, match="graphs=True needs a card"):
+            steps.build_cell(cfg, ShapeConfig("c", 16, 2, kind), mesh,
+                             graphs=True)
+        assert steps.build_cell(cfg, ShapeConfig("c", 16, 2, kind),
+                                mesh).graph is None
+    with pytest.raises(ValueError, match="graphs=True needs a card"):
+        train_lib.train_loop(cfg, TrainConfig(), batch=2, seq=8, steps=1,
+                             device="cpu", graphs=True)
+    step, _ = steps.make_train_step(cfg, TrainConfig())
+    params = T.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="CUDA graphs need card tensors"):
+        steps.graph_step(step, "train")(params, {}, {})
+
+
 # ---------------------------------------------------------------------------
 # Four gloo ranks against one
 # ---------------------------------------------------------------------------
 
 def _spawned(tmp_path_factory, arch):
-    """Each rank's :func:`_torch_dist.cell_run` of ``arch``'s serve and
-    train parts on four spawned ranks on (data 2, model 2)."""
+    """Each rank's :func:`_torch_dist.cell_run` of ``arch``'s prefill and
+    train parts on four spawned ranks on (data 2, model 2): what the
+    placements are read from, and no decode step (its values are held in
+    ``test_torch_cells_ranks.py``), so the spawn stays well inside its
+    deadline in a loaded run."""
     return _torch_dist.run_ranks(tmp_path_factory.mktemp("cells"), 4,
-                                 _torch_dist.cell_run, arch, 2, 2)
+                                 _torch_dist.cell_run, arch, 2, 2,
+                                 ("prefill", "train"))
 
 
 def _expected_placements(spec, mesh_axes):

@@ -76,3 +76,38 @@ def test_four_rank_cells_match_one_rank(tmp_path_factory, mesh_shape,
         for kind in _KINDS[part]:
             failures = _torch_dist.cell_mismatches(got[kind], want[kind])
             assert not failures, (r, kind, failures[:5])
+
+
+@pytest.mark.parametrize("mesh_shape,arch", [
+    (m, a) for m, archs in SPAWNED.items() for a in archs],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_four_rank_decode_at_a_tensor_position_equals_an_int(
+        tmp_path_factory, mesh_shape, arch):
+    """The decode cell steps at a 0-d int64 position (one CUDA graph for
+    every position); on every rank its outputs and caches equal, bit for
+    bit, the same step at the int position: each rank writes the slots its
+    cache shards hold (the context-parallel split of the grouped-query
+    archs on (1, 4) among them, recurrentgemma-9b's local-attention
+    ring), and nothing is gathered."""
+    runs = _spawned(tmp_path_factory, mesh_shape, arch, "serve")
+    for r, got in enumerate(runs):
+        failures = _torch_dist.cell_mismatches(got["decode"],
+                                               got["decode_int"], tol=0.0)
+        assert not failures, (r, failures[:5])
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)],
+                         ids=lambda v: "x".join(map(str, v)))
+def test_sharded_cache_writes_at_a_tensor_position(tmp_path, mesh_shape):
+    """``_write_slot`` into DTensor caches on four ranks, the sequence
+    (dim 1), the heads or nothing split over ``model``: at a 0-d tensor
+    index it writes exactly what the int index writes and what a plain
+    slice assignment writes, for runs inside one shard, straddling two,
+    and covering all (8 slots over shards of 2 on (1, 4))."""
+    runs = _torch_dist.run_ranks(tmp_path, 4, _torch_dist.write_slot_run,
+                                 *mesh_shape)
+    for r, cases in enumerate(runs):
+        assert len(cases) == 21
+        for case, (at_int, at_tensor, want) in cases.items():
+            assert torch.equal(at_int, want), (r, case)
+            assert torch.equal(at_tensor, want), (r, case)

@@ -41,7 +41,7 @@ def _planes(rng, m, d, K, R, dev):
     return x, ops._planes_kmajor(x, m, d).to(dev)
 
 
-WGMMA, MMA_SYNC = lm.WGMMA, lm.MMA_SYNC
+WGMMA, MMA_SYNC, GROUPED = lm.WGMMA, lm.MMA_SYNC, lm.GROUPED
 
 
 @pytest.mark.parametrize("m,d,K,M,N,kernel", [
@@ -123,10 +123,11 @@ def test_fused_wrapper_on_card_matches_oracle(rng, hopper):
 
 
 @pytest.mark.parametrize("m,M,N,kernel", [(1, 4, 16, WGMMA),
-                                          (4, 4, 16, MMA_SYNC)])
+                                          (4, 4, 16, MMA_SYNC),
+                                          (5, 4, 16, GROUPED)])
 def test_kernels_wrap_past_int32_like_plain(hopper, m, M, N, kernel):
     """Every digit 127 over K = 140288: each plane product is 127**2 K =
-    2262705152, past 2**31.  Both kernels accumulate in int32 without
+    2262705152, past 2**31.  The kernels accumulate in int32 without
     saturation (no ``.satfinite``), so they wrap, as the reference's
     int32 accumulation and the plain version do."""
     K = 274 * 512
@@ -142,14 +143,52 @@ def test_kernels_wrap_past_int32_like_plain(hopper, m, M, N, kernel):
         assert (got == -2032262144).all()
 
 
-def test_too_many_planes_raise(hopper):
-    z = torch.zeros((5, 8, 16), dtype=torch.int8, device=hopper)
+@pytest.mark.parametrize("m,M,N,K", [
+    (5, 200, 328, 1008), (6, 65, 100, 4112), (7, 7, 9, 48),
+    (8, 200, 328, 1008), (5, 4096, 4096, 4096), (8, 4096, 4096, 4096)])
+def test_many_planes_match_plain(hopper, m, M, N, K):
+    """Past four planes the grouped kernel (seven layers a CTA, the groups
+    on grid.z) gives the plain version's partials bit for bit, ragged and
+    at 4096^3; the two register-resident kernels refuse what they were
+    not built for."""
+    gen = torch.Generator(device=hopper).manual_seed(m * 1000 + M)
+    pa = torch.randint(-128, 128, (m, M, K), generator=gen,
+                       device=hopper).to(torch.int8)
+    pb = torch.randint(-128, 128, (m, N, K), generator=gen,
+                       device=hopper).to(torch.int8)
+    before = lm.kernel_launches[GROUPED]
+    got = lm.layered_matmul_kmajor(pa, pb, m=m)
+    torch.cuda.synchronize()
+    assert lm.kernel_launches[GROUPED] == before + 1
+    assert torch.equal(got, lm.layered_matmul_plain(pa, pb, m=m))
+    z = torch.zeros((m, 8, 16), dtype=torch.int8, device=hopper)
     with pytest.raises(ValueError, match="m <= 4"):
-        lm.layered_matmul_kmajor(z, z, m=5)
-    # the mma.sync kernel's m = 4 is more than the wgmma kernel takes
-    z = torch.zeros((4, 8, 16), dtype=torch.int8, device=hopper)
+        lm._launch(z, z, m, kernel=MMA_SYNC)
     with pytest.raises(ValueError, match="m <= 3"):
-        lm._launch(z, z, 4, kernel=WGMMA)
+        lm._launch(z, z, m, kernel=WGMMA)
+
+
+def test_fused_wrapper_on_card_equals_cpu_past_int64_shifts(rng, hopper):
+    """``ops.layered_matmul`` at m = 6, d = 7 (scales 2^70 and 2^63 on
+    the top layers) on negative operands: the card's float32 resolutions
+    equal the CPU wrapper's, layer 0's row bit for bit (the same exact
+    partials times the same power of two), the rest to 1e-6 of the row's
+    largest term (the two cumulative sums may add in another order)."""
+    m, d = 6, 7
+    A = torch.from_numpy(rng.integers(-(1 << 30), 0, size=(64, 24))
+                         .astype(np.int32))
+    B = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, size=(64, 16))
+                         .astype(np.int32))
+    want = ops.layered_matmul(A, B, m=m, d=d)
+    got = ops.layered_matmul(A.to(hopper), B.to(hopper), m=m, d=d).cpu()
+    assert want[0].abs().max() > 2.0 ** 70
+    assert torch.equal(got[0], want[0])
+    terms = ops.layered_matmul_partials(A, B, m=m, d=d).double().abs() \
+        * torch.tensor([2.0 ** ((2 * m - 2 - l) * d)
+                        for l in range(2 * m - 1)],
+                       dtype=torch.float64)[:, None, None]
+    for l in range(2 * m - 1):
+        assert (got[l] - want[l]).abs().max() <= 1e-6 * terms[:l + 1].max()
 
 
 # ---------------------------------------------------------------------------
@@ -935,6 +974,8 @@ def test_card_cells_launch_the_kernels_and_equal_the_plain_steps(
     batch = {"tokens": tokens}
     if kind == "train":
         batch["targets"] = torch.roll(tokens, -1, 1)
+    # the eager step, which runs the wrappers once a call (the graphed
+    # cells are held against it below)
     cell = steps.build_cell(cfg, ShapeConfig("c", 64, 2, kind), card_mesh,
                             TrainConfig())
     if kind == "train":
@@ -944,7 +985,7 @@ def test_card_cells_launch_the_kernels_and_equal_the_plain_steps(
         step = steps.make_prefill_step(cfg, 64)
         args = (params, batch)
     before = mod.launches
-    got = cell.fn(*args)
+    got = cell.eager(*args)
     torch.cuda.synchronize()
     assert mod.launches - before == cfg.num_layers
     want = step(*args)
@@ -956,3 +997,146 @@ def test_card_cells_launch_the_kernels_and_equal_the_plain_steps(
             assert g.device_mesh == card_mesh
             g = g.full_tensor()
         assert g.is_cuda and torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The compiled cells and train step: CUDA graphs against eager
+# ---------------------------------------------------------------------------
+
+def _full_tree(tree):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: (x.full_tensor() if isinstance(x, DTensor)
+                               else x.clone() if isinstance(x, torch.Tensor)
+                               else x), tree)
+
+
+def _bit_equal(got, want):
+    from repro_torch.tree import leaves
+    g, w = leaves(_full_tree(got)), leaves(_full_tree(want))
+    assert len(g) == len(w)
+    for i, (a, b) in enumerate(zip(g, w)):
+        if isinstance(b, torch.Tensor):
+            assert torch.equal(a, b), i
+        else:
+            assert a == b, i
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "internvl2-1b"])
+def test_graph_train_loop_equals_eager(hopper, arch):
+    """``train_loop`` replaying its step from a CUDA graph (forward,
+    backward, AdamW and the write-back of parameters and state captured
+    once) against the same 3 steps eagerly: losses, gradient norms and
+    parameters bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+    cfg = registry.get_smoke_config(arch)
+    kw = dict(batch=2, seq=64, steps=3, log_every=1, device=hopper)
+    eager = train.train_loop(cfg, TrainConfig(), graphs=False, **kw)
+    graph = train.train_loop(cfg, TrainConfig(), **kw)
+    assert eager["graph"] is None and graph["graph"].captures == 1
+    assert graph["losses"] == eager["losses"]
+    assert graph["grad_norms"] == eager["grad_norms"]
+    _bit_equal((graph["params"], graph["opt_state"]),
+               (eager["params"], eager["opt_state"]))
+
+
+def test_graph_cells_equal_eager(card_mesh):
+    """llama3-8b's smoke prefill and decode cells and mamba2-370m's train
+    cell on the card's one-rank mesh, from CUDA graphs against the same
+    cells run eagerly, bit for bit: one capture per cell for two prefills,
+    four decode steps and two train steps; a later prefill leaves what an
+    earlier one returned as it was; decode writes the caller's caches."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    dev = torch.device("cuda", 0)
+    cfg = registry.get_smoke_config("llama3-8b")
+    params = T.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2, 37), generator=gen,
+                           device=dev)
+    cells = {kind: steps.build_cell(cfg, ShapeConfig("c", 40, 2, kind),
+                                    card_mesh)
+             for kind in ("prefill", "decode")}
+    placed = steps.laid_out(params, card_mesh,
+                            cells["prefill"].in_shardings[0])
+    outs = {}
+    for graphs in (False, True):
+        prefill, decode = (cells[k].fn if graphs else cells[k].eager
+                           for k in ("prefill", "decode"))
+        first = prefill(placed, {"tokens": tokens[0, :, :36]})
+        kept = _full_tree(first)
+        prefill(placed, {"tokens": tokens[1, :, :36]})
+        _bit_equal(first, kept)         # the later call left it alone
+        caches, token, steps_out = first[1], tokens[0, :, 36:], []
+        for i in range(4):
+            # the eager step at the position tensor the graph reads
+            pos = 36 + i if graphs else torch.tensor(36 + i, device=dev)
+            logits, nxt, got_caches = decode(placed, {
+                "token": token, "pos": pos, "caches": caches})
+            assert all(a is b for a, b in zip(leaves(got_caches),
+                                              leaves(caches)))
+            steps_out.append(_full_tree((logits, nxt)))
+            token = nxt.full_tensor()[:, None]
+        outs[graphs] = (kept, steps_out, _full_tree(caches))
+    _bit_equal(outs[True], outs[False])
+    assert [cells[k].graph.captures for k in ("prefill", "decode")] \
+        == [1, 1]
+
+    cfg = registry.get_smoke_config("mamba2-370m")
+    params = T.init_params(cfg, seed=0, device=dev)
+    step, optimizer = steps.make_train_step(cfg, TrainConfig())
+    batch = {"tokens": tokens[0, :, :32], "targets": tokens[0, :, 1:33]}
+    cell = steps.build_cell(cfg, ShapeConfig("t", 32, 2, "train"),
+                            card_mesh, TrainConfig())
+    runs = {}
+    for graphs in (False, True):
+        p, o = steps.laid_out((params, optimizer.init(params)), card_mesh,
+                              cell.in_shardings[:2])
+        metrics = []
+        for _ in range(2):
+            p, o, m = (cell.fn if graphs else cell.eager)(p, o, batch)
+            metrics.append(_full_tree(m))
+        runs[graphs] = (metrics, _full_tree((p, o)))
+    assert cell.graph.captures == 1
+    _bit_equal(runs[True], runs[False])
+
+
+def test_graph_cell_on_plain_parameters_holds_one_capture(card_mesh):
+    """A graphed prefill cell called with new plain parameters each call
+    (copies, so new storage whatever placing them does; the graph reads
+    them in place) captures each call; the new capture replaces the old,
+    so what the cell holds stays one graph and the card's memory does not
+    grow from the second call to the fourth."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    dev = torch.device("cuda", 0)
+    cfg = registry.get_smoke_config("llama3-8b")
+    params = T.init_params(cfg, seed=0, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 36), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1))
+    cell = steps.build_cell(cfg, ShapeConfig("c", 40, 2, "prefill"),
+                            card_mesh)
+    want = _full_tree(cell.eager(params, {"tokens": tokens}))
+    held = []
+    for _ in range(4):
+        _bit_equal(cell.fn(tree_map(torch.clone, params),
+                           {"tokens": tokens}), want)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held.append((len(cell.graph.graphs),
+                     torch.cuda.memory_allocated(dev),
+                     torch.cuda.memory_reserved(dev)))
+    assert cell.graph.captures == 4
+    assert [n for n, _, _ in held] == [1, 1, 1, 1]
+    for n, allocated, reserved in held[2:]:
+        assert allocated <= held[1][1] and reserved <= held[1][2], held

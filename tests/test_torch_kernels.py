@@ -130,6 +130,33 @@ def test_fused_wrapper_matches_oracle(rng):
         rtol=1e-6)
 
 
+def test_fused_wrapper_scales_past_int64_shifts(rng):
+    """At m = 6, d = 7 the top layers' scales are 2^70 and 2^63, past an
+    int64 shift; negative operands fill the top digit planes, so a wrong
+    scale shows in every row.  The port's float32 resolutions equal the
+    reference's wrapper's: layer 0's row bit for bit (one product by a
+    power of two), the rest to 1e-6 of the row's largest term (the two
+    cumulative sums may add in another order)."""
+    m, d = 6, 7
+    A = rng.integers(-(1 << 30), 0, size=(64, 24)).astype(np.int32)
+    B = rng.integers(-(1 << 30), 1 << 30, size=(64, 16)).astype(np.int32)
+    got = ops.layered_matmul(torch.from_numpy(A), torch.from_numpy(B),
+                             m=m, d=d).numpy()
+    want = np.asarray(jops.layered_matmul(
+        jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
+    assert got.shape == want.shape == (2 * m - 1, 24, 16)
+    assert np.abs(want[0]).max() > 2.0 ** 70
+    np.testing.assert_array_equal(got[0], want[0])
+    parts = np.asarray(jops.layered_matmul_partials(
+        jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
+    terms = np.abs(parts.astype(np.float64)) * np.asarray(
+        [2.0 ** ((2 * m - 2 - l) * d) for l in range(2 * m - 1)]
+    )[:, None, None]
+    for l in range(2 * m - 1):
+        np.testing.assert_allclose(got[l], want[l], rtol=0,
+                                   atol=1e-6 * terms[:l + 1].max())
+
+
 def test_resolution_monotone_improvement(rng):
     m, d = 3, 4
     A = rng.integers(0, 1 << (m * d - 1), size=(32, 16)).astype(np.int32)
@@ -172,6 +199,20 @@ def test_out_of_range_operands_wrap_like_reference(rng):
         jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
     got = ops.layered_matmul_partials(torch.from_numpy(A),
                                       torch.from_numpy(B), m=m, d=d)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,d", [(5, 3), (8, 2)])
+def test_many_planes_match_reference_kernel(rng, m, d):
+    """Past four planes (the grouped kernel's route on the card) the
+    partials equal the reference's Pallas kernel (interpret mode) at the
+    same m, bit for bit: the plain version covers any m."""
+    A, B = _operands(rng, m, d, 48, 9, 20)
+    want = np.asarray(jops.layered_matmul_partials(
+        jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
+    got = ops.layered_matmul_partials(torch.from_numpy(A),
+                                      torch.from_numpy(B), m=m, d=d)
+    assert got.shape == (2 * m - 1, 9, 20)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -238,18 +279,21 @@ def test_cpu_path_never_counts_a_launch(rng, m, d):
     (2, 65, 100, 4112, "layered_matmul_wgmma"),
     (4, 7, 9, 48, "layered_matmul"),
     (4, 4096, 4096, 4096, "layered_matmul"),
+    (5, 8, 8, 16, "layered_matmul_grouped"),
+    (8, 4096, 4096, 4096, "layered_matmul_grouped"),
+    (40, 200, 328, 1008, "layered_matmul_grouped"),
 ])
 def test_layered_routing_by_planes_and_shape(m, M, N, K, want):
     """Up to three planes go to the wgmma kernel, whose L layers of
     64-wide int32 accumulators fit a warpgroup's registers; four to the
-    mma.sync kernel."""
+    mma.sync kernel; more to the grouped kernel, seven layers a CTA."""
     assert lm.kernel_for(m, M, N, K) == want
     assert want in lm.KERNELS
 
 
 @pytest.mark.parametrize("m,M,N,K,match", [
-    (5, 8, 8, 16, "m <= 4"),
-    (0, 8, 8, 16, "m <= 4"),
+    (-1, 8, 8, 16, "m >= 1"),
+    (0, 8, 8, 16, "m >= 1"),
     (2, 0, 8, 16, "empty"),
     (2, 8, 0, 16, "empty"),
     (2, 8, 8, 0, "empty"),

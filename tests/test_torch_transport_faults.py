@@ -25,8 +25,8 @@ jax = pytest.importorskip("jax")
 
 from _torch_transport import (  # noqa: E402,F401
     BACKENDS_FULL, MU3, MU5, _await_worker_processes, _cfg, _real_backend,
-    _run_with_faults, _runtime_worker_processes, _runtime_worker_threads,
-    bcfg, socket_cluster)
+    _run_stream_with_faults, _run_with_faults, _runtime_worker_processes,
+    _runtime_worker_threads, bcfg, socket_cluster)
 from repro_torch.runtime import (FusionNode, RoundContext,  # noqa: E402
                                  RuntimeConfig, TransportDeadError,
                                  make_transport, run_jobs, telemetry)
@@ -300,7 +300,11 @@ class TestDegradeConformance:
                 time.sleep(1.8)
                 cluster.revive(2)
 
-            res, _ = _run_with_faults(cfg, 80, inject, join_timeout=180.0)
+            # the stream runs on until the revived host (a fresh
+            # interpreter, seconds to start under load) is back and the
+            # master has had three re-dial intervals
+            res, _ = _run_stream_with_faults(cfg, 80, inject,
+                                             settle=3.0, join_timeout=180.0)
         assert res.workers_lost == 1
         kinds = [e["kind"] for e in res.fault_log]
         assert kinds.count("quarantine") == 1
