@@ -8,21 +8,26 @@ builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 main paths and checks what comes out:
 
 1. environment: card name and power limit, torch/CUDA versions, build time;
-2. the three layered int8 matmul kernels against their plain PyTorch
-   version on the card, bit-exactly: the tensor-core (wgmma) kernel at the
-   llama3-8b LM-head contraction (K=4096, M=64, N=128256), a square
-   4096^3 and a ragged m=3 case, the grouped kernel (m >= 5, seven
-   layers a CTA) at a square 4096^3 with m=5 and a ragged m=8 case, each
-   case checking which kernel launched, with CUDA-event medians of the
-   kernel, the plain version and (as a reference point only) m^2 int8 ``torch._int_mm`` calls, the
-   kernel's device time from ``torch.profiler``, and the kernel's bound;
-   at the head and square shapes also the mma.sync kernel (its earlier
-   route), held against the plain version before it is timed;
+2. the four layered int8 matmul kernels against their plain PyTorch
+   version on the card, bit-exactly: the tensor-core (wgmma) kernel for
+   m <= 3 at the llama3-8b LM-head contraction (K=4096, M=64, N=128256), a
+   square 4096^3 and a ragged m=3 case, the grouped tensor-core kernel
+   (m >= 4, a group of layers a CTA) at the head with m=4, at squares
+   4096^3 with m=4, 5 and 8 and at a ragged m=8 case, each case checking
+   which kernel launched, with CUDA-event medians of the kernel, the plain
+   version and (as a reference point only) m^2 int8 ``torch._int_mm``
+   calls, the kernel's device time from ``torch.profiler``, and the
+   kernel's bound; beside each, the earlier routes at that shape (the
+   mma.sync kernel up to m=4, the grouped mma.sync kernel past m=3),
+   reached through ``_launch(kernel=...)`` and held against the plain
+   version before they are timed;
 3. main path 1, ``kernels.ops.layered_matmul`` at the LM-head contraction
    (launch counts reset before it and read after it: one launch, of the
    tensor-core kernel; then the medians of the whole wrapper and of its
-   plane preparation of W), and the fused wrapper against the int64
-   NumPy oracle at a mid size;
+   plane preparation of W), the fused wrapper against the int64 NumPy
+   oracle at a mid size, and the head again at m=4 planes (one launch, of
+   the grouped tensor-core kernel; its final resolution against the exact
+   product);
 4. main path 2, the coded runtime on the ``cuda`` worker backend: a
    verified run, then a full-width K=M=N=4096 run whose released final
    resolutions are held against the exact float64 product on the card;
@@ -183,9 +188,10 @@ main paths and checks what comes out:
    largest difference from its plain version, its times and its bound
    (and those of its other timed main-path shapes).
 
-After every phase the dh-256 flash kernel's fault word is read
-(``kernels.flash_attention.check_faults``): a ring wait that gave up
-fails the phase.
+After every phase the fault words of the dh-256 flash kernel and of the
+grouped layered-matmul kernel are read (``check_faults`` of
+``kernels.flash_attention`` and ``kernels.layered_matmul``): a ring wait
+that gave up fails the phase.
 
 Each phase prints one JSON line.  The card's name and power limit follow,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -217,8 +223,9 @@ PEAK_FP32_FLOPS = 67e12       # CUDA cores (no TF32: fp32 work stays fp32)
 PEAK_BYTES = 3.35e12
 
 #: Every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu).
-KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul",
-                  "layered_matmul_grouped", "flash_attention",
+KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul_wgmma_grouped",
+                  "layered_matmul", "layered_matmul_grouped",
+                  "flash_attention",
                   "flash_attention_wgmma",
                   "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma"]
 
@@ -260,8 +267,12 @@ SEED = 0
 HEAD = dict(K=4096, M=64, N=128256, m=2, d=7)      # llama3-8b LM head
 SQUARE = dict(K=4096, M=4096, N=4096, m=2, d=7)
 RAGGED = dict(K=1000, M=200, N=328, m=3, d=5)
-#: past four planes (the grouped kernel): a square at m = 5, a ragged m = 8
+#: four planes and more (the grouped wgmma kernel): the llama3-8b head
+#: and a square at m = 4, squares at m = 5 and 8, a ragged m = 8
+HEAD_M4 = dict(K=4096, M=64, N=128256, m=4, d=3)
+SQUARE_M4 = dict(K=4096, M=4096, N=4096, m=4, d=3)
 SQUARE_M5 = dict(K=4096, M=4096, N=4096, m=5, d=3)
+SQUARE_M8 = dict(K=4096, M=4096, N=4096, m=8, d=2)
 RAGGED_M8 = dict(K=1000, M=200, N=328, m=8, d=2)
 TIMED_RUNS = 20
 REPS = 5          # back-to-back launches per timed run
@@ -337,6 +348,8 @@ def ptxas_summary(log: str) -> list[str]:
     kernel's spills before its registers)."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
+        if "(C75" in line:      # a performance note (ptxas_notes)
+            continue
         m = re.search(r"entry function '.*\d([a-z][a-z0-9_]*_kernel)"
                       r"(?:I(\w*?)E+v|E)", line)
         if m:
@@ -347,6 +360,21 @@ def ptxas_summary(log: str) -> list[str]:
         elif "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}"
                        + (f"; {spill}" if spill else ""))
+    return out
+
+
+def ptxas_notes(logs: dict) -> dict:
+    """ptxas's performance notes (``(C75xx)`` lines of ``-Xptxas -v``) of
+    each source's log, counted: ``"<source>: <note code> <text up to the
+    line number or function>"`` -> count."""
+    out: dict = {}
+    for src, log in logs.items():
+        for line in log.splitlines():
+            m = re.search(r"\((C75\d\d)\)\s*(.*?)(?: in around line| in "
+                          r"(?:the )?function|$)", line)
+            if m:
+                key = f"{src}: {m.group(1)} {m.group(2).strip()}"
+                out[key] = out.get(key, 0) + 1
     return out
 
 
@@ -401,19 +429,23 @@ def phase_environment(torch, dev):
               n: _build.build_log[n]["seconds"] for n in KERNEL_SOURCES},
           "ptxas": [ptxas_summary(_build.build_log[n]["ptxas"])
                     for n in KERNEL_SOURCES],
-          # ptxas's performance notes, e.g. C7520: every wgmma serialized
-          "ptxas_notes": [line.strip() for n in KERNEL_SOURCES
-                          for line in _build.build_log[n]["ptxas"].splitlines()
-                          if "(C75" in line],
-          # the warp-specialised kernel: registers the raised consumers use
-          # and spills, which -Xptxas -v does not show per warpgroup
+          # ptxas's performance notes (e.g. C7520: every wgmma
+          # serialized), counted by source and note
+          "ptxas_notes": ptxas_notes(
+              {n: _build.build_log[n]["ptxas"] for n in KERNEL_SOURCES}),
+          # the warp-specialised kernels: registers the raised consumers
+          # use and spills, which -Xptxas -v does not show per warpgroup
           "sass_flash_attention_wgmma_d256": sass_summary(
-              libs["flash_attention_wgmma_d256"])})
+              libs["flash_attention_wgmma_d256"]),
+          "sass_layered_matmul_wgmma_grouped": sass_summary(
+              libs["layered_matmul_wgmma_grouped"])})
     return smi
 
 
-#: torch.profiler name substrings of the three layered-matmul kernels
+#: torch.profiler name substrings of the four layered-matmul kernels
 LM_PROFILE = {"layered_matmul_wgmma": "layered_matmul_wgmma_kernel",
+              "layered_matmul_wgmma_grouped":
+                  "layered_matmul_wgmma_grouped_kernel",
               "layered_matmul": "layered_matmul_kernel",
               "layered_matmul_grouped": "layered_matmul_grouped_kernel"}
 
@@ -423,14 +455,19 @@ def phase_kernel_vs_plain(torch, dev):
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
-    # name: (shape, the kernel it launches, whether the mma.sync kernel is
-    # timed beside it)
+    # name: (shape, the kernel it launches, the earlier routes timed beside
+    # it)
     for name, s, kernel, earlier in (
-            ("llama3_8b_head", HEAD, lm.WGMMA, True),
-            ("square_4096", SQUARE, lm.WGMMA, True),
-            ("ragged_m3", RAGGED, lm.WGMMA, False),
-            ("square_4096_m5", SQUARE_M5, lm.GROUPED, False),
-            ("ragged_m8", RAGGED_M8, lm.GROUPED, False)):
+            ("llama3_8b_head", HEAD, lm.WGMMA, (lm.MMA_SYNC,)),
+            ("square_4096", SQUARE, lm.WGMMA, (lm.MMA_SYNC,)),
+            ("ragged_m3", RAGGED, lm.WGMMA, ()),
+            ("llama3_8b_head_m4", HEAD_M4, lm.WGMMA_GROUPED,
+             (lm.MMA_SYNC, lm.GROUPED)),
+            ("square_4096_m4", SQUARE_M4, lm.WGMMA_GROUPED,
+             (lm.MMA_SYNC, lm.GROUPED)),
+            ("square_4096_m5", SQUARE_M5, lm.WGMMA_GROUPED, (lm.GROUPED,)),
+            ("square_4096_m8", SQUARE_M8, lm.WGMMA_GROUPED, (lm.GROUPED,)),
+            ("ragged_m8", RAGGED_M8, lm.WGMMA_GROUPED, (lm.GROUPED,))):
         K, M, N, m, d = s["K"], s["M"], s["N"], s["m"], s["d"]
         a = random_ints(torch, gen, m, d, (K, M), dev)
         b = random_ints(torch, gen, m, d, (K, N), dev)
@@ -456,20 +493,24 @@ def phase_kernel_vs_plain(torch, dev):
                                  f"version by {err}")
         bound_ms, bound_by = layered_bound(K, M, N, m)
         row = {"shape": s, "kernel": kernel, "max_abs_err": err,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        if earlier:
-            # the mma.sync kernel at this shape (its route before the
-            # tensor-core kernel), held against the plain version first
-            mma_sync = lambda: lm._launch(pa, pb, m, kernel=lm.MMA_SYNC)
-            mma_err = max_err(mma_sync())
-            if mma_err != 0:
-                raise AssertionError(f"{name}: {lm.MMA_SYNC} differs from "
-                                     f"plain version by {mma_err}")
-            mma_dev_ms = device_ms(torch, mma_sync, LM_PROFILE[lm.MMA_SYNC])
-            row["mma_sync"] = {
-                "max_abs_err": mma_err, "ms": cuda_ms(torch, mma_sync),
-                "kernel_device_ms": mma_dev_ms,
-                "bound_share_of_device_ms": bound_ms / mma_dev_ms}
+               "bound_ms": bound_ms, "bound_by": bound_by, "earlier": {}}
+        for old in earlier:
+            # an earlier route at this shape, reached through _launch, held
+            # against the plain version first; the slow grouped mma.sync
+            # kernel with fewer timed runs
+            old_call = lambda k=old: lm._launch(pa, pb, m, kernel=k)
+            old_err = max_err(old_call())
+            if old_err != 0:
+                raise AssertionError(f"{name}: {old} differs from plain "
+                                     f"version by {old_err}")
+            old_dev_ms = device_ms(torch, old_call, LM_PROFILE[old])
+            row["earlier"][old] = {
+                "max_abs_err": old_err,
+                "ms": cuda_ms(torch, old_call,
+                              runs=5 if old == lm.GROUPED else TIMED_RUNS),
+                "kernel_device_ms": old_dev_ms,
+                "bound_share_of_device_ms": (bound_ms / old_dev_ms
+                                             if old_dev_ms else None)}
         del got, want
         ms = cuda_ms(torch, call)
         dev_ms = device_ms(torch, call, LM_PROFILE[kernel])
@@ -537,6 +578,29 @@ def phase_layered_main_path(torch, dev):
                              torch.from_numpy(B).to(dev), m=m, d=d)
     want = layering.layered_matmul_reference(A, B, m=m, d=d)
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-6)
+    del hidden_t, w, res, exact
+    # the same head at m = 4 planes (a user's --planes 4): one launch, of
+    # the grouped tensor-core kernel, its final resolution exact
+    K4, M4, N4, m4, d4 = (HEAD_M4[k] for k in ("K", "M", "N", "m", "d"))
+    hidden_t = random_ints(torch, gen, m4, d4, (K4, M4), dev)
+    w = random_ints(torch, gen, m4, d4, (K4, N4), dev)
+    torch.cuda.synchronize()
+    lm.launches = 0
+    lm.kernel_launches.update(dict.fromkeys(lm.KERNELS, 0))
+    res = ops.layered_matmul(hidden_t, w, m=m4, d=d4)
+    torch.cuda.synchronize()
+    by_source_m4 = dict(lm.kernel_launches)
+    if lm.launches != 1 or by_source_m4[lm.WGMMA_GROUPED] != 1:
+        raise AssertionError(f"m = 4 head launched {by_source_m4}, want one "
+                             f"launch of {lm.WGMMA_GROUPED}")
+    exact = hidden_t.to(torch.float64).T @ w.to(torch.float64)
+    if res.shape != (2 * m4 - 1, M4, N4) or not torch.isfinite(res).all():
+        raise AssertionError(f"bad m = 4 output {tuple(res.shape)}")
+    head_rel_m4 = ((res[-1].to(torch.float64) - exact).abs().max()
+                   / exact.abs().max()).item()
+    if head_rel_m4 > 1e-6:
+        raise AssertionError(f"m = 4 final resolution off by {head_rel_m4} "
+                             f"relative")
     emit({"phase": "layered_matmul_main_path", "shape": HEAD,
           "launches": {"layered_matmul": launches},
           "launches_by_source": by_source,
@@ -544,8 +608,10 @@ def phase_layered_main_path(torch, dev):
           "planes_w_ms": planes_w_ms,
           "final_rel_err_vs_exact": head_rel,
           "mid_size_vs_oracle": {"K": Km, "M": Mm, "N": Nm, "rtol": 1e-6,
-                                 "ok": True}})
-    return launches
+                                 "ok": True},
+          "m4": {"shape": HEAD_M4, "launches_by_source": by_source_m4,
+                 "final_rel_err_vs_exact": head_rel_m4}})
+    return {"llama3_8b_head": by_source, "llama3_8b_head_m4": by_source_m4}
 
 
 def phase_runtime(torch, dev):
@@ -1315,17 +1381,24 @@ def _clone(tree):
     return tree.clone()
 
 
-def prefill_device_profile(torch, fn, kernel: str) -> dict:
+def prefill_device_profile(torch, fn, kernel: str,
+                           want: int | None = None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device time of the
     kernels whose name contains ``kernel`` (their count and ms), of every
     kernel and copy of the call, and the eight that took the most (name
-    cut to 100 characters, count, ms)."""
+    cut to 100 characters, count, ms).  With ``want``, a call that records
+    fewer such kernels is profiled again, up to three calls: the profiler
+    may drop some of a window's records (``device_ms``), and a drop only
+    lowers the count."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
-    mine = [e for e in rows if kernel in e.key]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+        mine = [e for e in rows if kernel in e.key]
+        if want is None or sum(e.count for e in mine) >= want:
+            break
     top = sorted(rows, key=lambda e: -e.device_time_total)[:8]
     return {"kernel_launches": sum(e.count for e in mine),
             "kernel_device_ms": sum(e.device_time_total for e in mine) / 1e3,
@@ -2043,7 +2116,7 @@ def graph_train_loop(torch, cfg, tcfg, eager, n_steps: int, mod,
     # graph's buffers): the kernels in the graph
     name = {"flash_attention": "flash_attention_wgmma_kernel",
             "ssd_scan": "ssd_wgmma_output"}[mod.__name__.rsplit(".", 1)[1]]
-    prof = prefill_device_profile(torch, g.graphs[0].replay, name)
+    prof = prefill_device_profile(torch, g.graphs[0].replay, name, want)
     if prof["kernel_launches"] != want:
         raise AssertionError(f"{cfg.name}: a profiled replay ran "
                              f"{prof['kernel_launches']} of {name}, want "
@@ -2800,7 +2873,8 @@ def phase_cell_prefill(torch, dev, results):
                              f"cell by {gdiff}; earlier output kept: "
                              f"{left_alone}")
     prof = prefill_device_profile(torch, lambda: gcell.fn(placed, batch),
-                                  "flash_attention_wgmma_kernel")
+                                  "flash_attention_wgmma_kernel",
+                                  c["flash_launches"])
     if prof["kernel_launches"] != c["flash_launches"]:
         raise AssertionError(f"a profiled graph prefill ran "
                              f"{prof['kernel_launches']} flash kernels")
@@ -3014,7 +3088,7 @@ def phase_cell_train(torch, dev, results):
                              f"{None if g is None else g.captures}, "
                              f"launches {gout['launches']}")
     prof = prefill_device_profile(torch, g.graphs[0].replay,
-                                  "ssd_wgmma_output")
+                                  "ssd_wgmma_output", c["ssd_launches"])
     if prof["kernel_launches"] != c["ssd_launches"]:
         raise AssertionError(f"a profiled train-cell replay ran "
                              f"{prof['kernel_launches']} SSD kernels")
@@ -3164,6 +3238,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import layered_matmul as lm
 
     failed = []
     results = {}
@@ -3215,9 +3290,10 @@ def main() -> int:
                         ("dryrun_production", phase_dryrun_production)):
         try:
             results[name] = phase(torch, dev)
-            # the dh-256 flash kernel's ring waits record a give-up in a
-            # device word: a phase that launched it fails if one did
+            # the warp-specialised kernels' ring waits record a give-up in
+            # a device word: a phase that launched one fails if one did
             fa.check_faults()
+            lm.check_faults()
         except Exception:      # reported, and the run fails below
             traceback.print_exc()
             emit({"phase": name, "ok": False})
@@ -3230,22 +3306,36 @@ def main() -> int:
         dist.destroy_process_group()
     kernels = []
     if "kernel_vs_plain" in results and "layered_main_path" in results:
-        head = results["kernel_vs_plain"]["llama3_8b_head"]
-        errs = [e for row in results["kernel_vs_plain"].values()
-                for e in (row["max_abs_err"],
-                          row.get("mma_sync", {}).get("max_abs_err", 0))]
+        lm_rows = results["kernel_vs_plain"]
+        head = lm_rows["llama3_8b_head"]
+        errs = [e for row in lm_rows.values()
+                for e in [row["max_abs_err"]]
+                + [r["max_abs_err"] for r in row["earlier"].values()]]
+        # launches on the two main paths (the head at m = 2 and m = 4),
+        # counted from 0 before each, by source
+        paths = results["layered_main_path"]
+        by_source = {}
+        for counts in paths.values():
+            for src, n in counts.items():
+                by_source[src] = by_source.get(src, 0) + n
         kernels.append({
             "name": "layered_matmul", "route": "cuda",
-            # the main path's source first, then its earlier route
-            "source": "src/repro_torch/kernels/csrc/layered_matmul_wgmma.cu"
-                      ", src/repro_torch/kernels/csrc/layered_matmul.cu"
-                      ", src/repro_torch/kernels/csrc/"
-                      "layered_matmul_grouped.cu",
+            # the two routed sources first, then the earlier routes
+            "source": ", ".join(f"src/repro_torch/kernels/csrc/{src}.cu"
+                                for src in KERNEL_SOURCES[:4]),
             "replaces": "src/repro/kernels/layered_matmul.py:71",
-            "launches": results["layered_main_path"],
+            "launches": sum(by_source.values()),
+            "launches_by_path": {p: sum(n.values()) for p, n in paths.items()},
+            "launches_by_source": by_source,
             "max_abs_err": max(errs), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": None})
+            "bound_by": head["bound_by"], "library_ms": None,
+            # the timed rows of the other shapes (m^2 _int_mm in place of a
+            # library call computing the partials)
+            "other_shapes": {c: {k: row[k] for k in (
+                "kernel", "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                "bound_by", "int_mm_x_m2_ms")}
+                for c, row in lm_rows.items() if c != "llama3_8b_head"}})
     for name, cmp_phase, serve_phases, main_case, timed_cases, replaces in (
             ("flash_attention", "flash_attention_vs_plain",
              ("serve_llama3_8b", "serve_recurrentgemma_9b",

@@ -26,7 +26,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["KernelBuildError", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS",
+__all__ = ["KernelBuildError", "KernelFault", "CSRC_DIR", "BUILD_DIR",
+           "NVCC_FLAGS", "check_fault_word",
            "build_all", "load", "build_log", "require_hopper"]
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -43,6 +44,10 @@ build_log: dict[str, dict] = {}
 
 class KernelBuildError(RuntimeError):
     """``nvcc`` is missing or refused a kernel source."""
+
+
+class KernelFault(RuntimeError):
+    """A kernel reported a fault of its own after it ran."""
 
 
 def _nvcc() -> str:
@@ -110,6 +115,36 @@ def require_hopper(dev, name: str) -> None:
         raise RuntimeError(
             f"{name} kernel is built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(dev)} is sm_{cap[0]}{cap[1]}")
+
+
+def check_fault_word(name: str, unchecked: set, bound: dict) -> None:
+    """Raise :class:`KernelFault` if a ring wait of a launch of kernel
+    ``name`` gave up (its give-up word, read and cleared through the
+    library's ``<name>_faults`` entry, bound once into ``bound``) on a
+    device of ``unchecked`` since the last check; empties ``unchecked``.
+    Synchronizes those devices; does nothing when there are none."""
+    import torch
+    entry = f"{name}_faults"
+    while unchecked:
+        dev = unchecked.pop()
+        fn = bound.get(entry)
+        if fn is None:
+            fn = getattr(load(name), entry)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            fn.restype = ctypes.c_int
+            bound[entry] = fn
+        word = ctypes.c_uint(0)
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize(dev)
+            err = fn(ctypes.byref(word), 1)
+        if err != 0:
+            raise RuntimeError(f"{name}: reading its fault word failed: "
+                               f"CUDA error {err}")
+        if word.value:
+            raise KernelFault(
+                f"{name}: an mbarrier wait gave up on {dev} (a TMA ring "
+                f"fault); the outputs of its launches since the last check "
+                f"are wrong")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention_wgmma.cu, ssd_scan_wgmma.cu, layered_matmul_wgmma.cu):
-// shared-memory addresses, mbarriers, TMA loads into 128-byte swizzled
-// tiles, wgmma descriptors, m64nNk16 bf16 products with fp32 accumulators
-// and m64nNk32 int8 products with int32 accumulators, and the host-side
-// tensor maps (bf16 4-D, int8 3-D).  Everything sits in an anonymous
+// (flash_attention_wgmma.cu, ssd_scan_wgmma.cu, layered_matmul_wgmma.cu,
+// layered_matmul_wgmma_grouped.cu): shared-memory addresses, mbarriers,
+// TMA loads into 128- or 64-byte swizzled tiles, wgmma descriptors,
+// m64nNk16 bf16 products with fp32 accumulators and m64nNk32 int8 products
+// with int32 accumulators, and the host-side tensor maps (bf16 4-D, int8
+// 3-D).  Everything sits in an anonymous
 // namespace: each kernel source is its own shared library.
 
 #pragma once
@@ -90,6 +91,19 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
          | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
          | static_cast<uint64_t>(1) << 62;
+}
+
+// The same for a K-major tile of `row_bytes`-byte rows (128 or 64)
+// swizzled at that width, as a TMA map of that box width writes it: eight
+// rows (8 * row_bytes) between core-matrix groups.  The tile starts on a
+// multiple of 8 * row_bytes; a K step inside a row advances the address.
+__device__ __forceinline__ uint64_t swizzled_desc(uint32_t addr,
+                                                  int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>(1) << 16
+         | static_cast<uint64_t>((8 * row_bytes) >> 4) << 32
+         | layout << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -312,20 +326,25 @@ CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 }
 
 // A 3-D map over `planes` int8 matrices of (rows, K) bytes each, packed
-// (K a multiple of 16): boxes of (128 bytes of K, `box_rows` rows, 1
-// plane), 128-byte swizzled.  Rows past `rows` and bytes past K read as
-// zeros, so a box may hang over the ragged edge of a plane.
+// (K a multiple of 16): boxes of (`box_k` bytes of K: 128 or 64,
+// `box_rows` rows, 1 plane), swizzled at the box's width.  Rows past
+// `rows` and bytes past K read as zeros, so a box may hang over the
+// ragged edge of a plane.
 CUresult make_map_s8(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                     int planes, int rows, int K, int box_rows) {
+                     int planes, int rows, int K, int box_rows,
+                     int box_k = 128) {
   const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows,
                               (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)K,
                                  (cuuint64_t)K * (cuuint64_t)rows};
-  const cuuint32_t box[3] = {128, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_k, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_k == 128
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_64B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -1,7 +1,11 @@
 // Layered-resolution int8 digit-plane matmul for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `layered_matmul_kernel_call`
-// (src/repro/kernels/layered_matmul.py:71, body `_kernel` :39).  Same
+// The first port (m <= 4) of the TPU kernel `layered_matmul_kernel_call`
+// (src/repro/kernels/layered_matmul.py:71, body `_kernel` :39), no longer
+// routed: layered_matmul_wgmma.cu takes m <= 3 and
+// layered_matmul_wgmma_grouped.cu m >= 4.  It stays reachable through
+// `layered_matmul._launch(kernel="layered_matmul")`, so that chip_smoke.py
+// holds it against the plain version and times it beside them.  Same
 // function: from int8 digit planes A_i (M x K) and B_j (N x K), both
 // K-contiguous, it writes the L = 2m-1 exact int32 anti-diagonal partials
 //
@@ -18,7 +22,7 @@
 // from device memory once per tile instead of once per plane pair; the
 // next K step's tiles are prefetched into registers while the tensor cores
 // (mma.sync m16n8k32 s8) work on the current one.  wgmma, TMA and a
-// multistage shared-memory ring are later work.
+// multistage shared-memory ring are the kernels that replaced it.
 //
 // Numerics: int32 accumulation wraps like the TPU's int32 MXU output; the
 // partials are exact while J(l) * K * (2^d - 1)^2 < 2^31.  Ragged M and N

@@ -1,9 +1,13 @@
 // Layered-resolution int8 digit-plane matmul for Hopper (sm_90a), at any
 // number of planes m: the layers split into groups, one group per CTA.
 //
-// Replaces the TPU kernel `layered_matmul_kernel_call`
-// (src/repro/kernels/layered_matmul.py:71, body `_kernel` :39) where the
-// port's other two kernels cannot: from int8 digit planes A_i (M x K) and
+// The first port past four planes of the TPU kernel
+// `layered_matmul_kernel_call` (src/repro/kernels/layered_matmul.py:71,
+// body `_kernel` :39), no longer routed: layered_matmul_wgmma_grouped.cu
+// takes every m >= 4 on the tensor cores.  It stays reachable through
+// `layered_matmul._launch(kernel="layered_matmul_grouped")`, so that
+// chip_smoke.py holds it against the plain version and times it beside
+// that kernel.  From int8 digit planes A_i (M x K) and
 // B_j (N x K), both K-contiguous, it writes the L = 2m-1 exact int32
 // anti-diagonal partials
 //
@@ -20,7 +24,7 @@
 // time (so any m fits: more planes are staged chunk by chunk), and every
 // warp reads its fragments of both operands of a pair from there before
 // its mma.sync m16n8k32 s8.  No prefetch, no TMA: a simple kernel that
-// is right.  Nothing on the serving path uses m > 4.
+// is right.
 //
 // Numerics as layered_matmul.cu: int32 accumulation wraps like the TPU's
 // int32 MXU output; ragged M and N edges are masked (rows past the end

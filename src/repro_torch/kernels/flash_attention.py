@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import KernelFault
 
 __all__ = ["NEG_INF", "KERNELS", "kernel_for", "flash_attention_plain",
            "flash_attention_kernel_call", "flash_attention_gqa",
@@ -99,8 +100,6 @@ _bound: dict = {}
 _unchecked: set = set()
 
 
-class KernelFault(RuntimeError):
-    """A kernel reported a fault of its own after it ran."""
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -244,26 +243,7 @@ def check_faults() -> None:
     Synchronizes the devices that ran such a launch since the last check,
     and does nothing when none did.
     """
-    while _unchecked:
-        dev = _unchecked.pop()
-        fn = _bound.get(f"{WGMMA_D256}_faults")
-        if fn is None:
-            fn = getattr(_build.load(WGMMA_D256), f"{WGMMA_D256}_faults")
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-            fn.restype = ctypes.c_int
-            _bound[f"{WGMMA_D256}_faults"] = fn
-        word = ctypes.c_uint(0)
-        with torch.cuda.device(dev):
-            torch.cuda.synchronize(dev)
-            err = fn(ctypes.byref(word), 1)
-        if err != 0:
-            raise RuntimeError(f"{WGMMA_D256}: reading its fault word "
-                               f"failed: CUDA error {err}")
-        if word.value:
-            raise KernelFault(
-                f"{WGMMA_D256}: an mbarrier wait gave up on {dev} (a TMA "
-                f"ring fault); the outputs of its launches since the last "
-                f"check are wrong")
+    _build.check_fault_word(WGMMA_D256, _unchecked, _bound)
 
 
 def _check(q, k, v, window):

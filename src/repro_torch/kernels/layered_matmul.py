@@ -1,4 +1,4 @@
-"""Layered-resolution int8 digit-plane matmul: three CUDA kernels + plain
+"""Layered-resolution int8 digit-plane matmul: four CUDA kernels + plain
 version.
 
 Port of the TPU kernel ``layered_matmul_kernel_call``
@@ -11,23 +11,34 @@ returns the ``L = 2m - 1`` exact, unscaled, non-cumulative int32 partials
 and leaves the ``2**((i+j) d)`` scales and the cumulative sum to the
 fusion (``ops.layered_matmul``).
 
-On a CUDA tensor the wrapper launches one of three hand-written Hopper
-kernels, chosen by :func:`kernel_for` from ``(m, M, N, K)``:
+On a CUDA tensor the wrapper launches one of two hand-written Hopper
+kernels, chosen by :func:`kernel_for` from ``(m, M, N, K)``, both int8
+``wgmma`` fed by TMA through a multistage ring:
 
 - ``layered_matmul_wgmma`` (``csrc/layered_matmul_wgmma.cu``): m <= 3,
-  the LM head's m = 2 among them.  int8 ``wgmma`` fed by TMA through a
-  multistage ring, tiles wide in N (64 x 256 for M <= 64, else 128 x 128;
-  half as wide at m = 3).
-- ``layered_matmul`` (``csrc/layered_matmul.cu``): m = 4, whose seven
-  layers of accumulators do not fit the wgmma tile's registers.  int8
-  ``mma.sync``, one CTA per 64x64 output tile.
-- ``layered_matmul_grouped`` (``csrc/layered_matmul_grouped.cu``): m >= 5,
-  whose ``2m - 1`` layers of accumulators fit no tile's registers.  int8
-  ``mma.sync``, one CTA per 64x64 output tile and group of at most seven
-  layers (the groups on ``grid.z``), each running only its layers' plane
-  pairs.  The Pallas kernel takes any m, and so does this one.
+  the LM head's m = 2 among them.  Every layer's accumulators in one CTA,
+  tiles wide in N (64 x 256 for M <= 64, else 128 x 128; half as wide at
+  m = 3).
+- ``layered_matmul_wgmma_grouped`` (``csrc/layered_matmul_wgmma_grouped.cu``):
+  m >= 4, whose ``2m - 1`` layers of accumulators fit no tile's
+  registers.  Each consumer warpgroup of a CTA holds one group of at most
+  :data:`GROUP_LAYERS` layers of a 64 x 128 tile (:func:`group_plan`,
+  made here and passed by value) and runs only its layers' plane pairs;
+  :func:`grouped_layout` picks how the two consumers share a CTA.  It
+  takes any m whose plan has at most :data:`MAX_GROUPS` groups (m up to
+  192), as the Pallas kernel takes any m.  Its ring waits give up rather
+  than trap (it raises its consumers' registers with ``setmaxnreg``); a
+  give-up sets a device word that :func:`check_faults` reads, and raises
+  for.
 
-All three need K-contiguous planes, ``(m, M, K)`` and ``(m, N, K)``, with K a
+The two earlier routes stay built and reachable through
+``_launch(..., kernel=...)``, so they can be held against the plain
+version and timed beside the kernels that replaced them: ``layered_matmul``
+(``csrc/layered_matmul.cu``, int8 ``mma.sync``, m <= 4, one CTA per 64x64
+tile) and ``layered_matmul_grouped`` (``csrc/layered_matmul_grouped.cu``,
+``mma.sync``, any m, at most seven layers a CTA, no prefetch).
+
+All four need K-contiguous planes, ``(m, M, K)`` and ``(m, N, K)``, with K a
 multiple of :data:`K_ALIGN`, so :func:`layered_matmul_kmajor` takes that
 layout (padding K with zeros where a caller's planes lack it) and
 :func:`layered_matmul_kernel_call` keeps the reference's ``(m, K, M)`` /
@@ -47,34 +58,52 @@ import torch
 
 from repro_torch.core import layering
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import KernelFault
 
-__all__ = ["K_ALIGN", "KERNELS", "kernel_for",
-           "kernel_launches", "layered_matmul_kernel_call",
-           "layered_matmul_kmajor", "layered_matmul_plain", "launches"]
+__all__ = ["GROUP_LAYERS", "K_ALIGN", "KERNELS", "KernelFault",
+           "check_faults", "group_plan", "grouped_layout", "kernel_for",
+           "kernel_launches",
+           "layered_matmul_kernel_call", "layered_matmul_kmajor",
+           "layered_matmul_plain", "launches"]
 
 #: The kernels read K in 16-byte rows (TMA's stride unit, the mma.sync
 #: kernel's vector): the contraction length of the planes they are given
 #: and their start addresses are multiples of this.
 K_ALIGN = 16
 
-#: The three kernels, by source name (``csrc/<name>.cu``).
+#: The four kernels, by source name (``csrc/<name>.cu``): the two routes
+#: :func:`kernel_for` picks, then the two earlier ones.
 WGMMA = "layered_matmul_wgmma"
+WGMMA_GROUPED = "layered_matmul_wgmma_grouped"
 MMA_SYNC = "layered_matmul"
 GROUPED = "layered_matmul_grouped"
-KERNELS = (WGMMA, MMA_SYNC, GROUPED)
+KERNELS = (WGMMA, WGMMA_GROUPED, MMA_SYNC, GROUPED)
 
 #: Most planes the two register-resident kernels are built for; more go
-#: to :data:`GROUPED`, which takes any number.
+#: to :data:`WGMMA_GROUPED` (or, asked for, :data:`GROUPED`).
 WGMMA_MAX_PLANES = 3
 MMA_SYNC_MAX_PLANES = 4
+#: The most layers a group of :data:`WGMMA_GROUPED` holds: a consumer
+#: keeps a 64 x 128 int32 tile a layer, 64 registers a thread (192).
+GROUP_LAYERS = 3
+#: :data:`WGMMA_GROUPED`'s CTA layouts: the two consumer warpgroups one
+#: above the other on a 128 x 128 tile, both on the CTA's group of layers;
+#: or both on one 64 x 128 tile, each with its own group (plan rows 2k
+#: and 2k + 1 in CTA k).
+STACKED, LAYER_SPLIT = 0, 1
+#: the kernel's most groups in a plan
+MAX_GROUPS = 128
 
-#: Kernel launches so far, of all three kernels (incremented only where a CUDA
+#: Kernel launches so far, of all four kernels (incremented only where a CUDA
 #: kernel is launched; a caller resets it to 0 to count one run).
 launches = 0
 #: The same count per kernel; a caller resets each entry to 0 with it.
 kernel_launches = dict.fromkeys(KERNELS, 0)
 
 _bound: dict = {}
+#: Devices with :data:`WGMMA_GROUPED` launches whose give-up word has not
+#: been read yet.
+_unchecked: set = set()
 
 
 def layered_matmul_plain(a_km: torch.Tensor, b_km: torch.Tensor, *,
@@ -107,17 +136,101 @@ def kernel_for(m: int, M: int, N: int, K: int) -> str:
     on the card.
 
     m <= 3 -> :data:`WGMMA` (its L layers of 64-wide int32 accumulators
-    fit a warpgroup's registers); m = 4 -> :data:`MMA_SYNC`; m >= 5 ->
-    :data:`GROUPED` (at most seven layers a CTA).  Raises ``ValueError``
-    for m < 1 and for an empty shape.
+    fit a warpgroup's registers); m >= 4 -> :data:`WGMMA_GROUPED` (one
+    group of layers a CTA).  Raises ``ValueError`` for m < 1 and for an
+    empty shape.
     """
     if m < 1:
         raise ValueError(f"kernel needs m >= 1 planes, got m={m}")
     if M <= 0 or N <= 0 or K <= 0:
         raise ValueError(f"empty product: M={M} N={N} K={K}")
-    if m <= WGMMA_MAX_PLANES:
-        return WGMMA
-    return MMA_SYNC if m <= MMA_SYNC_MAX_PLANES else GROUPED
+    return WGMMA if m <= WGMMA_MAX_PLANES else WGMMA_GROUPED
+
+
+def grouped_layout(m: int, M: int) -> int:
+    """:data:`WGMMA_GROUPED`'s CTA layout for this product, the faster of
+    the two as measured on an H100 at the shapes ``chip_smoke.py`` times
+    (``scripts/probe_layered_grouped.py``, PERF.md): :data:`STACKED` for
+    M > 64 at m = 4, :data:`LAYER_SPLIT` otherwise (at the LM head, M <=
+    64, six layers a CTA against three, so B's planes, the bytes that
+    bound it, cross L2 half as often; at 4096^3, m = 5 and 8)."""
+    return STACKED if M > 64 and m == 4 else LAYER_SPLIT
+
+
+def _least_cap_split(J: list[int], max_layers: int) -> list[tuple[int, int]]:
+    """Contiguous groups ``(first, last)`` of the layers with pair counts
+    ``J``, at most ``max_layers`` each: the fewest, ``ceil(len(J) /
+    max_layers)``, and among those splits one whose largest group holds
+    the fewest pairs, found as the least cap on pairs that a greedy split
+    under both caps meets in that many groups."""
+    L = len(J)
+    n = -(-L // max_layers)
+
+    def split(cap: int) -> list[tuple[int, int]]:
+        out, start, pairs = [], 0, 0
+        for l, j in enumerate(J):
+            if l > start and (l - start == max_layers or pairs + j > cap):
+                out.append((start, l - 1))
+                start, pairs = l, 0
+            pairs += j
+        return out + [(start, L - 1)]
+
+    lo, hi = max(J), sum(J)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if len(split(mid)) <= n:
+            hi = mid
+        else:
+            lo = mid + 1
+    return split(lo)
+
+
+def group_plan(m: int, max_layers: int,
+               per_cta: int = 1) -> list[tuple[int, ...]]:
+    """The layer groups of :data:`WGMMA_GROUPED`'s consumer warpgroups.
+
+    Rows ``(first layer, last layer, first A plane, last A plane, first B
+    plane, last B plane)``: contiguous groups of at most ``max_layers``
+    layers that cover the ``2m - 1`` layers once, with the least plane
+    ranges that hold their pairs (:func:`layering.layer_minijobs`).
+
+    ``per_cta=1`` (both consumers of a CTA on one group): the fewest
+    groups, ``ceil((2m-1) / max_layers)``, since every group reads its
+    planes again; among those splits, one whose largest group runs the
+    fewest plane pairs (``J(l) = min(l+1, 2m-1-l)`` pairs a layer).
+
+    ``per_cta=2`` (layer-split, a group each): rows 2k and 2k + 1 are CTA
+    k's.  The CTAs' layers are split as above with twice the layers a CTA,
+    then each CTA's layers in two, as evenly in pairs as the cap allows;
+    a CTA of one layer gets an empty second row (last layer = first - 1,
+    the first row's planes).
+    """
+    if m < 1 or max_layers < 1 or per_cta not in (1, 2):
+        raise ValueError(f"need m >= 1, max_layers >= 1 and per_cta 1 or "
+                         f"2, got m={m}, max_layers={max_layers}, "
+                         f"per_cta={per_cta}")
+    J = layering.minijobs_per_layer(m)
+
+    def row(l0: int, l1: int) -> tuple[int, ...]:
+        s_lo, s_hi = 2 * m - 2 - l1, 2 * m - 2 - l0
+        p0, p1 = max(0, s_lo - (m - 1)), min(m - 1, s_hi)
+        return (l0, l1, p0, p1, p0, p1)
+
+    groups = _least_cap_split(J, per_cta * max_layers)
+    if per_cta == 1:
+        return [row(l0, l1) for l0, l1 in groups]
+    rows = []
+    for l0, l1 in groups:
+        if l0 == l1:
+            first = row(l0, l1)
+            rows += [first, (l1 + 1, l1) + first[2:]]
+            continue
+        # the second row starts at `cut`: both non-empty, within the cap
+        cuts = range(max(l0 + 1, l1 + 1 - max_layers),
+                     min(l1, l0 + max_layers) + 1)
+        cut = min(cuts, key=lambda c: max(sum(J[l0:c]), sum(J[c:l1 + 1])))
+        rows += [row(l0, cut - 1), row(cut, l1)]
+    return rows
 
 
 def _entry(name: str):
@@ -125,9 +238,11 @@ def _entry(name: str):
     fn = _bound.get(name)
     if fn is None:
         fn = getattr(_build.load(name), f"{name}_s8")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        if name == WGMMA_GROUPED:     # the plan, its length, the layout
+            args += [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        fn.argtypes = args + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bound[name] = fn
     return fn
@@ -151,9 +266,11 @@ def _kernel_operand(planes: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int,
-            kernel: Optional[str] = None) -> torch.Tensor:
+            kernel: Optional[str] = None,
+            layout: Optional[int] = None) -> torch.Tensor:
     """K-major planes on the card, through ``kernel`` (default:
-    :func:`kernel_for`'s choice)."""
+    :func:`kernel_for`'s choice); ``layout`` sets :data:`WGMMA_GROUPED`'s
+    in place of :func:`grouped_layout`'s."""
     global launches
     dev = a_km.device
     if b_km.device != dev:
@@ -161,13 +278,29 @@ def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int,
                          f"{b_km.device}")
     _, M, K = a_km.shape
     N = b_km.shape[1]
-    chosen = kernel_for(m, M, N, K)
-    kernel = kernel or chosen
+    if kernel is None:
+        kernel = kernel_for(m, M, N, K)
+    if kernel not in KERNELS:
+        raise ValueError(f"no layered matmul kernel {kernel!r}")
     if kernel == WGMMA and m > WGMMA_MAX_PLANES:
         raise ValueError(f"{WGMMA} takes m <= {WGMMA_MAX_PLANES}, got m={m}")
     if kernel == MMA_SYNC and m > MMA_SYNC_MAX_PLANES:
         raise ValueError(f"{MMA_SYNC} takes m <= {MMA_SYNC_MAX_PLANES}, "
                          f"got m={m}")
+    extra = ()
+    if kernel == WGMMA_GROUPED:
+        if layout is None:
+            layout = grouped_layout(m, M)
+        if layout not in (STACKED, LAYER_SPLIT):
+            raise ValueError(f"{WGMMA_GROUPED} has no layout {layout}")
+        plan = group_plan(m, GROUP_LAYERS,
+                          per_cta=2 if layout == LAYER_SPLIT else 1)
+        if len(plan) > MAX_GROUPS:
+            raise ValueError(f"{WGMMA_GROUPED} takes at most {MAX_GROUPS} "
+                             f"groups, m={m} needs {len(plan)}")
+        rows = (ctypes.c_int32 * (6 * len(plan)))(
+            *[v for row in plan for v in row])
+        extra = (ctypes.addressof(rows), len(plan), layout)
     _build.require_hopper(dev, kernel)
     fn = _entry(kernel)
     a_km = _kernel_operand(a_km)
@@ -177,7 +310,7 @@ def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a_km.data_ptr(), b_km.data_ptr(), out.data_ptr(), m, M, N, K,
-                 stream)
+                 *extra, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: error {err} "
                            f"(a CUDA error; 10000 + a CUresult: a TMA "
@@ -185,7 +318,20 @@ def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int,
                            f"K={K})")
     launches += 1
     kernel_launches[kernel] += 1
+    if kernel == WGMMA_GROUPED:
+        _unchecked.add(dev)
     return out
+
+
+def check_faults() -> None:
+    """Raise :class:`KernelFault` if a ring wait of a
+    :data:`WGMMA_GROUPED` launch gave up since the last check (its output
+    is then wrong); the word is cleared either way.
+
+    Synchronizes the devices that ran such a launch since the last check,
+    and does nothing when none did.
+    """
+    _build.check_fault_word(WGMMA_GROUPED, _unchecked, _bound)
 
 
 def layered_matmul_kmajor(a_km: torch.Tensor, b_km: torch.Tensor, *,

@@ -313,6 +313,20 @@ def cell_run(rank, world, arch, data, model, parts=("serve", "train"),
     return out
 
 
+def cell_placements(rank, world, archs, data, model):
+    """The layouts of :func:`cell_run`'s prefill outputs and new train
+    state (parts "prefill" and "train") for each of ``archs`` in turn, in
+    one group: one spawn serves every arch, so the interpreters, imports,
+    rendezvous and DTensor's first-use costs are paid once, not once an
+    arch."""
+    out = {}
+    for arch in archs:
+        run = cell_run(rank, world, arch, data, model, ("prefill", "train"))
+        out[arch] = {k: run[k] for k in ("prefill_placements",
+                                         "train_placements")}
+    return out
+
+
 #: archs whose cells run on each four-rank mesh (one spawn of four ranks each)
 SPAWNED = {(2, 2): ["llama3-8b", "qwen2-moe-a2.7b", "mamba2-370m",
                     "recurrentgemma-9b", "whisper-tiny", "internvl2-1b"],

@@ -440,15 +440,26 @@ def test_graphs_true_raises_on_the_cpu(one_rank):
 # Four gloo ranks against one
 # ---------------------------------------------------------------------------
 
-def _spawned(tmp_path_factory, arch):
-    """Each rank's :func:`_torch_dist.cell_run` of ``arch``'s prefill and
-    train parts on four spawned ranks on (data 2, model 2): what the
-    placements are read from, and no decode step (its values are held in
-    ``test_torch_cells_ranks.py``), so the spawn stays well inside its
-    deadline in a loaded run."""
-    return _torch_dist.run_ranks(tmp_path_factory.mktemp("cells"), 4,
-                                 _torch_dist.cell_run, arch, 2, 2,
-                                 ("prefill", "train"))
+#: One spawn of four ranks runs the prefill and train cells of all six
+#: archs (``_torch_dist.cell_placements``).  Traced on an 8-core host: 38 s
+#: alone (interpreter and torch 3 s, the port's imports 3 s, then 2–9 s an
+#: arch, recurrentgemma-9b the longest), 71 s with all eight cores kept
+#: busy by other processes.  A spawn of recurrentgemma-9b alone takes
+#: 19–22 s (10 of them first-use costs that a shared spawn pays once) and
+#: overran a 60 s deadline under the full suite's six workers, a slowdown
+#: of at least 2.7x; this deadline allows 7.9x the alone time.
+PLACEMENT_SPAWN_TIMEOUT = 300.0
+
+
+@pytest.fixture(scope="module")
+def four_rank_placements(tmp_path_factory):
+    """Each arch's prefill and train placements on (data 2, model 2), as
+    rank 0 of one four-rank spawn sees them: no decode step (its values
+    are held in ``test_torch_cells_ranks.py``)."""
+    return _torch_dist.run_ranks(
+        tmp_path_factory.mktemp("cells"), 4, _torch_dist.cell_placements,
+        _torch_dist.SPAWNED[(2, 2)], 2, 2,
+        timeout=PLACEMENT_SPAWN_TIMEOUT)[0]
 
 
 def _expected_placements(spec, mesh_axes):
@@ -462,13 +473,13 @@ def _expected_placements(spec, mesh_axes):
 
 
 @pytest.mark.parametrize("arch", _torch_dist.SPAWNED[(2, 2)])
-def test_four_rank_placements_follow_the_reference_rules(tmp_path_factory,
-                                                         arch):
+def test_four_rank_placements_follow_the_reference_rules(
+        four_rank_placements, arch):
     """Each parameter's and AdamW state's layout on (data 2, model 2) is
     the reference's ``param_specs``/``opt_state_specs`` on a stand-in
     mesh of those sizes, and the prefill's logits and caches its logits
     spec and ``cache_specs_tree``."""
-    train = serve = _spawned(tmp_path_factory, arch)[0]
+    train = serve = four_rank_placements[arch]
     fake = FakeMesh(data=2, model=2)
     jcfg = jreg.get_smoke_config(arch)
     jparams = jax.eval_shape(functools.partial(JT.init_params, cfg=jcfg),

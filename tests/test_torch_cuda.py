@@ -42,11 +42,12 @@ def _planes(rng, m, d, K, R, dev):
 
 
 WGMMA, MMA_SYNC, GROUPED = lm.WGMMA, lm.MMA_SYNC, lm.GROUPED
+WGMMA_GROUPED = lm.WGMMA_GROUPED
 
 
 @pytest.mark.parametrize("m,d,K,M,N,kernel", [
     (2, 7, 1024, 128, 128, WGMMA), (3, 5, 1000, 200, 328, WGMMA),
-    (4, 4, 33, 7, 9, MMA_SYNC), (1, 7, 16, 8, 8, WGMMA),
+    (4, 4, 33, 7, 9, WGMMA_GROUPED), (1, 7, 16, 8, 8, WGMMA),
     (2, 7, 4096, 64, 1000, WGMMA),
     (2, 7, 4096, 64, 128256, WGMMA),     # the llama3-8b LM head
     (2, 7, 4112, 64, 300, WGMMA),        # K tail of 16 bytes past 128s
@@ -54,14 +55,14 @@ WGMMA, MMA_SYNC, GROUPED = lm.WGMMA, lm.MMA_SYNC, lm.GROUPED
     (2, 7, 256, 65, 100, WGMMA),         # two row tiles, N below one tile
     (3, 5, 4112, 65, 200, WGMMA),
     (1, 7, 1008, 200, 1000, WGMMA),
-    (4, 4, 1008, 200, 300, MMA_SYNC)])
+    (4, 4, 1008, 200, 300, WGMMA_GROUPED)])
 def test_kernel_bit_equal_to_plain(rng, hopper, m, d, K, M, N, kernel):
     a, pa = _planes(rng, m, d, K, M, hopper)
     b, pb = _planes(rng, m, d, K, N, hopper)
     before = lm.launches
     per_kernel = dict(lm.kernel_launches)
     got = lm.layered_matmul_kmajor(pa, pb, m=m)
-    torch.cuda.synchronize()
+    lm.check_faults()
     assert lm.launches == before + 1
     assert lm.kernel_launches[kernel] == per_kernel[kernel] + 1
     want = lm.layered_matmul_plain(pa, pb, m=m)
@@ -124,18 +125,24 @@ def test_fused_wrapper_on_card_matches_oracle(rng, hopper):
 
 @pytest.mark.parametrize("m,M,N,kernel", [(1, 4, 16, WGMMA),
                                           (4, 4, 16, MMA_SYNC),
-                                          (5, 4, 16, GROUPED)])
+                                          (5, 4, 16, GROUPED),
+                                          (4, 4, 16, WGMMA_GROUPED),
+                                          (5, 4, 16, WGMMA_GROUPED)])
 def test_kernels_wrap_past_int32_like_plain(hopper, m, M, N, kernel):
     """Every digit 127 over K = 140288: each plane product is 127**2 K =
     2262705152, past 2**31.  The kernels accumulate in int32 without
     saturation (no ``.satfinite``), so they wrap, as the reference's
-    int32 accumulation and the plain version do."""
+    int32 accumulation and the plain version do.  The routed kernels are
+    reached through the wrapper, the earlier routes through ``_launch``."""
     K = 274 * 512
     pa = torch.full((m, M, K), 127, dtype=torch.int8, device=hopper)
     pb = torch.full((m, N, K), 127, dtype=torch.int8, device=hopper)
     before = lm.kernel_launches[kernel]
-    got = lm.layered_matmul_kmajor(pa, pb, m=m)
-    torch.cuda.synchronize()
+    if kernel == lm.kernel_for(m, M, N, K):
+        got = lm.layered_matmul_kmajor(pa, pb, m=m)
+    else:
+        got = lm._launch(pa, pb, m, kernel=kernel)
+    lm.check_faults()
     assert lm.kernel_launches[kernel] == before + 1
     want = lm.layered_matmul_plain(pa, pb, m=m)
     assert torch.equal(got, want)
@@ -145,27 +152,66 @@ def test_kernels_wrap_past_int32_like_plain(hopper, m, M, N, kernel):
 
 @pytest.mark.parametrize("m,M,N,K", [
     (5, 200, 328, 1008), (6, 65, 100, 4112), (7, 7, 9, 48),
-    (8, 200, 328, 1008), (5, 4096, 4096, 4096), (8, 4096, 4096, 4096)])
+    (8, 200, 328, 1008), (5, 4096, 4096, 4096), (8, 4096, 4096, 4096),
+    (4, 200, 328, 1008), (4, 4096, 4096, 4096)])
 def test_many_planes_match_plain(hopper, m, M, N, K):
-    """Past four planes the grouped kernel (seven layers a CTA, the groups
-    on grid.z) gives the plain version's partials bit for bit, ragged and
-    at 4096^3; the two register-resident kernels refuse what they were
-    not built for."""
+    """From four planes on the grouped tensor-core kernel (a group of at
+    most three layers a consumer) gives the plain version's partials bit
+    for bit, ragged and at 4096^3, in the layout it routes to and in the
+    other; so does the grouped mma.sync kernel, its earlier route; the two
+    register-resident kernels refuse what they were not built for."""
     gen = torch.Generator(device=hopper).manual_seed(m * 1000 + M)
     pa = torch.randint(-128, 128, (m, M, K), generator=gen,
                        device=hopper).to(torch.int8)
     pb = torch.randint(-128, 128, (m, N, K), generator=gen,
                        device=hopper).to(torch.int8)
-    before = lm.kernel_launches[GROUPED]
+    want = lm.layered_matmul_plain(pa, pb, m=m)
+    before = lm.kernel_launches[WGMMA_GROUPED]
     got = lm.layered_matmul_kmajor(pa, pb, m=m)
-    torch.cuda.synchronize()
-    assert lm.kernel_launches[GROUPED] == before + 1
-    assert torch.equal(got, lm.layered_matmul_plain(pa, pb, m=m))
+    lm.check_faults()
+    assert lm.kernel_launches[WGMMA_GROUPED] == before + 1
+    assert torch.equal(got, want)
+    other = 1 - lm.grouped_layout(m, M)
+    assert torch.equal(lm._launch(pa, pb, m, kernel=WGMMA_GROUPED,
+                                  layout=other), want)
+    lm.check_faults()
+    assert torch.equal(lm._launch(pa, pb, m, kernel=GROUPED), want)
     z = torch.zeros((m, 8, 16), dtype=torch.int8, device=hopper)
-    with pytest.raises(ValueError, match="m <= 4"):
-        lm._launch(z, z, m, kernel=MMA_SYNC)
+    if m > lm.MMA_SYNC_MAX_PLANES:
+        with pytest.raises(ValueError, match="m <= 4"):
+            lm._launch(z, z, m, kernel=MMA_SYNC)
     with pytest.raises(ValueError, match="m <= 3"):
         lm._launch(z, z, m, kernel=WGMMA)
+
+
+@pytest.mark.parametrize("m,d,K,M,N", [
+    (4, 3, 4096, 64, 128256),    # the llama3-8b LM head at m = 4
+    (4, 3, 37, 16, 24), (5, 3, 37, 70, 130), (4, 3, 1000, 64, 300)])
+def test_grouped_kernel_at_the_head_and_on_unaligned_planes(rng, hopper, m,
+                                                            d, K, M, N):
+    """The grouped tensor-core kernel at the m = 4 LM head, and on planes
+    that start off a 16-byte boundary or whose K is no multiple of 16
+    (they reach it through a zero-padded copy), bit for bit against the
+    plain version, as the m <= 3 case above."""
+    _, pa = _planes(rng, m, d, K, M, hopper)
+    _, pb = _planes(rng, m, d, K, N, hopper)
+    if K % 16 == 0:
+        shifted = pa
+    else:
+        pa = pa[:, :, :K]
+        pb = pb[:, :, :K]
+        buf = torch.empty(pa.numel() + 1, dtype=torch.int8, device=hopper)
+        shifted = buf[1:].view(pa.shape)
+        shifted.copy_(pa)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    before = lm.launches
+    per_kernel = dict(lm.kernel_launches)
+    got = lm.layered_matmul_kmajor(shifted, pb, m=m)
+    lm.check_faults()
+    assert lm.launches == before + 1
+    assert lm.kernel_launches[WGMMA_GROUPED] == (
+        per_kernel[WGMMA_GROUPED] + 1)
+    assert torch.equal(got, lm.layered_matmul_plain(pa, pb, m=m))
 
 
 def test_fused_wrapper_on_card_equals_cpu_past_int64_shifts(rng, hopper):

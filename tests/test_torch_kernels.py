@@ -202,11 +202,11 @@ def test_out_of_range_operands_wrap_like_reference(rng):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("m,d", [(5, 3), (8, 2)])
+@pytest.mark.parametrize("m,d", [(4, 4), (5, 3), (8, 2)])
 def test_many_planes_match_reference_kernel(rng, m, d):
-    """Past four planes (the grouped kernel's route on the card) the
-    partials equal the reference's Pallas kernel (interpret mode) at the
-    same m, bit for bit: the plain version covers any m."""
+    """From four planes on (the grouped tensor-core kernel's route on the
+    card) the partials equal the reference's Pallas kernel (interpret
+    mode) at the same m, bit for bit: the plain version covers any m."""
     A, B = _operands(rng, m, d, 48, 9, 20)
     want = np.asarray(jops.layered_matmul_partials(
         jnp.asarray(A), jnp.asarray(B), m=m, d=d, interpret=True))
@@ -277,18 +277,95 @@ def test_cpu_path_never_counts_a_launch(rng, m, d):
     (1, 8, 8, 16, "layered_matmul_wgmma"),
     (3, 200, 328, 1008, "layered_matmul_wgmma"),
     (2, 65, 100, 4112, "layered_matmul_wgmma"),
-    (4, 7, 9, 48, "layered_matmul"),
-    (4, 4096, 4096, 4096, "layered_matmul"),
-    (5, 8, 8, 16, "layered_matmul_grouped"),
-    (8, 4096, 4096, 4096, "layered_matmul_grouped"),
-    (40, 200, 328, 1008, "layered_matmul_grouped"),
+    (4, 7, 9, 48, "layered_matmul_wgmma_grouped"),
+    (4, 4096, 4096, 4096, "layered_matmul_wgmma_grouped"),
+    (5, 8, 8, 16, "layered_matmul_wgmma_grouped"),
+    (8, 4096, 4096, 4096, "layered_matmul_wgmma_grouped"),
+    (40, 200, 328, 1008, "layered_matmul_wgmma_grouped"),
 ])
 def test_layered_routing_by_planes_and_shape(m, M, N, K, want):
     """Up to three planes go to the wgmma kernel, whose L layers of
-    64-wide int32 accumulators fit a warpgroup's registers; four to the
-    mma.sync kernel; more to the grouped kernel, seven layers a CTA."""
+    64-wide int32 accumulators fit a warpgroup's registers; four and more
+    to the grouped wgmma kernel, one group of layers a CTA."""
     assert lm.kernel_for(m, M, N, K) == want
     assert want in lm.KERNELS
+
+
+def _least_largest_group(J, n, cap):
+    """The least largest pair count over every split of the layers (pairs
+    ``J``) into ``n`` contiguous groups of at most ``cap`` layers: a
+    dynamic program over prefixes, independent of ``group_plan``'s
+    search."""
+    inf = float("inf")
+    best = [[inf] * (len(J) + 1) for _ in range(n + 1)]
+    best[0][0] = 0
+    for k in range(1, n + 1):
+        for end in range(1, len(J) + 1):
+            for size in range(1, min(cap, end) + 1):
+                prev = best[k - 1][end - size]
+                best[k][end] = min(best[k][end],
+                                   max(prev, sum(J[end - size:end])))
+    return best[n][len(J)]
+
+
+@pytest.mark.parametrize("m", range(4, 41))
+def test_group_plan_runs_every_pair_once(m):
+    """``group_plan`` at the grouped wgmma kernel's cap of layers (and at
+    a wider one), with one group a CTA and with two (layer-split): every
+    plane pair of
+    ``layer_minijobs`` falls in exactly one group (the one holding its
+    layer), each group's plane ranges are the least that cover its pairs,
+    no group holds more layers than the cap allows, the
+    CTAs are the fewest that can hold the layers, and their largest pair
+    count is the least any such split reaches and at most twice the mean
+    (the middle layers hold m pairs each, the ends one: five end layers
+    hold 15 pairs however they are grouped)."""
+    J = layering.minijobs_per_layer(m)
+    L = len(J)
+    for per_cta in (1, 2):
+        for cap in (lm.GROUP_LAYERS, 5):
+            plan = lm.group_plan(m, cap, per_cta=per_cta)
+            assert len(plan) % per_cta == 0 and len(plan) <= lm.MAX_GROUPS
+            seen = {}
+            for g, (l0, l1, a0, a1, b0, b1) in enumerate(plan):
+                assert 0 <= l0 and l1 < L and l1 - l0 < cap, (cap, plan)
+                if l1 < l0:      # a layer-split CTA's empty second row
+                    assert per_cta == 2 and g % 2 and l0 == l1 + 1
+                    assert (l1, a0, a1, b0, b1) == (plan[g - 1][1],
+                                                    *plan[g - 1][2:])
+                    continue
+                pairs = [p for l in range(l0, l1 + 1)
+                         for p in layering.layer_minijobs(m, l)]
+                assert (a0, a1) == (min(i for i, _ in pairs),
+                                    max(i for i, _ in pairs))
+                assert (b0, b1) == (min(j for _, j in pairs),
+                                    max(j for _, j in pairs))
+                for p in pairs:
+                    assert p not in seen
+                    seen[p] = g // per_cta
+            assert sorted(seen) == [(i, j) for i in range(m)
+                                    for j in range(m)]
+            ctas = [(plan[k][0], max(r[1] for r in plan[k:k + per_cta]))
+                    for k in range(0, len(plan), per_cta)]
+            assert len(ctas) == -(-L // (per_cta * cap))
+            sizes = [sum(J[l0:l1 + 1]) for l0, l1 in ctas]
+            assert max(sizes) == _least_largest_group(J, len(ctas),
+                                                      per_cta * cap)
+            assert max(sizes) <= 2 * m * m / len(ctas)
+
+
+@pytest.mark.parametrize("m,M,want", [(4, 64, 1), (4, 65, 0), (4, 4096, 0),
+                                      (5, 4096, 1), (8, 4096, 1),
+                                      (40, 8, 1)])
+def test_grouped_layout_is_the_measured_one(m, M, want):
+    """Stacked for M > 64 at m = 4, layer-split otherwise: the faster of
+    the two at the shapes timed on the card.  At the head (m = 4) the
+    layer-split plan runs every layer in two CTAs a tile, not three."""
+    assert lm.grouped_layout(m, M) == want
+    assert want in (lm.STACKED, lm.LAYER_SPLIT)
+    if M <= 64 and m == 4:
+        assert len(lm.group_plan(m, lm.GROUP_LAYERS, per_cta=2)) == 4
+        assert len(lm.group_plan(m, lm.GROUP_LAYERS)) == 3
 
 
 @pytest.mark.parametrize("m,M,N,K,match", [
@@ -472,14 +549,23 @@ def test_flash_cpu_path_never_counts_a_launch(rng):
         ops.flash_attention(q, q, q, window=0)
 
 
-@pytest.mark.parametrize("word", [0, 1])
-def test_check_faults_reads_the_d256_give_up_word_once(monkeypatch, word):
-    """``check_faults`` reads the dh-256 kernel's give-up word only after a
+@pytest.mark.parametrize("word,module,kernel", [
+    pytest.param(0, "flash_attention", "WGMMA_D256", id="0"),
+    pytest.param(1, "flash_attention", "WGMMA_D256", id="1"),
+    pytest.param(0, "layered_matmul", "WGMMA_GROUPED",
+                 id="0-layered_matmul"),
+    pytest.param(1, "layered_matmul", "WGMMA_GROUPED",
+                 id="1-layered_matmul")])
+def test_check_faults_reads_the_d256_give_up_word_once(monkeypatch, word,
+                                                       module, kernel):
+    """``check_faults`` reads a warp-specialised kernel's give-up word (the
+    dh-256 flash kernel's, the grouped layered matmul's) only after a
     launch of that kernel, clears it, and raises ``KernelFault`` where a
     ring wait gave up (the device calls faked: this host has no card)."""
     import contextlib
+    import importlib
 
-    from repro_torch.kernels import flash_attention as fa
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
     reads = []
 
     def faults(ref, clear):
@@ -487,20 +573,20 @@ def test_check_faults_reads_the_d256_give_up_word_once(monkeypatch, word):
         ref._obj.value = word
         return 0
 
-    monkeypatch.setitem(fa._bound, f"{fa.WGMMA_D256}_faults", faults)
+    monkeypatch.setitem(mod._bound, f"{getattr(mod, kernel)}_faults", faults)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(fa, "_unchecked", set())
-    fa.check_faults()
+    monkeypatch.setattr(mod, "_unchecked", set())
+    mod.check_faults()
     assert reads == []
-    fa._unchecked.add(torch.device("cuda", 0))
+    mod._unchecked.add(torch.device("cuda", 0))
     if word:
-        with pytest.raises(fa.KernelFault, match="gave up"):
-            fa.check_faults()
+        with pytest.raises(mod.KernelFault, match="gave up"):
+            mod.check_faults()
     else:
-        fa.check_faults()
-    assert reads == [1] and not fa._unchecked
+        mod.check_faults()
+    assert reads == [1] and not mod._unchecked
 
 
 @pytest.mark.parametrize("dtype,dh,want", [
