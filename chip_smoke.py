@@ -130,7 +130,8 @@ main paths and checks what comes out:
    kernels' plain versions, falling loss over the run (eagerly,
    ``graphs=False``), one step under ``torch.profiler``; then the same
    run with its step replayed from a CUDA graph (the card's default): one
-   capture (the wrappers' launches: two warm-up steps and the capture),
+   capture (the wrappers' launches: two warm-up steps and two captures,
+   plain and marked),
    every step's loss and gradient norm and the final parameters and
    state bit-equal to the eager run's, step wall ms beside the eager
    run's, and a profiled replay that runs the kernel 24, 48 and 12 times;
@@ -2078,13 +2079,14 @@ def graph_train_loop(torch, cfg, tcfg, eager, n_steps: int, mod,
     card's default): every step's loss and gradient norm and the final
     parameters and state equal the eager run's (``eager``) bit for bit;
     one capture; the kernel's wrapper runs at the capture only (the two
-    warm-up steps and the capture: 3 ``want`` launches), and a profiled
+    warm-up steps and two captures, plain and marked: 4 ``want``
+    launches), and a profiled
     replay of one more step launches ``want`` of ``kernel`` on the card;
     wall ms of the steps after the first, and the replay's device ms."""
     import contextlib
     import io
 
-    from repro_torch.launch import train
+    from repro_torch.launch import graphs, train
     from repro_torch.tree import leaves
     mod.launches = 0
     mod.kernel_launches.update(dict.fromkeys(mod.KERNELS, 0))
@@ -2098,11 +2100,12 @@ def graph_train_loop(torch, cfg, tcfg, eager, n_steps: int, mod,
     if g is None or g.captures != 1:
         raise AssertionError(f"{cfg.name}: graph train loop captured "
                              f"{None if g is None else g.captures} times")
-    if (mod.launches != 3 * want
-            or mod.kernel_launches[kernel] != 3 * want):
+    at_capture = graphs.CAPTURE_CALLS * want
+    if (mod.launches != at_capture
+            or mod.kernel_launches[kernel] != at_capture):
         raise AssertionError(f"{cfg.name}: the capture launched "
                              f"{dict(mod.kernel_launches)}, want "
-                             f"{3 * want} of {kernel}")
+                             f"{at_capture} of {kernel}")
     same = {key: out[key] == eager[key] for key in ("losses", "grad_norms")}
     same["params_and_state"] = all(
         torch.equal(a, b) for a, b in zip(
@@ -2807,7 +2810,7 @@ def phase_cell_prefill(torch, dev, results):
     against ``make_prefill_step`` on the same plain tensors (bit-equal
     expected; any difference printed and held to :data:`DECODE_TOL` of
     the largest value).  From the graph: the capture (its wrapper calls:
-    two warm-up steps and the capture, 3 x 32), the outputs bit-equal to
+    two warm-up steps and two captures, 4 x 32), the outputs bit-equal to
     the eager cell's, left as they were by a later call on another
     prompt, one capture for every call, and a profiled replay that runs
     32 flash kernels.  Wall, CUDA-event and profiled device ms of the
@@ -2816,7 +2819,7 @@ def phase_cell_prefill(torch, dev, results):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import steps
+    from repro_torch.launch import graphs, steps
     from repro_torch.models import transformer as T
     c = CELL
     B, S, G = c["batch"], c["prompt"], c["gen"]
@@ -2860,7 +2863,7 @@ def phase_cell_prefill(torch, dev, results):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     at_capture = dict(fa.kernel_launches)
-    if at_capture[fa.WGMMA] != 3 * c["flash_launches"]:
+    if at_capture[fa.WGMMA] != graphs.CAPTURE_CALLS * c["flash_launches"]:
         raise AssertionError(f"the prefill capture launched {at_capture}")
     gdiff, _ = _max_diff(torch, (g_logits, g_caches), (logits, caches))
     kept = g_logits.to_local().clone()
@@ -3006,7 +3009,7 @@ def phase_cell_train(torch, dev, results):
     tensor-core kernel; one more set of gradients through the train
     cell's layout every one finite; step 1's loss and gradient norm
     against ``make_train_step`` on plain tensors within
-    :data:`TRAIN_VS_PLAIN_TOL`.  From the graph: one capture (3 x 48
+    :data:`TRAIN_VS_PLAIN_TOL`.  From the graph: one capture (4 x 48
     wrapper calls), every step's loss and gradient norm and the final
     parameters and state bit-equal to the eager run's, and a profiled
     replay that runs 48 SSD kernels.  The step times of the graph, the
@@ -3018,7 +3021,7 @@ def phase_cell_train(torch, dev, results):
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ssd_scan as ss
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import graphs, steps, train
     from repro_torch.launch.axes import mesh_context
     from repro_torch.tree import leaves
     c = CELL
@@ -3083,7 +3086,8 @@ def phase_cell_train(torch, dev, results):
                          (out["params"], out["opt_state"]))
     same["params_and_state"] = pdiff == 0.0
     if (g is None or g.captures != 1 or not all(same.values())
-            or gout["launches"][ss.WGMMA] != 3 * c["ssd_launches"]):
+            or gout["launches"][ss.WGMMA]
+            != graphs.CAPTURE_CALLS * c["ssd_launches"]):
         raise AssertionError(f"graph train cell: {same}, captures "
                              f"{None if g is None else g.captures}, "
                              f"launches {gout['launches']}")

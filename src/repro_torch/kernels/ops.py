@@ -22,6 +22,10 @@ through ``launch.axes.local_shards`` (``local_map``) around the
 kernel, on its local shard -- batch over the mesh's batch axes, heads
 over ``model`` where they divide -- and backward hands each rank its local
 gradients.  Plain tensors take the path above.
+
+While ``torch.profiler`` records, each call of the two is a
+``repro.kernel.flash_attention`` or ``repro.kernel.ssd_scan`` range
+(``launch.graphs.span``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from repro_torch.core import layering
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.layered_matmul import K_ALIGN, layered_matmul_kmajor
+from repro_torch.launch import graphs
 
 __all__ = ["layered_matmul", "layered_matmul_partials", "flash_attention",
            "ssd_scan_fused"]
@@ -200,9 +205,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with GQA (kv head ``h // (H // n_kv)`` is read in place, no repeat):
     ``kernels.flash_attention.flash_attention_gqa``, differentiable (see
     the module docstring)."""
-    if isinstance(q, DTensor):
-        return _sharded_flash_attention(q, k, v, causal, window)
-    return _FlashAttention.apply(q, k, v, causal, window)
+    with graphs.span("repro.kernel.flash_attention"):
+        if isinstance(q, DTensor):
+            return _sharded_flash_attention(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window)
 
 
 def _head_split(mesh, heads: int, kv_heads: int) -> tuple[bool, bool]:
@@ -303,9 +309,10 @@ def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"one B/C group only, got Bm {tuple(Bm.shape)}")
     if x.shape[1] % chunk:
         raise ValueError(f"S={x.shape[1]} not divisible by chunk={chunk}")
-    if isinstance(x, DTensor):
-        return _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk)
-    return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk)
+    with graphs.span("repro.kernel.ssd_scan"):
+        if isinstance(x, DTensor):
+            return _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk)
+        return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk)
 
 
 def _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk):

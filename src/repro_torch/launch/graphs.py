@@ -38,25 +38,93 @@ first-use state, the kernels' builds), then records it; a capture or
 replay that fails raises, and nothing falls back to eager.  ``log``
 records each capture's seconds and pool bytes.  The CPU has no graphs:
 callers run their steps eagerly there.
+
+Tracing.  The step's stages are marked where their work is launched
+(:func:`mark`).  :func:`record` captures the step twice into one pool:
+as it is, and with each mark a timing event recorded into the graph, so
+that a replay of that second graph stamps the end of each stage on the
+device; outside that capture a mark does nothing.  An event node costs
+about 5 us on an H100, 1 % of a full-size decode step, so the marked
+graph replays only while ``torch.profiler`` records (:func:`recording`,
+the one gate): then a graphed call reads its last replay's stage times
+into :data:`stage_log`, and the port's host spans (:func:`span`) are
+``record_function`` ranges on the profiler's clock.  With the profiler
+off the plain graph replays, and no span is entered and nothing read.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.profiler import record_function
 
 from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 __all__ = ["REF", "COPY", "INOUT", "DONATE", "GraphedStep", "Recorded",
-           "record", "wants_graphs"]
+           "record", "wants_graphs", "mark", "stages", "stage_log",
+           "recording", "span", "CAPTURE_CALLS"]
 
 REF, COPY, INOUT, DONATE = "ref", "copy", "inout", "donate"
 
 #: steps run on a side stream before a capture
 WARMUP_STEPS = 2
+
+#: calls of a step at its capture: the warm-up steps and two captures,
+#: plain and marked (so a kernel's wrapper counts this many launches)
+CAPTURE_CALLS = WARMUP_STEPS + 2
+
+#: the stage times of graphed calls made while the profiler recorded,
+#: newest last: ``{"step": name, "stages": {stage: seconds}}`` of each
+#: call's last replay (``serve.decode`` for the server's decode, a
+#: :class:`GraphedStep`'s ``name`` otherwise)
+stage_log: collections.deque = collections.deque(maxlen=256)
+
+#: the marks of the capture :func:`record` is making, else None
+_open_marks: Optional[list] = None
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether ``torch.profiler`` records on this thread: the gate of every
+    span and stage read, far cheaper than entering a ``record_function``
+    with no profiler running."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while the profiler
+    records, else a context that does nothing."""
+    return record_function(name) if recording() else _NO_SPAN
+
+
+def mark(name: str) -> None:
+    """End the stage ``name`` here, where it began at the previous mark:
+    inside a capture by :func:`record`, a timing event recorded into the
+    graph; anywhere else (eager calls, the CPU, the warm-up) nothing."""
+    if _open_marks is None:
+        return
+    event = torch.cuda.Event(enable_timing=True, external=True)
+    event.record()
+    _open_marks.append((name, event))
+
+
+def stages(marks) -> dict[str, float]:
+    """``{stage: seconds}`` of the last replay of a graph captured with
+    ``marks`` (a :class:`Recorded`'s), each stage summed over its marks;
+    waits for the last mark."""
+    if len(marks) < 2:
+        return {}
+    marks[-1][1].synchronize()
+    out: dict[str, float] = {}
+    for (_, start), (name, end) in zip(marks, marks[1:]):
+        out[name] = out.get(name, 0.0) + start.elapsed_time(end) / 1e3
+    return out
 
 
 def wants_graphs(graphs: Optional[bool], device_type: str) -> bool:
@@ -85,15 +153,40 @@ def _owned(x: torch.Tensor) -> torch.Tensor:
     return x.clone()
 
 
-class Recorded(NamedTuple):
-    """A captured graph, the outputs its capture returned (its static
-    outputs, rewritten by every replay), its private pool's bytes and the
-    capture's seconds."""
+class Recorded:
+    """A step captured twice in one private pool: ``graph`` as it is and
+    ``marked`` with its ``marks`` (``(stage, event)``, the first the
+    capture's own start).  ``out`` and ``marked_out`` are the outputs each
+    capture returned, its static outputs, rewritten by each of its
+    replays; ``pool_bytes`` and ``capture_seconds`` are both captures'.
+    The two share their pool, so only the outputs of the graph that
+    replayed last hold its results."""
 
-    graph: torch.cuda.CUDAGraph
-    out: object
-    pool_bytes: int
-    capture_seconds: float
+    def __init__(self, graph: torch.cuda.CUDAGraph, out,
+                 marked: torch.cuda.CUDAGraph, marked_out, marks: tuple,
+                 pool_bytes: int, capture_seconds: float):
+        self.graph, self.out = graph, out
+        self.marked, self.marked_out, self.marks = marked, marked_out, marks
+        self.pool_bytes, self.capture_seconds = pool_bytes, capture_seconds
+        #: whether the last replay was the marked graph's
+        self.traced = False
+
+    def replay(self):
+        """Replay the step, from the marked graph while the profiler
+        records; returns the static outputs of the graph that ran."""
+        self.traced = recording()
+        if self.traced:
+            self.marked.replay()
+            return self.marked_out
+        self.graph.replay()
+        return self.out
+
+    def log_stages(self, step: str) -> None:
+        """While the profiler records, append the stage times of the last
+        replay, if it was the marked graph's, to :data:`stage_log` as
+        ``step``."""
+        if self.traced and len(self.marks) > 1 and recording():
+            stage_log.append({"step": step, "stages": stages(self.marks)})
 
 
 #: the warm-up stream of each card: one for every capture, since cuBLAS
@@ -113,11 +206,13 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 def record(step: Callable[[], object], device: torch.device, *,
            warm: Optional[Callable[[], object]] = None,
            thread_local: bool = False) -> Recorded:
-    """Capture ``step()`` in a CUDA graph on ``device``: first run
+    """Capture ``step()`` in CUDA graphs on ``device``: first run
     ``warm`` (``step`` by default) :data:`WARMUP_STEPS` times on a side
-    stream, then record ``step``; ``thread_local`` picks the capture's
-    ``capture_error_mode`` (other threads' CUDA calls, such as NCCL's
-    watchdog, stay legal)."""
+    stream, then capture ``step`` as it is, then again into the same pool
+    with the stage marks it makes after one of the capture's own;
+    ``thread_local`` picks the captures' ``capture_error_mode`` (other
+    threads' CUDA calls, such as NCCL's watchdog, stay legal)."""
+    global _open_marks
     warm = step if warm is None else warm
     side = _side_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -125,17 +220,28 @@ def record(step: Callable[[], object], device: torch.device, *,
         for _ in range(WARMUP_STEPS):
             warm()
     torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
     start = time.perf_counter()
     mode = "thread_local" if thread_local else "global"
+    graph, marked, marks = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph(), []
     # torch.cuda.graph synchronizes and empties the cache on entry, so
-    # what is reserved during the capture is the graph's private pool
+    # what is reserved during a capture is the graphs' private pool
     with torch.cuda.graph(graph, capture_error_mode=mode):
         reserved = torch.cuda.memory_reserved(device)
         out = step()
     pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    with torch.cuda.graph(marked, pool=graph.pool(),
+                          capture_error_mode=mode):
+        reserved = torch.cuda.memory_reserved(device)
+        _open_marks = marks
+        try:
+            mark("start")
+            marked_out = step()
+        finally:
+            _open_marks = None
+    pool_bytes += torch.cuda.memory_reserved(device) - reserved
     torch.cuda.synchronize(device)
-    return Recorded(graph, out, pool_bytes, time.perf_counter() - start)
+    return Recorded(graph, out, marked, marked_out, tuple(marks), pool_bytes,
+                    time.perf_counter() - start)
 
 
 def _leaf_key(x, role: str):
@@ -157,8 +263,8 @@ def _refs(flat: list, roles: list) -> tuple:
 
 
 class _Capture:
-    """One captured step: the graph, its argument buffers (per argument, a
-    flat list of leaves as the caller's), and its outputs."""
+    """One captured step: its graphs (``rec``) and argument buffers (per
+    argument, a flat list of leaves as the caller's)."""
 
     def __init__(self, step: Callable, args: tuple, roles: list,
                  writeback: dict, device: torch.device, thread_local: bool):
@@ -181,13 +287,18 @@ class _Capture:
                     raise ValueError(f"output {o} is not laid out as "
                                      f"argument {a}, which it replaces")
                 torch._foreach_copy_(into, new)
-            return out
+            if not writeback:
+                return out
+            mark("writeback")
+            # the written-back outputs are the graph's scratch: return the
+            # buffers they went to instead, so that the marked capture
+            # places its own in their memory (not 4 GB more for a 370 M
+            # parameter AdamW step)
+            return tuple(unflatten(x, self.args[writeback[i]])
+                         if i in writeback else x for i, x in enumerate(out))
 
-        rec = record(captured, device, warm=lambda: step(*static),
-                     thread_local=thread_local)
-        self.graph, self.out = rec.graph, rec.out
-        self.pool_bytes, self.capture_seconds = (rec.pool_bytes,
-                                                 rec.capture_seconds)
+        self.rec = record(captured, device, warm=lambda: step(*static),
+                          thread_local=thread_local)
         # outputs that are argument buffers: (argument, leaf) by identity
         self.aliases = {id(x): (a, i) for a, flat in enumerate(self.args)
                         for i, (x, role) in enumerate(zip(flat, roles[a]))
@@ -202,14 +313,15 @@ class GraphedStep:
 
     ``role(argnum, path)`` names each tensor leaf's role (the module
     docstring); ``writeback`` maps an output index (of a tuple-returning
-    step) to the :data:`DONATE` argument it replaces.  Call it as the step
-    itself.
+    step) to the :data:`DONATE` argument it replaces; ``name`` is the
+    step's name in :data:`stage_log`.  Call it as the step itself.
     """
 
     def __init__(self, step: Callable, role: Callable[[int, tuple], str],
-                 *, writeback: Optional[dict] = None):
+                 *, writeback: Optional[dict] = None, name: str = "step"):
         self.step = step
         self.role = role
+        self.name = name
         self.writeback = dict(writeback or {})
         self._captures: dict = {}
         #: one entry per capture made: its seconds, pool bytes, tensor
@@ -223,9 +335,9 @@ class GraphedStep:
 
     @property
     def graphs(self) -> list[torch.cuda.CUDAGraph]:
-        """The graphs held, one per signature, in capture order
+        """The plain graphs held, one per signature, in capture order
         (``replay()`` reruns one on its buffers as they stand)."""
-        return [cap.graph for cap in self._captures.values()]
+        return [cap.rec.graph for cap in self._captures.values()]
 
     def _roles(self, args) -> list:
         out = []
@@ -261,38 +373,43 @@ class GraphedStep:
             if device.type != "cuda":
                 raise ValueError(f"CUDA graphs need card tensors, got "
                                  f"{device}")
-            cap = _Capture(self.step, args, roles, self.writeback, device,
-                           thread_local=any(isinstance(x, DTensor)
-                                            for x in tensors))
+            with span("repro.graph.capture"):
+                cap = _Capture(self.step, args, roles, self.writeback,
+                               device, thread_local=any(
+                                   isinstance(x, DTensor) for x in tensors))
             self._captures[key] = cap
-            self.log.append({"capture_seconds": cap.capture_seconds,
-                             "pool_bytes": cap.pool_bytes,
+            self.log.append({"capture_seconds": cap.rec.capture_seconds,
+                             "pool_bytes": cap.rec.pool_bytes,
                              "tensors": len(tensors)})
-        src, dst = [], []
-        for f, rs, mine in zip(flat, roles, cap.args):
-            for x, r, s in zip(f, rs, mine):
-                if r in (COPY, INOUT, DONATE) and x is not s:
-                    src.append(_local(x))
-                    dst.append(_local(s))
-        if dst:
-            torch._foreach_copy_(dst, src)
-        cap.graph.replay()
-        back_src, back_dst = [], []
-        for f, rs, mine in zip(flat, roles, cap.args):
-            for x, r, s in zip(f, rs, mine):
-                if r == INOUT and x is not s:
-                    back_src.append(_local(s))
-                    back_dst.append(_local(x))
-        if back_dst:
-            torch._foreach_copy_(back_dst, back_src)
-        return self._outputs(cap, flat)
+        with span("repro.graph.copy_in"):
+            src, dst = [], []
+            for f, rs, mine in zip(flat, roles, cap.args):
+                for x, r, s in zip(f, rs, mine):
+                    if r in (COPY, INOUT, DONATE) and x is not s:
+                        src.append(_local(x))
+                        dst.append(_local(s))
+            if dst:
+                torch._foreach_copy_(dst, src)
+        with span("repro.graph.replay"):
+            static = cap.rec.replay()
+        with span("repro.graph.copy_out"):
+            back_src, back_dst = [], []
+            for f, rs, mine in zip(flat, roles, cap.args):
+                for x, r, s in zip(f, rs, mine):
+                    if r == INOUT and x is not s:
+                        back_src.append(_local(s))
+                        back_dst.append(_local(x))
+            if back_dst:
+                torch._foreach_copy_(back_dst, back_src)
+            out = self._outputs(cap, static, flat)
+        cap.rec.log_stages(self.name)
+        return out
 
-    def _outputs(self, cap: _Capture, flat: list):
-        out = cap.out
+    def _outputs(self, cap: _Capture, out, flat: list):
         if not isinstance(out, tuple):
             return self._copy_out(cap, out, flat)
-        return tuple(unflatten(o, cap.args[self.writeback[i]])
-                     if i in self.writeback else self._copy_out(cap, o, flat)
+        return tuple(o if i in self.writeback
+                     else self._copy_out(cap, o, flat)
                      for i, o in enumerate(out))
 
     @staticmethod

@@ -43,6 +43,15 @@ replays only.  In ``deadline_ms`` mode only the hidden step is captured;
 the head stays a runtime job.  ``graphs=False`` decodes eagerly on the
 card, op by op, as the CPU always does.
 
+While ``torch.profiler`` records, the server's calls are ranges on its
+clock (``launch.graphs.span``): ``repro.serve.prefill``, and
+``repro.serve.decode`` holding ``repro.serve.capture`` (when it
+captures), ``repro.serve.copy_in``, one ``repro.serve.replay`` a token
+(``repro.serve.step`` eagerly) and ``repro.serve.copy_out``; and the
+decode replays the step's marked capture (stages ``embed``, ``mixer``,
+``ffn``, ``norm``, ``head``, ``sample``) and appends its last replay's
+stage times to ``launch.graphs.stage_log`` as ``serve.decode``.
+
     python -m repro_torch.launch.serve --arch llama3-8b --batch 4 \\
         --prompt-len 1024 --gen 16                      # on the card
     python -m repro_torch.launch.serve --arch llama3-8b-smoke \\
@@ -135,14 +144,16 @@ class _RuntimeHead:
 
 class _DecodeGraph:
     """One greedy decode step (:meth:`ProgressiveServer._step`) captured in
-    a CUDA graph against the server's own ``caches`` of one shape.
+    CUDA graphs against the server's own ``caches`` of one shape (``rec``:
+    plain, and marked for the profiler, ``launch.graphs.record``).
 
     ``tok`` (B, 1) and ``pos`` (0-d) are the device buffers the step reads
-    and updates in place; ``out`` is its static output (the hidden state
-    without a ``release``, else the released logits), overwritten by every
-    :meth:`replay`.  ``caches`` are the server's own for this shape: the
-    warm-up before the capture (cuBLAS handles and workspaces, on a side
-    stream) runs on them, and each decode copies its caches in first.
+    and updates in place; ``out`` is the static output of the graph that
+    replayed last (the hidden state without a ``release``, else the
+    released logits), overwritten by every :meth:`replay`.  ``caches``
+    are the server's own for this shape: the warm-up before the capture
+    (cuBLAS handles and workspaces, on a side stream) runs on them, and
+    each decode copies its caches in first.
     """
 
     def __init__(self, server: "ProgressiveServer", caches, batch: int,
@@ -158,7 +169,7 @@ class _DecodeGraph:
                 lambda: server._step(self.tok, self.pos, caches, release),
                 dev, warm=lambda: server._step(
                     self.tok.clone(), self.pos.clone(), caches, release))
-        self.graph, self.out = rec.graph, rec.out
+        self.rec, self.out = rec, rec.out
         self.pool_bytes, self.capture_seconds = (rec.pool_bytes,
                                                  rec.capture_seconds)
 
@@ -168,7 +179,7 @@ class _DecodeGraph:
         self.pos.fill_(pos)
 
     def replay(self) -> None:
-        self.graph.replay()
+        self.out = self.rec.replay()
 
 
 def _shape_key(caches) -> tuple:
@@ -269,13 +280,14 @@ class ProgressiveServer:
         model's ``extra_embeds`` / ``audio_embeds``.  Raises
         ``flash_attention.KernelFault`` if a kernel of the prefill
         reported a fault of its own."""
-        extras = {k: v.to(self.device) for k, v in extras.items()}
-        with torch.no_grad():
-            out = T.prefill(self.params, tokens.to(self.device), self.cfg,
-                            max_len=max_len, **extras)
-        # synchronizes only after a launch of a kernel that reports
-        # faults (the dh-256 flash kernel)
-        flash_attention.check_faults()
+        with graphs_lib.span("repro.serve.prefill"):
+            extras = {k: v.to(self.device) for k, v in extras.items()}
+            with torch.no_grad():
+                out = T.prefill(self.params, tokens.to(self.device),
+                                self.cfg, max_len=max_len, **extras)
+            # synchronizes only after a launch of a kernel that reports
+            # faults (the dh-256 flash kernel)
+            flash_attention.check_faults()
         return out
 
     def head_series(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -296,7 +308,9 @@ class ProgressiveServer:
         if release is None:
             return hidden
         logits = self.head_series(hidden)[release - 1]
+        graphs_lib.mark("head")
         tok.copy_(torch.argmax(logits, dim=-1)[:, None])
+        graphs_lib.mark("sample")
         return logits
 
     def _graph(self, caches, batch: int,
@@ -310,7 +324,8 @@ class ProgressiveServer:
             own = self._graph_caches.get(shape)
             if own is None:
                 own = tree_map(torch.zeros_like, caches)
-            graph = _DecodeGraph(self, own, batch, release)
+            with graphs_lib.span("repro.serve.capture"):
+                graph = _DecodeGraph(self, own, batch, release)
             self._graph_caches[shape] = own
             self._graphs[(shape, batch, release)] = graph
             self.graph_log.append({"batch": batch, "release": release,
@@ -346,46 +361,60 @@ class ProgressiveServer:
         budget = (None if deadline_ms is not None
                   else self.m if layer_budget is None
                   else max(1, min(layer_budget, self.m)))
-        tok = tokens.to(self.device)
-        graph = None
-        if self.graphs:
-            graph = self._graph(caches, tok.shape[0], budget)
-            _copy_into(graph.caches, caches)
-            graph.start(tok, start_pos)
-        out = []
-        for i in range(num_tokens):
+        span = graphs_lib.span
+        with span("repro.serve.decode"):
+            tok = tokens.to(self.device)
+            graph = None
+            if self.graphs:
+                graph = self._graph(caches, tok.shape[0], budget)
+                with span("repro.serve.copy_in"):
+                    _copy_into(graph.caches, caches)
+                    graph.start(tok, start_pos)
+            step_span = ("repro.serve.step" if graph is None
+                         else "repro.serve.replay")
+            out = []
+            for i in range(num_tokens):
+                with span(step_span):
+                    tok, release = self._next(graph, tok, caches,
+                                              start_pos + i, budget,
+                                              deadline_ms, stats)
+                stats.steps += 1
+                stats.full_resolution += int(release == stats.resolutions)
+                stats.released_at_layer.append(release)
+                out.append(tok)
             if graph is not None:
-                graph.replay()
-                hidden = graph.out  # the released logits, given a budget
-            else:
-                with torch.no_grad():
-                    hidden, caches = T.hidden_step(self.params, tok, caches,
-                                                   start_pos + i, self.cfg)
-            if deadline_ms is not None:
-                head = self._runtime_head(int(hidden.shape[0]))
-                logits_np, rel, svc = head.step(
-                    hidden.to(torch.float64).cpu().numpy(),
-                    deadline_ms / 1e3)
-                release = rel + 1
-                stats.head_service_seconds.append(svc)
-                tok = torch.argmax(torch.from_numpy(logits_np),
-                                   dim=-1)[:, None].to(self.device)
-                if graph is not None:
-                    graph.tok.copy_(tok)
-            elif graph is not None:
-                release = budget
-                tok = graph.tok.clone()     # the graph wrote the argmax
-            else:
-                release = budget
-                logits = self.head_series(hidden)[release - 1]
-                tok = torch.argmax(logits, dim=-1)[:, None]
-            stats.steps += 1
-            stats.full_resolution += int(release == stats.resolutions)
-            stats.released_at_layer.append(release)
-            out.append(tok)
-        if graph is not None:
-            _copy_into(caches, graph.caches)
+                with span("repro.serve.copy_out"):
+                    _copy_into(caches, graph.caches)
+                graph.rec.log_stages("serve.decode")
         return torch.cat(out, dim=1), stats
+
+    def _next(self, graph: Optional[_DecodeGraph], tok: torch.Tensor,
+              caches, pos: int, budget: Optional[int],
+              deadline_ms: Optional[float], stats: ServeStats):
+        """One decode step of :meth:`decode` (a replay of ``graph``, or
+        eagerly without one); returns (the next token (B, 1), the
+        release)."""
+        if graph is not None:
+            graph.replay()
+            hidden = graph.out  # the released logits, given a budget
+        else:
+            with torch.no_grad():
+                hidden, _ = T.hidden_step(self.params, tok, caches, pos,
+                                          self.cfg)
+        if deadline_ms is not None:
+            head = self._runtime_head(int(hidden.shape[0]))
+            logits_np, rel, svc = head.step(
+                hidden.to(torch.float64).cpu().numpy(), deadline_ms / 1e3)
+            stats.head_service_seconds.append(svc)
+            tok = torch.argmax(torch.from_numpy(logits_np),
+                               dim=-1)[:, None].to(self.device)
+            if graph is not None:
+                graph.tok.copy_(tok)
+            return tok, rel + 1
+        if graph is not None:
+            return graph.tok.clone(), budget    # the graph wrote the argmax
+        logits = self.head_series(hidden)[budget - 1]
+        return torch.argmax(logits, dim=-1)[:, None], budget
 
 
 def main(argv=None) -> int:

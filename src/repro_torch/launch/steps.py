@@ -39,7 +39,7 @@ from repro_torch.launch import sharding as sh
 from repro_torch.launch.axes import (laid_out_like, mesh_context,
                                      placements)
 from repro_torch.launch.graphs import (COPY, DONATE, INOUT, REF,
-                                       GraphedStep, wants_graphs)
+                                       GraphedStep, mark, wants_graphs)
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
@@ -94,6 +94,7 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         loss, metrics = T.forward_train(use, batch["tokens"],
                                         batch["targets"], cfg,
                                         **_batch_kwargs(batch))
+        mark("forward")
         wrt_leaves = leaves(wrt)
         grads = torch.autograd.grad(loss, wrt_leaves, allow_unused=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -103,6 +104,7 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         grads = [torch.zeros_like(x, dtype=torch.float32)
                  if g is None else laid_out_like(g.to(torch.float32), x)
                  for g, x in zip(grads, wrt_leaves)]
+        mark("backward")
         return loss.detach(), metrics, unflatten(params, grads)
 
     return grad_fn
@@ -119,6 +121,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
     def train_step(params, opt_state, batch):
         _, metrics, grads = grad_fn(params, batch)
         new_params, new_opt = optimizer.update(grads, opt_state, params)
+        mark("optimizer")
         return new_params, new_opt, dict(metrics, grad_norm=new_opt["gnorm"])
 
     return train_step, optimizer
@@ -332,9 +335,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig | str, mesh,
 def graph_step(step: Callable, kind: str) -> GraphedStep:
     """``step`` (a ``make_*_step`` function of ``kind``: train, prefill or
     decode) replayed from CUDA graphs, with a cell's argument roles:
-    ``build_cell``'s ``graphs`` for steps on plain tensors."""
+    ``build_cell``'s ``graphs`` for steps on plain tensors.  Its stage
+    times go to ``graphs.stage_log`` as ``kind``."""
     return GraphedStep(step, _CELL_ROLES[kind],
-                       writeback={0: 0, 1: 1} if kind == "train" else None)
+                       writeback={0: 0, 1: 1} if kind == "train" else None,
+                       name=kind)
 
 
 #: each cell argument's role in its CUDA graph (``launch.graphs``): a

@@ -18,6 +18,10 @@ that axis the port runs a Python loop.  Activations are pinned with
 tensors, a DTensor redistribution inside a sharded cell
 (``launch.steps.build_cell``).
 
+A decode step marks its stages (``launch.graphs.mark``: the embedding,
+each layer's mixer and FFN, the final norm), which a marked capture of it
+times on the device; everywhere else the marks do nothing.
+
 Full-sequence attention runs the flash kernel
 (``kernels.ops.flash_attention``: its positions are ``arange(S)``, which
 are the positions ``forward`` gives every layer), and the Mamba2 block
@@ -63,6 +67,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.launch.axes import (constrain, einsum, local_like,
                                      local_shards, stack)
+from repro_torch.launch.graphs import mark
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -496,20 +501,27 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
                                      cache_len=pos_b + 1)
         h = einsum("bshk,hkd->bsd", out, ap["wo"].to(x.dtype))
         x = x + h
+        mark("mixer")
         if kind == "cross":
             x = x + _cross_decode(p["xattn"], norm(p["ln_x"], x), cfg,
                                   pos_b, enc_kv)
+            mark("mixer")
         x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, kind)
+        mark("ffn")
         return x, cache
     if kind == "ssm":
         h, new_cache = ssm_lib.ssm_decode_step(p["ssm"], norm(p["ln1"], x),
                                                cache, cfg.d_model, cfg.ssm)
-        return x + h, new_cache
+        x = x + h
+        mark("mixer")
+        return x, new_cache
     if kind == "rglru":
         h, new_cache = rglru_lib.rglru_decode_step(
             p["rglru"], norm(p["ln1"], x), cache, cfg.rglru)
         x = x + h
+        mark("mixer")
         x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, "dense")
+        mark("ffn")
         return x, new_cache
     raise ValueError(kind)
 
@@ -777,6 +789,7 @@ def hidden_step(params: dict, token: torch.Tensor, caches, pos,
     if cfg.is_encdec and enc_kvs is None:
         caches, enc_kvs = caches
     x = _embed_inputs(params, token, cfg)
+    mark("embed")
     for g, (unit, reps) in enumerate(block_groups(cfg)):
         layers = [_unstack(p) for p in params["groups"][g]]
         for r in range(reps):
@@ -793,6 +806,7 @@ def hidden_step(params: dict, token: torch.Tensor, caches, pos,
                     if t is not layer_cache[n]:
                         stacked[n][r].copy_(t)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
+    mark("norm")
     return x[:, 0, :], given
 
 
