@@ -76,7 +76,12 @@ main paths and checks what comes out:
    same bf16 inputs (its earlier route), held against the plain version
    before it is timed, the plain version's times and the bounds at the
    bf16 tensor-core and the fp32 rates (no library call computes the
-   scan);
+   scan); then the SSD backward kernel (``ssd_backward_vs_plain``) at the
+   mamba2-370m train step's shape (4 x 2048) and at 4 x 1024: one
+   ``ops.ssd_scan_fused`` call's gradients for seeded cotangents (one
+   forward and one backward launch) against the plain scan
+   differentiated directly, then the backward call alone timed beside its
+   bound, its seven device kernels and the plain recompute it replaces;
 7. main paths 3 to 8, ``launch.serve.ProgressiveServer`` at the full
    width of llama3-8b, mamba2-370m, recurrentgemma-9b (all 38 layers),
    qwen2-moe-a2.7b (all 24 layers), whisper-tiny (4 encoder and 4
@@ -124,7 +129,8 @@ main paths and checks what comes out:
    (flash attention in the forward pass), mamba2-370m 20 (the SSD scan)
    and whisper-tiny 10 (flash attention, cross-attention among it).  For
    each, one step with launch counts reset before it (24, 48 and 12
-   launches, all on the tensor-core kernels), every gradient finite and
+   launches, all on the tensor-core kernels; for mamba2-370m also 48 of
+   the SSD backward kernel), every gradient finite and
    those of the attention and SSD parameters nonzero in every layer, the
    step's loss and gradient norm against the same step through the
    kernels' plain versions, falling loss over the run (eagerly,
@@ -153,7 +159,8 @@ main paths and checks what comes out:
    (every leaf bit-equal, the next step's loss equal); three coded
    data-parallel AdamW steps of it (``GradientCoder(n=4, k=3)``, four 1 x
    1024 shards, pod s % 4 lost at step s; 192 SSD launches a step, all on
-   the tensor-core kernel; the decoded gradient against the shard sum
+   the tensor-core kernel, and 192 of the SSD backward kernel; the
+   decoded gradient against the shard sum
    and the full-batch gradient); the last decoded gradient through the
    layered all-reduce (one MAX, then m SUMs top plane first, per leaf);
    and ``distributed_layered_matmul`` at K = M = N = 4096 (m = 2, d = 8,
@@ -228,7 +235,8 @@ KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul_wgmma_grouped",
                   "layered_matmul", "layered_matmul_grouped",
                   "flash_attention",
                   "flash_attention_wgmma",
-                  "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma"]
+                  "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma",
+                  "ssd_scan_bwd"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 #: recurrentgemma-9b's local attention: MQA at head dim 256, window 2048
@@ -722,8 +730,7 @@ def kernel_launch_counts() -> dict:
 def reset_kernel_launches() -> None:
     from repro_torch.kernels import flash_attention, layered_matmul, ssd_scan
     for m in (layered_matmul, flash_attention, ssd_scan):
-        m.launches = 0
-        m.kernel_launches.update(dict.fromkeys(m.KERNELS, 0))
+        _reset(m)
 
 
 def final_vs_card_product(torch, dev, cfg, jobs, futures) -> list[float]:
@@ -1373,6 +1380,149 @@ def phase_ssd_vs_plain(torch, dev):
     return rows
 
 
+#: the SSD backward's shapes: mamba2-370m's train step (4 x 2048 tokens)
+#: and the prefill shape's (4 x 1024), bf16 x/B/C at the model's widths
+SSD_BACKWARD = {"mamba2_370m_train": dict(B=4, S=2048),
+                "b4_s1024": dict(B=4, S=1024)}
+
+
+def ssd_backward_bound(B, nc, l, H, P, N) -> tuple[float, str]:
+    """Least time (ms) of one SSD backward on an H100: ``ss.backward_flops``
+    at the bf16 peak, or its bytes at the memory rate, the larger: its
+    inputs read once (x, dy, the chunk states, dt, A, B, C and the final
+    state's cotangent) and its outputs written once (dx, ddt, dA, dB, dC
+    and the initial state's gradient).  As :func:`ssd_bound` counts no
+    scratch of the forward's, the kernel's own scratch is not counted."""
+    from repro_torch.kernels import ssd_scan as ss
+    S = nc * l
+    state = 4 * B * H * P * N
+    nbytes = (2 * B * S * H * P + 4 * B * S * H * P + 4 * B * nc * H * P * N
+              + 4 * B * S * H + 4 * H + 2 * 2 * B * S * N + state  # read
+              + 2 * B * S * H * P + 4 * B * S * H + 4 * H
+              + 2 * 2 * B * S * N + state)                         # written
+    return roofline(ss.backward_flops(B, nc, l, H, P, N), nbytes,
+                    PEAK_BF16_FLOPS)
+
+
+def phase_ssd_backward_vs_plain(torch, dev):
+    """The SSD scan's backward kernel (``csrc/ssd_scan_bwd.cu``) at
+    :data:`SSD_BACKWARD`'s shapes: the gradients of one
+    ``ops.ssd_scan_fused`` call for seeded cotangents of y and of the final
+    state (one forward launch, one backward launch) against the plain
+    chunked scan's, differentiated directly in float64 (the card tests'
+    budget: bf16 gradients at ``assert_close``'s bf16 default, its
+    absolute 1e-5 widened only where the plain scan's own fp32 gradients
+    need more against the same values, and then to what they need; fp32
+    ones within 1e-3 of their largest values); then the backward call
+    alone (``ss.ssd_scan_backward_call`` on the forward's chunk states)
+    timed with CUDA events and the profiler, for the seeded fp32 cotangent
+    and for one of bf16 values (the train step's), beside its bound and
+    the plain recompute's time (the old backward: the plain scan
+    recomputed with grad enabled and differentiated)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.ssm import ssd_scan
+    M = MAMBA_PREFILL
+    H, P, N, l = M["H"], M["P"], M["N"], M["chunk"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows = {}
+    for name, shape in SSD_BACKWARD.items():
+        B, S = shape["B"], shape["S"]
+        nc = S // l
+        x = torch.randn((B, S, H, P), generator=gen, device=dev).to(bf)
+        dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=gen, device=dev)
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+        Bm = torch.randn((B, S, 1, N), generator=gen, device=dev).to(bf)
+        Cm = torch.randn((B, S, 1, N), generator=gen, device=dev).to(bf)
+        dy = torch.randn((B, S, H, P), generator=gen, device=dev)
+        dst = torch.randn((B, H, P, N), generator=gen, device=dev)
+
+        def grads(fn):
+            args = [t.detach().clone().requires_grad_()
+                    for t in (x, dt, A, Bm, Cm)]
+            y, st = fn(*args)
+            return torch.autograd.grad((y, st), args,
+                                       (dy.to(y.dtype), dst.to(st.dtype)))
+
+        fwd, bwd = ss.kernel_launches[ss.WGMMA], ss.backward_launches
+        got = grads(lambda *a: ops.ssd_scan_fused(*a, chunk=l))
+        torch.cuda.synchronize()
+        if (ss.kernel_launches[ss.WGMMA] != fwd + 1
+                or ss.backward_launches != bwd + 1):
+            raise AssertionError(f"{name}: launched {dict(ss.kernel_launches)}"
+                                 f", {ss.backward_launches} backward")
+        plain = grads(lambda *a: ssd_scan(*a, l))
+        want = grads(lambda *a: ssd_scan(*(t.double() for t in a), l))
+        errs, misses = {}, {}
+        for gname, g, p, w in zip(("x", "dt", "A", "B", "C"), got, plain,
+                                  want):
+            w = w.to(g.dtype).double()
+            scale = w.abs().max().item()
+            if g.dtype == bf:
+                # beyond the bf16 default's relative part: the kernel's
+                # and the plain fp32 path's, against float64
+                miss = lambda t: ((t.double() - w).abs()
+                                  - 1.6e-2 * w.abs()).max().item()
+                misses[gname] = {"kernel": miss(g), "plain_fp32": miss(p)}
+                rtol, atol = 1.6e-2, max(1e-5, misses[gname]["plain_fp32"])
+            else:
+                rtol, atol = 1e-3, 1e-3 * scale
+            if not (torch.isfinite(g).all() and torch.allclose(
+                    g.double(), w, rtol=rtol, atol=atol)):
+                raise AssertionError(f"{name}: d{gname} differs from the "
+                                     f"plain path's beyond rtol {rtol}, "
+                                     f"atol {atol}")
+            errs[gname] = (g.double() - w).abs().max().item() / scale
+        chunked = (x.reshape(B, nc, l, H, P), dt.reshape(B, nc, l, H), A,
+                   Bm.reshape(B, nc, l, N), Cm.reshape(B, nc, l, N))
+        _, _, states = ss.ssd_scan_kernel_call(*chunked, keep_states=True)
+        dyc = dy.reshape(B, nc, l, H, P)
+        call = lambda: ss.ssd_scan_backward_call(*chunked, states, dyc, dst)
+        # the train step's cotangent: bf16 values (y is cast to bf16 after
+        # the scan), whose split terms past the first the kernel skips
+        dyb = dyc.to(bf).float()
+        call_bf16_dy = lambda: ss.ssd_scan_backward_call(*chunked, states,
+                                                         dyb, dst)
+        leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+
+        def plain():
+            with torch.enable_grad():
+                y, st = ssd_scan(*leaves, l)
+                torch.autograd.grad((y, st), leaves, (dy, dst))
+
+        bound_ms, bound_by = ssd_backward_bound(B, nc, l, H, P, N)
+        ms = cuda_ms(torch, call)
+        dev_ms = device_ms(torch, call, "ssd_bwd_")
+        by_kernel = lambda fn: {
+            k: device_ms(torch, fn, f"ssd_bwd_{k}_kernel")
+            for k in ("state_sum", "state_pass", "dx", "dcb", "dbc", "ddt",
+                      "da")}
+        rows[name] = {
+            "shape": dict(B=B, S=S, H=H, P=P, N=N, chunk=l),
+            "kernel": ss.BACKWARD,
+            "max_err_over_largest_value": errs,
+            "bf16_default_miss_vs_float64": misses,
+            "ms": ms, "kernel_device_ms": dev_ms,
+            "device_ms_by_kernel": by_kernel(call),
+            "bf16_valued_dy": {
+                "ms": cuda_ms(torch, call_bf16_dy),
+                "kernel_device_ms": device_ms(torch, call_bf16_dy,
+                                              "ssd_bwd_"),
+                "device_ms_by_kernel": by_kernel(call_bf16_dy)},
+            "plain_ms": cuda_ms(torch, plain, runs=3, warmup=1),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "bound_share_of_device_ms": (bound_ms / dev_ms if dev_ms
+                                         else None)}
+        del (x, dt, A, Bm, Cm, dy, dyb, dst, got, plain, want, states,
+             chunked, leaves)
+        torch.cuda.empty_cache()
+    emit({"phase": "ssd_backward_vs_plain", "timed_runs": TIMED_RUNS,
+          "calls_per_run": REPS, "cases": rows})
+    return rows
+
+
 def _clone(tree):
     """A copy of a cache tree (dicts, lists and tensors)."""
     if isinstance(tree, dict):
@@ -1894,22 +2044,26 @@ class plain_kernels:
     """While open, the differentiable wrappers of ``kernels.ops`` run the
     plain versions of the flash and SSD kernels on the card (a check only,
     like :func:`served_flash_vs_plain`): the same step without the
-    kernels."""
+    kernels, the SSD scan's backward the plain recompute."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ssd_scan as ss
-        self.saved = fa.flash_attention_gqa, ss.ssd_scan_kernel_call
+        self.saved = (fa.flash_attention_gqa, ss.ssd_scan_kernel_call,
+                      ss.backward_kernel_for)
         fa.flash_attention_gqa = fa.flash_attention_gqa_plain
         ss.ssd_scan_kernel_call = (
-            lambda x, dt, A, Bm, Cm, *, init_state=None:
-            ss.ssd_scan_plain(x, dt, A, Bm, Cm, init_state))
+            lambda x, dt, A, Bm, Cm, *, init_state=None, keep_states=False:
+            ss.ssd_scan_plain(x, dt, A, Bm, Cm, init_state,
+                              keep_states=keep_states))
+        ss.backward_kernel_for = lambda *a: None
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ssd_scan as ss
-        fa.flash_attention_gqa, ss.ssd_scan_kernel_call = self.saved
+        (fa.flash_attention_gqa, ss.ssd_scan_kernel_call,
+         ss.backward_kernel_for) = self.saved
 
 
 #: the gradients that a dropped autograd graph through a kernel would
@@ -1978,14 +2132,21 @@ def _train(torch, dev, arch: str) -> dict:
                  targets=b.targets)
     grad_fn = steps.make_grad_fn(cfg, tcfg)
 
-    mod.launches = 0
-    mod.kernel_launches.update(dict.fromkeys(mod.KERNELS, 0))
+    _reset(mod)
     loss, metrics, grads = grad_fn(params, batch)
     torch.cuda.synchronize()
     launches = dict(mod.kernel_launches)
     if mod.launches != want or launches[kernel] != want:
         raise AssertionError(f"{arch}: one step launched {launches}, want "
                              f"{want} of {kernel}")
+    # the SSD scan's backward kernel: one launch a forward one (bf16 at
+    # P = 64, N = 128)
+    backward = (dict(mod.backward_kernel_launches)
+                if mod is ss else {})
+    if mod is ss and (mod.backward_launches != want
+                      or backward[ss.BACKWARD] != want):
+        raise AssertionError(f"{arch}: one step's backward launched "
+                             f"{backward}, want {want} of {ss.BACKWARD}")
     if metrics["params_without_grad"]:
         raise AssertionError(f"{arch}: {metrics['params_without_grad']} "
                              f"parameters got no gradient")
@@ -1995,9 +2156,11 @@ def _train(torch, dev, arch: str) -> dict:
     gnorm = global_norm(grads).item()
     del grads
     with plain_kernels():
-        before = dict(mod.kernel_launches)
+        before = (dict(mod.kernel_launches),
+                  getattr(mod, "backward_launches", 0))
         plain_loss, _, plain_grads = grad_fn(params, batch)
-        if dict(mod.kernel_launches) != before:
+        if (dict(mod.kernel_launches),
+                getattr(mod, "backward_launches", 0)) != before:
             raise AssertionError(f"{arch}: the plain step launched a kernel")
         plain_gnorm = global_norm(plain_grads).item()
     del plain_grads
@@ -2051,6 +2214,7 @@ def _train(torch, dev, arch: str) -> dict:
            "warmup_steps": tcfg.warmup_steps,
            "schedule_total_steps": tcfg.total_steps,
            "launches_per_step": launches, "kernel": kernel,
+           "backward_launches_per_step": backward,
            "grads_checked": grad_counts, "step1_vs_plain": vs_plain,
            "step1_vs_plain_tolerance": TRAIN_VS_PLAIN_TOL,
            "losses": losses,
@@ -2088,8 +2252,7 @@ def graph_train_loop(torch, cfg, tcfg, eager, n_steps: int, mod,
 
     from repro_torch.launch import graphs, train
     from repro_torch.tree import leaves
-    mod.launches = 0
-    mod.kernel_launches.update(dict.fromkeys(mod.KERNELS, 0))
+    _reset(mod)
     torch.cuda.reset_peak_memory_stats(dev)
     with contextlib.redirect_stdout(io.StringIO()):
         out = train.train_loop(cfg, tcfg, batch=SERVE["batch"],
@@ -2102,10 +2265,12 @@ def graph_train_loop(torch, cfg, tcfg, eager, n_steps: int, mod,
                              f"{None if g is None else g.captures} times")
     at_capture = graphs.CAPTURE_CALLS * want
     if (mod.launches != at_capture
-            or mod.kernel_launches[kernel] != at_capture):
+            or mod.kernel_launches[kernel] != at_capture
+            or getattr(mod, "backward_launches", at_capture) != at_capture):
         raise AssertionError(f"{cfg.name}: the capture launched "
-                             f"{dict(mod.kernel_launches)}, want "
-                             f"{at_capture} of {kernel}")
+                             f"{dict(mod.kernel_launches)} and "
+                             f"{getattr(mod, 'backward_launches', None)} "
+                             f"backward, want {at_capture} of {kernel}")
     same = {key: out[key] == eager[key] for key in ("losses", "grad_norms")}
     same["params_and_state"] = all(
         torch.equal(a, b) for a, b in zip(
@@ -2461,7 +2626,8 @@ def phase_coded_dp(torch, dev):
     parallelism: SyntheticLM's 4 x 1024 batch split into n = 4 shards of
     1 x 1024, ``GradientCoder(n=4, k=3)``; step s loses pod s % 4.  Each
     step: ``fault.coded_dp_grads`` (launch counts reset before it: 192
-    SSD launches, 48 a shard, all on the tensor-core kernel), then
+    SSD launches, 48 a shard, all on the tensor-core kernel, and as many
+    of the SSD backward kernel), then
     ``degraded_step_grads`` from the three survivors, divided by n, then
     the AdamW update.  Before the update, the decoded gradient is held
     against the plain sum of the four shard gradients (each leaf within
@@ -2506,15 +2672,18 @@ def phase_coded_dp(torch, dev):
             torch, lambda: fault.coded_dp_grads(loss_fn, params, shards,
                                                 coder))
         launches = dict(ss.kernel_launches)
+        backward = ss.backward_launches
         decoded, decode_ms = _events_ms(
             torch, lambda: fault.degraded_step_grads(codewords, survivors,
                                                      coder))
         mean = tree_map(lambda g: g / n, decoded)
         coded_wall_s = time.perf_counter() - t0
-        if ss.launches != 48 * n or launches[ss.WGMMA] != 48 * n:
+        if (ss.launches != 48 * n or launches[ss.WGMMA] != 48 * n
+                or backward != 48 * n):
             raise AssertionError(f"step {step}: the shard gradients "
-                                 f"launched {launches}, want {48 * n} of "
-                                 f"{ss.WGMMA}")
+                                 f"launched {launches} and {backward} "
+                                 f"backward, want {48 * n} of {ss.WGMMA} "
+                                 f"and of {ss.BACKWARD}")
         for p, cw in enumerate(codewords):
             finite(cw, f"step {step} codeword {p}")
         del codewords
@@ -2569,6 +2738,7 @@ def phase_coded_dp(torch, dev):
         rows.append({"step": step, "lost_pod": step % n,
                      "survivors": survivors, "loss": loss.item(),
                      "ssd_launches": launches,
+                     "ssd_backward_launches": backward,
                      "decoded_vs_shard_sum": vs_sum,
                      "shard_mean_loss": shard_loss,
                      "decoded_mean_vs_full_batch": vs_full,
@@ -2798,8 +2968,14 @@ def _max_diff(torch, got, want) -> tuple[float, float]:
 
 
 def _reset(mod) -> None:
+    """A kernel module's launch counters to 0 (the SSD scan's backward
+    ones too)."""
     mod.launches = 0
     mod.kernel_launches.update(dict.fromkeys(mod.KERNELS, 0))
+    if hasattr(mod, "backward_launches"):
+        mod.backward_launches = 0
+        mod.backward_kernel_launches.update(
+            dict.fromkeys(mod.backward_kernel_launches, 0))
 
 
 def phase_cell_prefill(torch, dev, results):
@@ -3048,24 +3224,27 @@ def phase_cell_train(torch, dev, results):
 
     steps_run = c["train_steps"]
     runs = {}
-    for graphs in (False, True):
+    for graphed in (False, True):
         _reset(ss)
         with contextlib.redirect_stdout(io.StringIO()):
-            runs[graphs] = train.train_loop(
+            runs[graphed] = train.train_loop(
                 cfg, tcfg, batch=B, seq=S, steps=steps_run, log_every=1,
-                seed=SEED, mesh=mesh, graphs=graphs)
+                seed=SEED, mesh=mesh, graphs=graphed)
         torch.cuda.synchronize()
-        runs[graphs]["launches"] = dict(ss.kernel_launches)
-        runs[graphs]["launches_total"] = ss.launches
+        runs[graphed]["launches"] = dict(ss.kernel_launches)
+        runs[graphed]["launches_total"] = ss.launches
+        runs[graphed]["backward_launches"] = ss.backward_launches
     out, gout = runs[False], runs[True]
     by_source = {"ssd_scan": {k: n // steps_run
                               for k, n in out["launches"].items()}}
     per_step = out["launches_total"] / steps_run
     if (per_step != c["ssd_launches"] or out["launches"][ss.WGMMA]
-            != c["ssd_launches"] * steps_run):
-        raise AssertionError(f"train_loop launched {by_source} a step in "
+            != c["ssd_launches"] * steps_run
+            or out["backward_launches"] != c["ssd_launches"] * steps_run):
+        raise AssertionError(f"train_loop launched {by_source} and "
+                             f"{out['backward_launches']} backward in "
                              f"{steps_run} steps, want {c['ssd_launches']} "
-                             f"of {ss.WGMMA}")
+                             f"of {ss.WGMMA} and of {ss.BACKWARD} a step")
     vs_plain = {"loss": out["losses"][0][1],
                 "plain_loss": plain_metrics["loss"].item(),
                 "grad_norm": out["grad_norms"][0][1],
@@ -3087,6 +3266,8 @@ def phase_cell_train(torch, dev, results):
     same["params_and_state"] = pdiff == 0.0
     if (g is None or g.captures != 1 or not all(same.values())
             or gout["launches"][ss.WGMMA]
+            != graphs.CAPTURE_CALLS * c["ssd_launches"]
+            or gout["backward_launches"]
             != graphs.CAPTURE_CALLS * c["ssd_launches"]):
         raise AssertionError(f"graph train cell: {same}, captures "
                              f"{None if g is None else g.captures}, "
@@ -3256,6 +3437,8 @@ def main() -> int:
                          phase_runtime_process_socket),
                         ("flash_attention_vs_plain", phase_flash_vs_plain),
                         ("ssd_scan_vs_plain", phase_ssd_vs_plain),
+                        ("ssd_backward_vs_plain",
+                         phase_ssd_backward_vs_plain),
                         ("serve_llama3_8b", phase_serve_llama),
                         ("serve_mamba2_370m", phase_serve_mamba),
                         ("serve_recurrentgemma_9b",
@@ -3411,6 +3594,29 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "other_shapes": others})
+    if "ssd_backward_vs_plain" in results:
+        # kernel 3b: the SSD scan's backward, launched by train steps
+        rows = results["ssd_backward_vs_plain"]
+        row = rows["mamba2_370m_train"]
+        by_path = {f"train_{arch}": sum(trow["backward_launches_per_step"]
+                                        .values())
+                   for arch, trow in results.get("train", {}).items()
+                   if trow.get("backward_launches_per_step")}
+        kernels.append({
+            "name": "ssd_scan_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": None, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_err_over_largest_value": max(
+                e for r in rows.values()
+                for e in r["max_err_over_largest_value"].values()),
+            "ms": row["ms"], "kernel_device_ms": row["kernel_device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "other_shapes": {c: {k: r[k] for k in (
+                "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                "bound_by")} for c, r in rows.items()
+                if c != "mamba2_370m_train"}})
     if kernels:
         emit({"kernels": kernels})
     if failed:

@@ -18,7 +18,10 @@
                     csrc/ssd_scan_wgmma.cu, bf16 x/B/C with P 64, N 128
                     and chunks of 64..256 on the tensor cores;
                     csrc/ssd_scan.cu, fp32 and the other shapes on the
-                    CUDA cores; replaces repro/kernels/ssd_scan.py)
+                    CUDA cores; replaces repro/kernels/ssd_scan.py), and
+                    its backward for the tensor-core kernel's inputs
+                    (csrc/ssd_scan_bwd.cu on mma.sync; replaces no TPU
+                    kernel)
 ops.py holds the public wrappers, ref.py the NumPy oracles, _build.py the
 nvcc build step.
 """

@@ -6,15 +6,19 @@ hand-written kernels, CPU tensors run their plain PyTorch versions.
 :func:`flash_attention` and :func:`ssd_scan_fused` are differentiable,
 each through one ``torch.autograd.Function``, on every device.  Its
 forward runs the dispatching wrapper under ``no_grad`` (the kernel on the
-card, the plain version on the CPU).  Its backward recomputes the same
-function with grad enabled through the port's counterpart of the JAX
-package's jnp code and differentiates that: query-chunked
-``models.layers.attention`` for attention, the plain chunked
-``models.ssm.ssd_scan`` for the scan.  This is what the JAX package's
-autodiff does (its Pallas kernels have no VJP; it trains through those jnp
-twins), so the card's forward values are the kernels' and its gradients
-the reference's function's.  The kernels take no part in backward: the
-forward's launch counts are the whole step's.
+card, the plain version on the CPU).  Attention's backward recomputes
+the same function with grad enabled through the port's counterpart of the
+JAX package's jnp code and differentiates that (query-chunked
+``models.layers.attention``), as the JAX package's autodiff does (its
+Pallas kernels have no VJP; it trains through those jnp twins).  The
+scan's backward does the same (the plain chunked ``models.ssm.ssd_scan``)
+on the CPU and for the inputs that the forward sends to the CUDA-core
+kernel; for those it sends to the tensor-core kernel (bf16, P = 64,
+N = 128) the backward is a kernel of its own (``ss.ssd_scan_backward_call``,
+``ss.backward_kernel_for``), on the chunk states that the forward kept.
+So a train step launches the forward kernels and, for such scans, one
+backward kernel a call, counted apart (``ss.backward_launches``):
+``launches`` and ``kernel_launches`` count the forwards alone.
 
 Both also take DTensors (a sharded cell's activations, ``launch.steps``),
 through ``launch.axes.local_shards`` (``local_map``) around the
@@ -24,7 +28,8 @@ over ``model`` where they divide -- and backward hands each rank its local
 gradients.  Plain tensors take the path above.
 
 While ``torch.profiler`` records, each call of the two is a
-``repro.kernel.flash_attention`` or ``repro.kernel.ssd_scan`` range
+``repro.kernel.flash_attention`` or ``repro.kernel.ssd_scan`` range, and
+each backward kernel call a ``repro.kernel.ssd_scan_backward`` range
 (``launch.graphs.span``).
 """
 
@@ -136,10 +141,12 @@ def _attention_twin(q, k, v, causal: bool, window: Optional[int]):
     return attention(q, k, v, pos_q, pos_k, cfg, q_chunk=_q_chunk(Sq))
 
 
-def _recompute_grads(ctx, fn, grads_out):
+def _recompute_grads(ctx, fn, grads_out, inputs=None):
     """Gradients of ``fn(*inputs)`` (the saved inputs, recomputed with grad
-    enabled) for the inputs that need one; ``None`` for the others."""
-    inputs = ctx.saved_tensors
+    enabled) for the inputs that need one; ``None`` for the others.
+    ``inputs``: ``ctx.saved_tensors`` where the caller read them already
+    (under ``torch.utils.checkpoint`` they may be read only once)."""
+    inputs = ctx.saved_tensors if inputs is None else inputs
     wanted = [i for i, t in enumerate(inputs)
               if t is not None and ctx.needs_input_grad[i]]
     grads = [None] * len(inputs)
@@ -258,41 +265,113 @@ def _sharded_flash_attention(q, k, v, causal, window):
                         (q.shape, q_spec))
 
 
+def _ssd_backward_kernel(x, Bm, Cm, chunk) -> bool:
+    """Whether the scan's gradient on these inputs is the backward
+    kernel's (``ss.backward_kernel_for``: the inputs the forward sends to
+    the tensor-core kernel, on the card), not the plain recompute's."""
+    if x.device.type != "cuda":
+        return False
+    dtype = ss.route_dtype(x.dtype, Bm.dtype, Cm.dtype)
+    return ss.backward_kernel_for(dtype, x.shape[-1], Bm.shape[-1],
+                                  chunk) is not None
+
+
 class _SSDScan(torch.autograd.Function):
     """Forward: the SSD scan wrapper on chunked inputs (kernel on the
-    card); backward: the gradient of the plain chunked ``ssd_scan`` on the
-    saved inputs."""
+    card).  Backward: on the card, for the inputs the forward sends to
+    the tensor-core kernel, the backward kernel on the chunk states that
+    the forward kept; elsewhere the gradient of the plain chunked
+    ``ssd_scan`` on the saved inputs."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk, graded):
         ctx.set_materialize_grads(False)
         ctx.chunk = chunk
-        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
         B, S, H, P = x.shape
         N = Bm.shape[-1]
         nc = S // chunk
         if _fake(x, dt, A, Bm, Cm, init_state):
             from repro_torch.launch.op_costs import as_kernel
+            ctx.kernel = False
+            ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
             f32 = torch.float32
             return as_kernel(ss.flops(B, nc, chunk, H, P, N),
                              (x.new_empty((B, S, H, P), dtype=f32),
                               x.new_empty((B, H, P, N), dtype=f32)),
                              x, dt, A, Bm, Cm, init_state)
+        # the chunk states are kept only where a gradient will read them
+        # (``graded``: autograd records the call); under no_grad (serving)
+        # the forward is the plain forward call
+        ctx.kernel = graded and _ssd_backward_kernel(x, Bm, Cm, chunk)
         with torch.no_grad():
-            y, state = ss.ssd_scan_kernel_call(
+            out = ss.ssd_scan_kernel_call(
                 x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H),
                 A, Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
-                init_state=init_state)
-        return y.reshape(B, S, H, P), state
+                init_state=init_state, keep_states=ctx.kernel)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state, *out[2:])
+        return out[0].reshape(B, S, H, P), out[1]
 
     @staticmethod
     def backward(ctx, dy, dstate):
+        # read once: under remat (torch.utils.checkpoint) a second read of
+        # the saved tensors raises
+        saved = ctx.saved_tensors
+        if _fake(*saved):
+            return (*_ssd_backward_costs(ctx, saved, dy, dstate), None, None)
+        if ctx.kernel:
+            with graphs.span("repro.kernel.ssd_scan_backward"):
+                return (*_ssd_kernel_grads(ctx, saved, dy, dstate), None,
+                        None)
         from repro_torch.models.ssm import ssd_scan
         grads = _recompute_grads(
             ctx, lambda x, dt, A, Bm, Cm, s0: ssd_scan(x, dt, A, Bm, Cm,
                                                         ctx.chunk, s0),
-            (dy, dstate))
-        return (*grads, None)
+            (dy, dstate), saved)
+        return (*grads, None, None)
+
+
+def _graded(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (grad mode on and
+    one of them requiring grad): ``ctx.needs_input_grad`` inside a
+    ``forward`` does not say, as it ignores ``no_grad``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _ssd_kernel_grads(ctx, saved, dy, dstate):
+    """The scan's gradients from the backward kernel, for the inputs that
+    need one (None for the others)."""
+    x, dt, A, Bm, Cm, s0, states = saved
+    needs = ctx.needs_input_grad[:6]
+    if dy is None and dstate is None:
+        return [None] * 6
+    B, S, H, P = x.shape
+    N, chunk = Bm.shape[-1], ctx.chunk
+    nc = S // chunk
+    dx, ddt, dA, dB, dC, dinit = ss.ssd_scan_backward_call(
+        x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H), A,
+        Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N), states,
+        None if dy is None else dy.reshape(B, nc, chunk, H, P), dstate,
+        want_init=s0 is not None and needs[5])
+    grads = [dx.reshape(x.shape), ddt.reshape(dt.shape).to(dt.dtype),
+             dA.to(A.dtype), dB.reshape(Bm.shape), dC.reshape(Cm.shape),
+             None if dinit is None else dinit.to(s0.dtype)]
+    return [g if need else None for g, need in zip(grads, needs)]
+
+
+def _ssd_backward_costs(ctx, saved, dy, dstate):
+    """The cost pass's gradients (``launch.op_costs``, fake tensors):
+    empty tensors shaped like the inputs that need one, counted at the
+    backward kernel's own work (``ss.backward_flops``), its inputs read
+    and its gradients written once."""
+    from repro_torch.launch.op_costs import as_kernel
+    inputs = saved[:6]
+    B, S, H, P = inputs[0].shape
+    N, chunk = inputs[3].shape[-1], ctx.chunk
+    grads = [torch.empty_like(t) if t is not None and need else None
+             for t, need in zip(inputs, ctx.needs_input_grad[:6])]
+    return as_kernel(ss.backward_flops(B, S // chunk, chunk, H, P, N),
+                     grads, *inputs, dy, dstate)
 
 
 def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -312,7 +391,8 @@ def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with graphs.span("repro.kernel.ssd_scan"):
         if isinstance(x, DTensor):
             return _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk)
-        return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk)
+        return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk,
+                              _graded(x, dt, A, Bm, Cm, init_state))
 
 
 def _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk):
@@ -326,7 +406,7 @@ def _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk):
     state = ((x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1]),
              (b, tp))
     return local_shards(
-        lambda *a: _SSDScan.apply(*a, chunk), mesh,
+        lambda *a: _SSDScan.apply(*a, chunk, _graded(*a)), mesh,
         (x, dt, A, Bm, Cm, init_state),
         ((b, None, tp), (b, None, tp), (tp,), (b,), (b,),
          None if init_state is None else state[1]),

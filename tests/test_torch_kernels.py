@@ -908,3 +908,164 @@ def test_ssd_bf16_split_error_budget(terms, init, holds):
              and torch.allclose(got_s, want_s, atol=1e-4, rtol=1e-4))
     assert close == holds, (terms, (got_y - want_y).abs().max().item(),
                             (got_s - want_s).abs().max().item())
+
+
+# -- the SSD scan's backward (its kernel's plain twin, the dispatch rule) ----
+
+def _twin_case(rng, dtype, init, dstate, B=2, S=48, H=3, P=8, N=16,
+               chunk=16):
+    """Chunked inputs in ``dtype``, the plain scan's gradients by autograd
+    for seeded cotangents (of y, and of the final state with ``dstate``),
+    and the twin's on the same inputs and cotangents."""
+    from repro_torch.kernels import ssd_scan as ss
+    nc = S // chunk
+    t = lambda a: torch.tensor(a, dtype=dtype)
+    x, dt, A, Bm, Cm = (t(a) for a in _ssd_inputs(rng, B, S, H, P, N))
+    args = [x.reshape(B, nc, chunk, H, P), dt.reshape(B, nc, chunk, H), A,
+            Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N)]
+    if init:
+        args.append(t(rng.normal(size=(B, H, P, N))))
+    args = [a.requires_grad_() for a in args]
+    y, state, states = ss.ssd_scan_plain(*args[:5], args[5] if init else None,
+                                         keep_states=True)
+    dy = t(rng.normal(size=y.shape))
+    ds = t(rng.normal(size=state.shape)) if dstate else None
+    want = torch.autograd.grad([y] + ([state] if dstate else []), args,
+                               [dy] + ([ds] if dstate else []))
+    got = ss.ssd_scan_backward_plain(*(a.detach() for a in args[:5]),
+                                     states.detach(), dy, ds)
+    return got[:5] + ((got[5],) if init else ()), want
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("dstate", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-5)])
+def test_ssd_backward_twin_equals_autograd_of_the_plain_scan(rng, init,
+                                                             dstate, dtype,
+                                                             tol):
+    """``ssd_scan_backward_plain``, the backward kernel's arithmetic in
+    PyTorch (the reverse state pass, the chunk pass, the decay gradients'
+    reverse cumsum), against autograd of ``ssd_scan_plain``: 1e-10 in
+    float64, 1e-5 relative to each gradient's largest value in float32
+    (the two sum in different orders)."""
+    got, want = _twin_case(rng, dtype, init, dstate)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        scale = w.abs().max().item()
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype,P,N,chunk", [
+    (torch.bfloat16, 64, 128, 64), (torch.bfloat16, 64, 128, 128),
+    (torch.bfloat16, 64, 128, 256), (torch.float32, 64, 128, 256),
+    (torch.float32, 64, 128, 64), (torch.bfloat16, 64, 128, 100),
+    (torch.bfloat16, 64, 128, 512), (torch.bfloat16, 32, 128, 256),
+    (torch.bfloat16, 64, 64, 256)])
+def test_ssd_backward_routing_follows_the_forwards(dtype, P, N, chunk):
+    """The backward kernel takes exactly the inputs that ``kernel_for``
+    sends to the tensor-core forward (whose chunk states it reads); the
+    others keep the plain recompute (None)."""
+    from repro_torch.kernels import ssd_scan as ss
+    want = ss.BACKWARD if ss.kernel_for(dtype, P, N, chunk) == ss.WGMMA \
+        else None
+    assert ss.backward_kernel_for(dtype, P, N, chunk) == want
+
+
+@pytest.mark.parametrize("dtype,P,N,error", [
+    (torch.float16, 64, 128, TypeError),
+    (torch.float64, 64, 128, TypeError),
+    (torch.bfloat16, 64, 256, ValueError),
+    (torch.float32, 128, 128, ValueError)])
+def test_ssd_backward_routing_rejects_as_the_forwards(dtype, P, N, error):
+    from repro_torch.kernels import ssd_scan as ss
+    with pytest.raises(error):
+        ss.backward_kernel_for(dtype, P, N, 256)
+
+
+def _ssd_fused_args(rng, B=2, S=32, H=3, P=8, N=16, dtype=torch.float32):
+    x, dt, A, Bm, Cm = (torch.tensor(a) for a in
+                        _ssd_inputs(rng, B, S, H, P, N))
+    return [x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)]
+
+
+def test_ssd_cpu_backward_counts_no_backward_launch(rng):
+    """On the CPU the scan's gradient is the plain recompute's: no launch
+    on either counter, forward or backward."""
+    from repro_torch.kernels import ssd_scan as ss
+    args = [a.requires_grad_() for a in
+            _ssd_fused_args(rng, S=128, P=64, N=128, dtype=torch.bfloat16)]
+    before = (ss.launches, ss.backward_launches,
+              dict(ss.backward_kernel_launches))
+    y, state = ops.ssd_scan_fused(*args, chunk=64)
+    torch.autograd.grad(y.sum() + state.sum(), args)
+    assert (ss.launches, ss.backward_launches,
+            dict(ss.backward_kernel_launches)) == before
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_ssd_backward_kernel_route_on_the_cpu_equals_the_recompute(
+        rng, monkeypatch, remat):
+    """The backward kernel's route through ``ops._SSDScan`` (the forward
+    keeping its chunk states, ``ssd_scan_backward_call``, the gradients
+    laid out as the inputs), taken on the CPU, where the call runs the
+    kernel's plain twin: equal to the plain recompute's gradients, also
+    under ``torch.utils.checkpoint`` (remat reads the saved tensors
+    once)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.ssm import ssd_scan
+    base = _ssd_fused_args(rng)
+    s0 = torch.tensor(rng.normal(size=(2, 3, 8, 16)), dtype=torch.float32)
+    dy = torch.tensor(rng.normal(size=(2, 32, 3, 8)), dtype=torch.float32)
+
+    def grads(fn):
+        args = [a.clone().requires_grad_() for a in base + [s0]]
+        y = (checkpoint(fn, *args, use_reentrant=False) if remat
+             else fn(*args))
+        return torch.autograd.grad(y, args, dy)
+
+    want = grads(lambda *a: ssd_scan(*a[:5], 8, a[5])[0])
+    monkeypatch.setattr(ops, "_ssd_backward_kernel", lambda *a: True)
+    got = grads(lambda *a: ops.ssd_scan_fused(*a[:5], chunk=8,
+                                              init_state=a[5])[0])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-5 * w.abs().max().item())
+
+
+def test_ssd_backward_on_fake_tensors_gives_the_gradients_shapes():
+    """Under ``FakeTensorMode`` (``launch.op_costs``) the backward runs no
+    recompute: it returns empty gradients shaped like the inputs that need
+    one, and the cost pass counts the step at the
+    forward's and the backward kernel's own work
+    (``ss.flops`` + ``ss.backward_flops``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import op_costs
+    B, S, H, P, N, chunk = 2, 512, 4, 64, 128, 256
+    out = {}
+
+    def step(x, dt, A, Bm, Cm):
+        y, _ = ops.ssd_scan_fused(x, dt, A, Bm, Cm, chunk=chunk)
+        out["grads"] = torch.autograd.grad(y, (x, dt, A, Bm),
+                                           torch.ones_like(y))
+
+    with FakeTensorMode():
+        bf = torch.bfloat16
+        args = (torch.empty((B, S, H, P), dtype=bf, requires_grad=True),
+                torch.empty((B, S, H), requires_grad=True),
+                torch.empty((H,), requires_grad=True),
+                torch.empty((B, S, 1, N), dtype=bf, requires_grad=True),
+                torch.empty((B, S, 1, N), dtype=bf))
+        costs = op_costs.module_costs(step, *args)
+    grads = out["grads"]
+    assert [(tuple(g.shape), g.dtype) for g in grads] == [
+        ((B, S, H, P), bf), ((B, S, H), torch.float32),
+        ((H,), torch.float32), ((B, S, 1, N), bf)]
+    nc = S // chunk
+    kernels = (ss.flops(B, nc, chunk, H, P, N)
+               + ss.backward_flops(B, nc, chunk, H, P, N))
+    assert kernels <= costs.flops < 1.01 * kernels
