@@ -82,6 +82,12 @@ main paths and checks what comes out:
    forward and one backward launch) against the plain scan
    differentiated directly, then the backward call alone timed beside its
    bound, its seven device kernels and the plain recompute it replaces;
+   and, run after item 7's other serving phases, the grouped-product
+   kernel of the dropless expert layer
+   (``moe_grouped_gemm``) at granite-4.0-h-small's decode step and at a
+   prefill part against its plain version, timed beside its bound, the
+   plain version and ``torch._grouped_mm`` (a yardstick the port never
+   calls);
 7. main paths 3 to 8, ``launch.serve.ProgressiveServer`` at the full
    width of llama3-8b, mamba2-370m, recurrentgemma-9b (all 38 layers),
    qwen2-moe-a2.7b (all 24 layers), whisper-tiny (4 encoder and 4
@@ -110,7 +116,11 @@ main paths and checks what comes out:
    alone; every run's tokens equal the eager run's, the caches the
    graph decode writes back the eager run's; beside them the bytes one decode step
    must read (the weights it uses, W's planes, the caches) and their time
-   at 3.35 TB/s;
+   at 3.35 TB/s; granite-4.0-h-small as its benchmark cell serves it (36
+   of 72 experts, bf16, 32 x 1024 tokens; ``phase_serve_granite``): the
+   prefill, an eager decode, the decode graph's capture and its replays,
+   each with the launches of kernels 2, 3 and 4 counted from 0 (the
+   replays' under ``torch.profiler``);
    then yi-6b, glm4-9b, starcoder2-7b and llama4-maverick-400b-a17b at
    their smoke widths: the card's forward against the host's on the same
    parameters, decode against forward, and serving through the server;
@@ -191,7 +201,8 @@ main paths and checks what comes out:
    (a fake process group cannot share a process with NCCL), ``status:
    ok``, per-device bytes beside the 80 GB;
 12. one ``{"kernels": [...]}`` line with every kernel's launches on its
-   main paths (the cells' among them, counted on their eager runs; the
+   main paths (the cells' and granite's serving among them, counted on
+   their eager runs and captures; the
    graph replays' kernels, counted by the profiler, beside them), its
    largest difference from its plain version, its times and its bound
    (and those of its other timed main-path shapes).
@@ -236,7 +247,7 @@ KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul_wgmma_grouped",
                   "flash_attention",
                   "flash_attention_wgmma",
                   "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma",
-                  "ssd_scan_bwd"]
+                  "ssd_scan_bwd", "moe_grouped_gemm"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 #: recurrentgemma-9b's local attention: MQA at head dim 256, window 2048
@@ -1523,6 +1534,135 @@ def phase_ssd_backward_vs_plain(torch, dev):
     return rows
 
 
+#: granite-4.0-h-small's expert layer on one chip of expert parallel 2:
+#: 36 held of 72, top 10, d_model 4096, expert width 768; a decode step of
+#: the chat cell's 32 tokens and a prefill part of 16384 tokens (the
+#: dispatch's ``DROPLESS_TOKENS``)
+GRANITE_MOE = dict(D=4096, F=768, E=36, router=72, k=10,
+                   tokens={"granite_decode": 32, "granite_prefill": 16384})
+
+
+def moe_grouped_bound(pairs, touched, K, N, gated) -> tuple[float, str]:
+    """Least time (ms) of one grouped product on an H100: its flops at the
+    bf16 peak, or the touched experts' weights once and each pair's row in
+    and out once at the memory rate, the larger."""
+    from repro_torch.kernels import moe_grouped_gemm as mg
+    return roofline(mg.flops(pairs, K, N, gated),
+                    mg.min_bytes(pairs, touched, K, N, gated),
+                    PEAK_BF16_FLOPS)
+
+
+def phase_moe_grouped_gemm(torch, dev):
+    """The grouped-product kernel (``csrc/moe_grouped_gemm.cu``) at
+    :data:`GRANITE_MOE`'s decode step (rows for every pair, the held ones
+    first, as the captured step sizes them) and prefill part (the held
+    pairs only): the gated gate/up product and the down product against
+    the plain version on the same bf16 inputs (within two bf16 steps of
+    the largest value: the sums' order differs, then both round to bf16;
+    the rows of no held expert exactly zero), then both products timed
+    with CUDA events and the profiler beside their bound, the plain
+    version's time and ``torch._grouped_mm``'s (the library yardstick,
+    which the port never calls: the two products and the activation)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels import moe_grouped_gemm as mg
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_lib
+    G = GRANITE_MOE
+    D, F, E, k = G["D"], G["F"], G["E"], G["k"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cfg = MoEConfig(num_experts=E, top_k=k, d_ff_expert=F, dropless=True,
+                    num_router_experts=G["router"])
+    router = torch.randn((D, G["router"]), generator=gen,
+                         device=dev) / math.sqrt(D)
+    wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev)
+               / math.sqrt(D)).to(bf) for _ in range(2))
+    wd = (torch.randn((E, F, D), generator=gen, device=dev)
+          / math.sqrt(F)).to(bf)
+    rows = {}
+    for name, T in G["tokens"].items():
+        # the captured decode step sizes its rows for every pair
+        static = name == "granite_decode"
+        x = torch.randn((T, D), generator=gen, device=dev).to(bf)
+        tok, _, offsets, counts = moe_lib.route_held(x, router, cfg, static)
+        a = x.index_select(0, tok)
+        M, held = a.shape[0], int(offsets[-1])
+        before = mg.launches
+        h = ops.moe_grouped_gemm(a, wg, offsets, w_up=wu)
+        y = ops.moe_grouped_gemm(h, wd, offsets)
+        torch.cuda.synchronize()
+        if mg.launches != before + 2:
+            raise AssertionError(f"{name}: {mg.launches - before} launches")
+        errs = {}
+        plain_h = mg.moe_grouped_gemm_plain(a, wg, offsets, wu)
+        for prod, got, want in (
+                ("gate_up", h, plain_h),
+                ("down", y, mg.moe_grouped_gemm_plain(h, wd, offsets))):
+            scale = want.float().abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            if not (torch.isfinite(got).all() and err <= 2 * 2 ** -8 * scale
+                    and (got[held:] == 0).all()):
+                raise AssertionError(f"{name} {prod}: max |diff| {err} of "
+                                     f"{scale}")
+            errs[prod] = err / scale
+        touched, pairs = int((counts > 0).sum()), int(counts.sum())
+        b_gu, by_gu = moe_grouped_bound(pairs, touched, D, F, True)
+        b_dn, by_dn = moe_grouped_bound(pairs, touched, F, D, False)
+        call = lambda: ops.moe_grouped_gemm(
+            ops.moe_grouped_gemm(a, wg, offsets, w_up=wu), wd, offsets)
+        plain = lambda: mg.moe_grouped_gemm_plain(
+            mg.moe_grouped_gemm_plain(a, wg, offsets, wu), wd, offsets)
+        ms = cuda_ms(torch, call)
+        dev_ms = device_ms(torch, call, "moe_grouped_gemm_kernel")
+        library_ms, library_err = None, None
+        try:
+            ends = offsets[1:].contiguous()
+            wg_t, wu_t, wd_t = (w.transpose(-2, -1).contiguous()
+                                .transpose(-2, -1) for w in (wg, wu, wd))
+
+            def library():
+                g = torch._grouped_mm(a, wg_t, offs=ends)
+                u = torch._grouped_mm(a, wu_t, offs=ends)
+                return torch._grouped_mm(
+                    torch.nn.functional.silu(g) * u, wd_t, offs=ends)
+
+            lib_y = library()
+            want = mg.moe_grouped_gemm_plain(
+                mg.moe_grouped_gemm_plain(a, wg, offsets, wu), wd, offsets)
+            library_err = ((lib_y[:held].float() - want[:held].float())
+                           .abs().max().item()
+                           / want.float().abs().max().item())
+            library_ms = cuda_ms(torch, library)
+        except Exception as exc:        # recorded: a yardstick only
+            library_err = f"{type(exc).__name__}: {exc}"[:300]
+        rows[name] = {
+            "shape": dict(tokens=T, rows=M, held_pairs=pairs,
+                          touched_experts=touched, D=D, F=F, E=E),
+            "max_err_over_largest_value": errs,
+            "ms": ms, "kernel_device_ms": dev_ms,
+            "gate_up_device_ms": device_ms(
+                torch,
+                lambda: ops.moe_grouped_gemm(a, wg, offsets, w_up=wu),
+                "moe_grouped_gemm_kernel"),
+            "down_device_ms": device_ms(
+                torch, lambda: ops.moe_grouped_gemm(h, wd, offsets),
+                "moe_grouped_gemm_kernel"),
+            "bound_ms": b_gu + b_dn, "bound_by": [by_gu, by_dn],
+            "bound_share_of_device_ms": ((b_gu + b_dn) / dev_ms
+                                         if dev_ms else None),
+            "plain_ms": cuda_ms(torch, plain, runs=3, warmup=1),
+            "library_ms": library_ms, "library_err": library_err}
+        emit({"phase": "moe_grouped_gemm", "case": name, **rows[name]})
+        del a, h, y, x, plain_h
+        torch.cuda.empty_cache()
+    # the serving phases' peaks come near the card's memory: none of this
+    # phase's blocks stays cached in their way
+    del router, wg, wu, wd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _clone(tree):
     """A copy of a cache tree (dicts, lists and tensors)."""
     if isinstance(tree, dict):
@@ -1915,6 +2055,155 @@ def phase_serve_internvl(torch, dev):
     row = _serve(torch, dev, "internvl2-1b", fa, 24, fa.WGMMA,
                  "flash_attention_wgmma_kernel")
     emit(dict(phase="serve_internvl2_1b", **row))
+    return row
+
+
+#: granite-4.0-h-small as its benchmark cell serves it: 36 of the 72
+#: experts held (expert parallel 2), bf16 parameters, 32 prompts of 1024
+#: tokens, then ``gen`` tokens a decode
+GRANITE_SERVE = dict(held=36, batch=32, prompt=1024, gen=8)
+
+
+def phase_serve_granite(torch, dev):
+    """granite-4.0-h-small through ``ProgressiveServer`` at
+    :data:`GRANITE_SERVE`, random weights from a seed, with every kernel's
+    launches counted from 0 before each step of the path: the prefill
+    (kernel 4 twice in each of the 40 dropless layers for each part of
+    ``DROPLESS_TOKENS`` tokens, kernel 2 once in each attention layer and
+    kernel 3 once in each Mamba layer, all on the tensor-core kernels), an
+    eager decode (kernel 4 twice a layer a token), the first graph decode
+    (the capture calls the step ``graphs.CAPTURE_CALLS`` times, so kernel
+    4 twice a layer in each, and the replays call no wrapper), then a
+    decode of replays only under ``torch.cuda.set_sync_debug_mode
+    ("error")`` (no wrapper call) and the same replays under
+    ``torch.profiler`` (kernel 4's device kernels twice a layer a token).
+    The graph decode's tokens beside the eager one's (their share alike:
+    the experts' scatter-add sums in another order each call, so a near
+    tie may flip), its ms per token and the peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_grouped_gemm as mg
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import graphs
+    from repro_torch.launch.serve import ProgressiveServer
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as T
+    G = GRANITE_SERVE
+    B, S, n = G["batch"], G["prompt"], G["gen"]
+    pub = registry.get_config("granite-4.0-h-small")
+    cfg = dataclasses.replace(
+        pub, param_dtype="bfloat16",
+        moe=dataclasses.replace(pub.moe, num_experts=G["held"],
+                                num_router_experts=pub.moe.num_experts))
+    L = cfg.num_layers
+    mamba = cfg.layer_types.count("mamba")
+    parts = -(-B * S // moe_lib.DROPLESS_TOKENS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, device=dev)
+    server = ProgressiveServer(cfg, params, m=2, d=7, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+
+    def reset():
+        torch.cuda.synchronize()
+        mg.launches = fa.launches = ss.launches = 0
+        fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
+        ss.kernel_launches.update(dict.fromkeys(ss.KERNELS, 0))
+
+    reset()
+    t0 = time.perf_counter()
+    last, caches = server.prefill(prompt, max_len=S + 1 + n)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill = {"moe_grouped_gemm": mg.launches,
+               "flash_attention": dict(fa.kernel_launches),
+               "ssd_scan": dict(ss.kernel_launches)}
+    if (mg.launches != 2 * L * parts
+            or fa.launches != L - mamba
+            or fa.kernel_launches[fa.WGMMA] != L - mamba
+            or ss.launches != mamba
+            or ss.kernel_launches[ss.WGMMA] != mamba):
+        raise AssertionError(f"prefill launched {prefill}, want "
+                             f"{2 * L * parts} of kernel 4, {L - mamba} "
+                             f"flash and {mamba} SSD on the tensor cores")
+    if (last.shape != (B, cfg.vocab_size)
+            or not torch.isfinite(last).all()):
+        raise AssertionError(f"bad prefill logits {tuple(last.shape)}")
+
+    def decode(graphed):
+        server.graphs = graphed
+        fresh = _clone(caches)
+        reset()
+        t0 = time.perf_counter()
+        out, _ = server.decode(prompt[:, -1:], fresh, S, n)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / n, mg.launches
+
+    eager, eager_ms, eager_launches = decode(False)
+    captures = len(server.graph_log)
+    first, first_ms, capture_launches = decode(True)
+    if len(server.graph_log) != captures + 1:
+        raise AssertionError(f"{len(server.graph_log) - captures} captures "
+                             f"in the first graph decode, want 1")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed, graph_ms, replay_launches = decode(True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if (eager_launches != 2 * L * n
+            or capture_launches != graphs.CAPTURE_CALLS * 2 * L
+            or replay_launches != 0):
+        raise AssertionError(f"kernel 4 launched {eager_launches} in the "
+                             f"eager decode, {capture_launches} at the "
+                             f"capture, {replay_launches} in the replays")
+    graph = next(g for (_, b, r), g in server._graphs.items()
+                 if (b, r) == (B, server.m))
+    graph.start(prompt[:, -1:], S)
+    profiled = prefill_device_profile(
+        torch, lambda: [graph.replay() for _ in range(n)],
+        "moe_grouped_gemm_kernel", want=2 * L * n)
+    if profiled["kernel_launches"] != 2 * L * n:
+        raise AssertionError(f"{n} profiled replays ran "
+                             f"{profiled['kernel_launches']} kernel-4 "
+                             f"launches, want {2 * L * n}")
+    if not torch.equal(first, replayed):
+        raise AssertionError("two graph decodes from the same caches "
+                             "differ")
+    row = {"arch": cfg.name, "held_experts": cfg.moe.num_experts,
+           "router_experts": cfg.moe.num_router_experts,
+           "param_dtype": cfg.param_dtype, "batch": B, "prompt": S,
+           "gen": n, "params_billion": T.count_params(params) / 1e9,
+           "setup_seconds_init_params_and_head_planes": setup_s,
+           "prefill_ms": prefill_ms,
+           "launches_per_prefill_by_source": prefill,
+           "moe_grouped_gemm_launches": {
+               "prefill": prefill["moe_grouped_gemm"],
+               "eager_decode": eager_launches,
+               "decode_capture": capture_launches,
+               "decode_replays": replay_launches,
+               "profiled_replays_device": profiled["kernel_launches"]},
+           "capture_calls": graphs.CAPTURE_CALLS,
+           "eager_ms_per_token": eager_ms,
+           "first_graph_decode_ms_per_token": first_ms,
+           "graph_ms_per_token": graph_ms,
+           "replay_device_ms": profiled["all_device_ms"] / n,
+           "replay_kernel4_device_ms": profiled["kernel_device_ms"] / n,
+           "replay_top_device_ms": profiled["top_device_ms"][:4],
+           "graph_tokens_alike_eager": (first == eager).float().mean()
+           .item(),
+           "sync_debug_mode_during_replays": "error",
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    server.close()
+    del params, server, caches, prompt, last, eager, first, replayed, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="serve_granite_4_0_h_small", **row))
     return row
 
 
@@ -3446,6 +3735,11 @@ def main() -> int:
                         ("serve_qwen2_moe_a2_7b", phase_serve_qwen2_moe),
                         ("serve_whisper_tiny", phase_serve_whisper),
                         ("serve_internvl2_1b", phase_serve_internvl),
+                        # after the other serving phases, whose peaks
+                        # (qwen2-moe's 70.6 GB) leave little room for
+                        # the blocks an earlier phase keeps cached
+                        ("moe_grouped_gemm", phase_moe_grouped_gemm),
+                        ("serve_granite_4_0_h_small", phase_serve_granite),
                         ("serve_smoke_archs", phase_serve_smoke_archs),
                         ("serve_deadline", phase_serve_deadline),
                         ("examples", phase_examples),
@@ -3617,6 +3911,34 @@ def main() -> int:
                 "ms", "kernel_device_ms", "plain_ms", "bound_ms",
                 "bound_by")} for c, r in rows.items()
                 if c != "mamba2_370m_train"}})
+    if ("moe_grouped_gemm" in results
+            and "serve_granite_4_0_h_small" in results):
+        # kernel 4: the dropless expert layer's grouped products, launched
+        # by granite's serving path (counted from 0 before each step)
+        rows = results["moe_grouped_gemm"]
+        row = rows["granite_decode"]
+        served = results["serve_granite_4_0_h_small"][
+            "moe_grouped_gemm_launches"]
+        by_path = {f"serve_granite_4_0_h_small_{p}": served[p]
+                   for p in ("prefill", "eager_decode", "decode_capture")}
+        kernels.append({
+            "name": "moe_grouped_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_grouped_gemm.cu",
+            "replaces": None, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "graph_replay_launches_by_path": {
+                "serve_granite_4_0_h_small_decode":
+                    served["profiled_replays_device"]},
+            "max_err_over_largest_value": max(
+                e for r in rows.values()
+                for e in r["max_err_over_largest_value"].values()),
+            "ms": row["ms"], "kernel_device_ms": row["kernel_device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "other_shapes": {c: {k: r[k] for k in (
+                "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for c, r in rows.items()
+                if c != "granite_decode"}})
     if kernels:
         emit({"kernels": kernels})
     if failed:

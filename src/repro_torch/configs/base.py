@@ -48,6 +48,10 @@ class AttentionConfig:
     causal: bool = True
     qk_norm: bool = False
     attn_logit_softcap: Optional[float] = None
+    # port-only (the JAX package has neither): False for NoPE attention
+    # (Granite 4.0-H), and the softmax scale where it is not 1/sqrt(dh)
+    rope: bool = True
+    softmax_scale: Optional[float] = None
 
     @property
     def q_dim(self) -> int:
@@ -76,6 +80,18 @@ class MoEConfig:
     interleave_step: int = 1              # every n-th layer is MoE (1 = all)
     dispatch_group: int = 4096            # tokens per dispatch group (G)
     # 1 -> all layers MoE; 2 -> layers 1,3,5,... MoE (llama4-style)
+    # port-only (the JAX package has none of these): the router's width
+    # (0 = num_experts), the first of the num_experts experts held here
+    # (expert parallelism: the router picks over all, this chip computes
+    # its own experts' part), and dropless routing (no capacity, nothing
+    # dropped; ``models.moe.dropless_moe``)
+    num_router_experts: int = 0
+    first_expert: int = 0
+    dropless: bool = False
+
+    @property
+    def router_width(self) -> int:
+        return self.num_router_experts or self.num_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +150,22 @@ class ModelConfig:
     layered_lm_head: bool = False
     layered_m: int = 2
     layered_d: int = 7
+    # port-only (the JAX package has none of these; their defaults leave
+    # every other config as it computes without them): the mixer of each
+    # layer of a hybrid whose every layer ends in experts ("mamba" |
+    # "attention", Granite 4.0-H's layer_types; empty: the family's own
+    # pattern), the embedding's multiplier, the scale of each residual
+    # branch, the divisor of the logits, and the norms' epsilon (None:
+    # each norm's own default)
+    layer_types: tuple[str, ...] = ()
+    embedding_multiplier: Optional[float] = None
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    norm_eps: Optional[float] = None
+
+    def __post_init__(self):
+        # a configuration file gives the pattern as a JSON list
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
 
     @property
     def sub_quadratic(self) -> bool:

@@ -1,6 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution + per-cell input specs.
 
-The same ten architectures as the JAX package's ``registry.py``.
+The same ten architectures as the JAX package's ``registry.py``
+(:data:`ARCH_IDS`), and the port's own beside them (:data:`PORT_ARCH_IDS`:
+models the JAX package has no counterpart of, which the parity tests do
+not iterate); :func:`get_config` resolves both.
 ``input_specs(cfg, shape)`` returns ``(kind, specs)`` where ``specs`` is a
 dict of stand-ins for every input of the step a cell runs: tensors on the
 ``meta`` device (the reference's ``jax.ShapeDtypeStruct``s), with their
@@ -17,8 +20,8 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "shape_cells",
-           "input_specs", "cache_specs"]
+__all__ = ["ARCH_IDS", "PORT_ARCH_IDS", "get_config", "get_smoke_config",
+           "shape_cells", "input_specs", "cache_specs"]
 
 ARCH_IDS: dict[str, str] = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
@@ -33,11 +36,17 @@ ARCH_IDS: dict[str, str] = {
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
+#: architectures of the port alone (no JAX counterpart)
+PORT_ARCH_IDS: dict[str, str] = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
+
 
 def _module(arch: str):
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
-    return importlib.import_module(f"repro_torch.configs.{ARCH_IDS[arch]}")
+    ids = {**ARCH_IDS, **PORT_ARCH_IDS}
+    if arch not in ids:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ids)}")
+    return importlib.import_module(f"repro_torch.configs.{ids[arch]}")
 
 
 def get_config(arch: str) -> ModelConfig:

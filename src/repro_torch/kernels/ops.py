@@ -31,6 +31,9 @@ While ``torch.profiler`` records, each call of the two is a
 ``repro.kernel.flash_attention`` or ``repro.kernel.ssd_scan`` range, and
 each backward kernel call a ``repro.kernel.ssd_scan_backward`` range
 (``launch.graphs.span``).
+
+:func:`moe_grouped_gemm` (the dropless expert layer's products, no
+autograd) is a ``repro.kernel.moe_grouped_gemm`` range.
 """
 
 from __future__ import annotations
@@ -42,12 +45,13 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.core import layering
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_grouped_gemm as mg
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.layered_matmul import K_ALIGN, layered_matmul_kmajor
 from repro_torch.launch import graphs
 
 __all__ = ["layered_matmul", "layered_matmul_partials", "flash_attention",
-           "ssd_scan_fused"]
+           "ssd_scan_fused", "moe_grouped_gemm"]
 
 
 def _planes_kmajor(x: torch.Tensor, m: int, d: int) -> torch.Tensor:
@@ -411,3 +415,17 @@ def _sharded_ssd_scan(x, dt, A, Bm, Cm, init_state, chunk):
         ((b, None, tp), (b, None, tp), (tp,), (b,), (b,),
          None if init_state is None else state[1]),
         [(x.shape, (b, None, tp)), state])
+
+
+def moe_grouped_gemm(a: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                     *, w_up: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rows ``a (M, K)`` sorted by expert times their expert's weight of
+    ``w (E, K, N)``, expert ``e``'s rows ``offsets[e]:offsets[e + 1]``
+    (int32 on the device); with ``w_up`` the gated product ``silu(a w) *
+    (a w_up)``.  ``(M, N)`` in ``a``'s type, rows of no expert zero
+    (``kernels.moe_grouped_gemm``: the kernel on the card, which takes
+    bf16 only, the plain version on the CPU)."""
+    with graphs.span("repro.kernel.moe_grouped_gemm"):
+        if a.device.type == "cuda":
+            return mg.moe_grouped_gemm_kernel_call(a, w, offsets, w_up)
+        return mg.moe_grouped_gemm_plain(a, w, offsets, w_up)

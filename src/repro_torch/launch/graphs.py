@@ -50,6 +50,8 @@ the one gate): then a graphed call reads its last replay's stage times
 into :data:`stage_log`, and the port's host spans (:func:`span`) are
 ``record_function`` ranges on the profiler's clock.  With the profiler
 off the plain graph replays, and no span is entered and nothing read.
+A step may also keep device counters in the marked capture
+(:func:`count`), which such a call reads into :data:`counter_log`.
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 __all__ = ["REF", "COPY", "INOUT", "DONATE", "GraphedStep", "Recorded",
            "record", "wants_graphs", "mark", "stages", "stage_log",
-           "recording", "span", "CAPTURE_CALLS"]
+           "recording", "span", "CAPTURE_CALLS", "count", "counting",
+           "counter_log"]
 
 REF, COPY, INOUT, DONATE = "ref", "copy", "inout", "donate"
 
@@ -84,8 +87,17 @@ CAPTURE_CALLS = WARMUP_STEPS + 2
 #: :class:`GraphedStep`'s ``name`` otherwise)
 stage_log: collections.deque = collections.deque(maxlen=256)
 
+#: the device counters of graphed calls made while the profiler recorded,
+#: newest last: ``{"step": name, "counters": {name: [values, ...]}}`` of
+#: each call's last replay, one list of ints a :func:`count` call of the
+#: step (the dropless expert layer's ``moe.route``: per layer, the held
+#: experts that got a pair and the pairs they got)
+counter_log: collections.deque = collections.deque(maxlen=256)
+
 #: the marks of the capture :func:`record` is making, else None
 _open_marks: Optional[list] = None
+#: the counters of that capture, else None
+_open_counters: Optional[list] = None
 
 _NO_SPAN = contextlib.nullcontext()
 
@@ -112,6 +124,21 @@ def mark(name: str) -> None:
     event = torch.cuda.Event(enable_timing=True, external=True)
     event.record()
     _open_marks.append((name, event))
+
+
+def counting() -> bool:
+    """Whether the marked capture of :func:`record` is being made, where
+    :func:`count` keeps what it is given."""
+    return _open_counters is not None
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Keep ``value``, a device tensor the step computes, as the counter
+    ``name``: inside the marked capture of :func:`record` it stays
+    allocated in the graph's pool, and each replay of that graph rewrites
+    it, for :meth:`Recorded.log_stages` to read; anywhere else nothing."""
+    if _open_counters is not None:
+        _open_counters.append((name, value.detach()))
 
 
 def stages(marks) -> dict[str, float]:
@@ -164,9 +191,11 @@ class Recorded:
 
     def __init__(self, graph: torch.cuda.CUDAGraph, out,
                  marked: torch.cuda.CUDAGraph, marked_out, marks: tuple,
-                 pool_bytes: int, capture_seconds: float):
+                 pool_bytes: int, capture_seconds: float,
+                 counters: tuple = ()):
         self.graph, self.out = graph, out
         self.marked, self.marked_out, self.marks = marked, marked_out, marks
+        self.counters = counters
         self.pool_bytes, self.capture_seconds = pool_bytes, capture_seconds
         #: whether the last replay was the marked graph's
         self.traced = False
@@ -187,6 +216,11 @@ class Recorded:
         ``step``."""
         if self.traced and len(self.marks) > 1 and recording():
             stage_log.append({"step": step, "stages": stages(self.marks)})
+            if self.counters:
+                read: dict[str, list] = {}
+                for name, value in self.counters:
+                    read.setdefault(name, []).append(value.tolist())
+                counter_log.append({"step": step, "counters": read})
 
 
 #: the warm-up stream of each card: one for every capture, since cuBLAS
@@ -209,10 +243,11 @@ def record(step: Callable[[], object], device: torch.device, *,
     """Capture ``step()`` in CUDA graphs on ``device``: first run
     ``warm`` (``step`` by default) :data:`WARMUP_STEPS` times on a side
     stream, then capture ``step`` as it is, then again into the same pool
-    with the stage marks it makes after one of the capture's own;
+    with the stage marks (and counters, :func:`count`) it makes after one
+    of the capture's own;
     ``thread_local`` picks the captures' ``capture_error_mode`` (other
     threads' CUDA calls, such as NCCL's watchdog, stay legal)."""
-    global _open_marks
+    global _open_marks, _open_counters
     warm = step if warm is None else warm
     side = _side_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -222,7 +257,8 @@ def record(step: Callable[[], object], device: torch.device, *,
     torch.cuda.current_stream(device).wait_stream(side)
     start = time.perf_counter()
     mode = "thread_local" if thread_local else "global"
-    graph, marked, marks = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph(), []
+    graph, marked = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    marks, counters = [], []
     # torch.cuda.graph synchronizes and empties the cache on entry, so
     # what is reserved during a capture is the graphs' private pool
     with torch.cuda.graph(graph, capture_error_mode=mode):
@@ -232,16 +268,16 @@ def record(step: Callable[[], object], device: torch.device, *,
     with torch.cuda.graph(marked, pool=graph.pool(),
                           capture_error_mode=mode):
         reserved = torch.cuda.memory_reserved(device)
-        _open_marks = marks
+        _open_marks, _open_counters = marks, counters
         try:
             mark("start")
             marked_out = step()
         finally:
-            _open_marks = None
+            _open_marks = _open_counters = None
     pool_bytes += torch.cuda.memory_reserved(device) - reserved
     torch.cuda.synchronize(device)
     return Recorded(graph, out, marked, marked_out, tuple(marks), pool_bytes,
-                    time.perf_counter() - start)
+                    time.perf_counter() - start, tuple(counters))
 
 
 def _leaf_key(x, role: str):

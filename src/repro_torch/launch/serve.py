@@ -203,7 +203,7 @@ def _cache_len(cfg: ModelConfig, caches) -> Optional[int]:
     lens = [c["k"].shape[2]
             for (unit, _), group in zip(T.block_groups(cfg), caches)
             for kind, c in zip(unit, group)
-            if kind in ("dense", "moe", "cross")]
+            if kind in ("dense", "moe", "cross", "attn_moe")]
     return min(lens, default=None)
 
 
@@ -245,6 +245,10 @@ class ProgressiveServer:
         self.device = pdev
         w = (params["embed"].T if cfg.tie_embeddings
              else params["lm_head"]).to(torch.float32)
+        if cfg.logits_scaling != 1.0:
+            # a power of two in Granite's case, so the planes are the
+            # unscaled weight's and only their scale moves
+            w = w / cfg.logits_scaling
         self.lm_head = progressive.make_layered_linear(w, m=m, d=d)
         self._head_w = w
         self.m = m
@@ -421,7 +425,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Greedy serving with a layered LM head.")
     ap.add_argument("--arch", default="llama3-8b-smoke",
-                    help=f"one of {sorted(registry.ARCH_IDS)}, at its "
+                    help=f"one of {sorted(registry.ARCH_IDS)} or "
+                         f"{sorted(registry.PORT_ARCH_IDS)}, at its "
                          f"published widths, or with '-smoke' appended "
                          f"its smoke config")
     ap.add_argument("--device", default="cuda",

@@ -55,10 +55,13 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             + bias.to(torch.float32)).to(dtype)
 
 
-def apply_norm(norm_kind: str, x: torch.Tensor, params: dict) -> torch.Tensor:
+def apply_norm(norm_kind: str, x: torch.Tensor, params: dict,
+               eps: Optional[float] = None) -> torch.Tensor:
+    """The config's norm; ``eps`` None takes each norm's own default."""
+    kw = {} if eps is None else {"eps": eps}
     if norm_kind == "rmsnorm":
-        return rms_norm(x, params["scale"])
-    return layer_norm(x, params["scale"], params["bias"])
+        return rms_norm(x, params["scale"], **kw)
+    return layer_norm(x, params["scale"], params["bias"], **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts block: top-k router + GShard-style grouped dispatch.
+"""Mixture-of-Experts blocks: top-k router + GShard-style grouped dispatch,
+and a dropless dispatch grouped by expert.
 
 The JAX package's ``models/moe.py`` in PyTorch, with the same dispatch:
 tokens are split into groups of ``group_size``; each group dispatches
@@ -12,6 +13,20 @@ port.
 
 The router's top-k breaks ties towards the lower expert index, as
 ``jax.lax.top_k`` does (``torch.topk`` promises no order among ties).
+
+A config with ``dropless`` (Granite 4.0-H) takes :func:`dropless_moe`
+instead, which the JAX package has no counterpart of: no capacity, no
+token dropped, and the expert layer of expert parallelism.  The router
+picks over all ``router_width`` experts; the layer holds the
+``num_experts`` from ``first_expert`` on and computes only their part of
+the result, for the (token, pick) pairs routed to them, plus the shared
+expert.  The pairs are ordered by expert on the device, their rows
+gathered, the expert SwiGLUs run as two grouped products over row counts
+that only the device knows (``kernels.ops.moe_grouped_gemm``: a kernel on
+the card), and the gate-weighted rows added back.  Inside a CUDA graph's
+capture (the decode step) nothing reads the device on the host: the
+buffers are sized for every pair.  Anywhere else (a prefill, an eager
+step) they are sized for the held pairs, after one read of their count.
 """
 
 from __future__ import annotations
@@ -24,13 +39,20 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.kernels import ops
+from repro_torch.launch import graphs
 from repro_torch.launch.axes import constrain, einsum
 from repro_torch.models.layers import init_linear, mlp_swiglu
 
-__all__ = ["DISPATCH_GROUP", "init_moe_params", "lossless_capacity",
-           "moe_block", "router_topk"]
+__all__ = ["DISPATCH_GROUP", "DROPLESS_TOKENS",
+           "init_moe_params", "lossless_capacity", "moe_block",
+           "dropless_moe", "route_held", "router_topk"]
 
 DISPATCH_GROUP = 4096  # tokens per dispatch group (GShard's G)
+
+#: tokens a dropless call dispatches at once (a prefill's are split, which
+#: bounds the gathered rows' memory; each part reads the experts again)
+DROPLESS_TOKENS = 16384
 
 
 def init_moe_params(gen: torch.Generator | None, d_model: int,
@@ -45,7 +67,7 @@ def init_moe_params(gen: torch.Generator | None, d_model: int,
     lin = lambda a, b, extra=(): init_linear(gen, a, b, dtype,
                                              extra_dims + extra, device)
     params = {
-        "router": lin(d_model, E),
+        "router": lin(d_model, cfg.router_width),
         "we_gate": lin(d_model, Fd, (E,)),
         "we_up": lin(d_model, Fd, (E,)),
         "we_down": lin(Fd, d_model, (E,)),
@@ -89,7 +111,10 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
               group_size: int | None = None) -> torch.Tensor:
-    """Apply the routed-expert FFN to x (..., D); returns the same shape."""
+    """Apply the routed-expert FFN to x (..., D); returns the same shape
+    (:func:`dropless_moe` for a dropless config)."""
+    if cfg.dropless:
+        return dropless_moe(params, x, cfg)
     orig_shape = x.shape
     D = x.shape[-1]
     xf = x.reshape(-1, D)                          # (T, D)
@@ -156,6 +181,86 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig,
         # cannot split such a dim back into (batch, sequence)
         yf = constrain(yf, "batch", None)
     return yf.reshape(orig_shape)
+
+
+def route_held(xf: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
+               static: bool):
+    """The held pairs of tokens ``xf (T, D)``, ordered by expert.
+
+    Router logits in float32 over all ``router_width`` experts, the top
+    ``k`` (:func:`router_topk`: a softmax over all the logits renormalised
+    over the picks, which equals Granite's softmax over the k picked
+    logits), then the (token, pick) pairs whose expert is held, ordered by
+    held expert with their counts and offsets on the device.  With
+    ``static`` every pair has a row, those of experts not held last;
+    otherwise the held ones only (their count read on the host).
+
+    Returns ``(tok, gate, offsets, counts)``: the token (int64) and gate
+    (float32) of each row, ``offsets (E + 1,)`` int32 (expert ``e``'s rows
+    are ``offsets[e]:offsets[e + 1]``) and ``counts (E,)`` int32.
+    """
+    E, k = cfg.num_experts, cfg.top_k
+    logits = xf.to(torch.float32) @ router.to(torch.float32)
+    gates, idx = router_topk(logits, k)                     # (T, k)
+    local = idx.reshape(-1) - cfg.first_expert
+    held = (local >= 0) & (local < E)
+    key = torch.where(held, local, E)                       # E: not held
+    order = torch.sort(key, stable=True).indices
+    counts = torch.zeros(E + 1, dtype=torch.int32, device=xf.device)
+    counts.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    counts = counts[:E]
+    offsets = torch.cat([counts.new_zeros(1),
+                         torch.cumsum(counts, 0, dtype=torch.int32)])
+    if not static:
+        order = order[:int(offsets[E])]
+    tok = torch.div(order, k, rounding_mode="floor")
+    gate = gates.reshape(-1).index_select(0, order)
+    return tok, gate, offsets, counts
+
+
+def dropless_moe(params: dict, x: torch.Tensor,
+                 cfg: MoEConfig) -> torch.Tensor:
+    """The dropless expert layer on x (..., D): the held experts' part of
+    the routed result, plus the shared expert (see the module docstring).
+
+    In a decode step the stages are marked (``launch.graphs.mark``):
+    ``route`` (router, top-k, ordering and gathering of the held pairs),
+    ``experts`` (the grouped products and the activation between them);
+    the caller marks what follows.  A marked capture also counts, for
+    :data:`launch.graphs.counter_log`, the held experts with a pair and
+    the pairs they got (``moe.route``)."""
+    orig_shape = x.shape
+    D = x.shape[-1]
+    xf = x.reshape(-1, D)
+    T = xf.shape[0]
+    if T > DROPLESS_TOKENS:
+        return torch.cat([dropless_moe(params, part, cfg)
+                          for part in xf.split(DROPLESS_TOKENS)]
+                         ).reshape(orig_shape)
+    # a CUDA graph's capture cannot read the device on the host: there
+    # every pair gets a row; anywhere else the held pairs alone
+    static = xf.is_cuda and torch.cuda.is_current_stream_capturing()
+    tok, gate, offsets, counts = route_held(xf, params["router"], cfg,
+                                            static)
+    if graphs.counting():
+        graphs.count("moe.route", torch.stack([(counts > 0).sum(),
+                                               counts.sum()]))
+    dtype = x.dtype
+    rows = xf.index_select(0, tok)
+    graphs.mark("route")
+    h = ops.moe_grouped_gemm(rows, params["we_gate"].to(dtype), offsets,
+                             w_up=params["we_up"].to(dtype))
+    y = ops.moe_grouped_gemm(h, params["we_down"].to(dtype), offsets)
+    graphs.mark("experts")
+    # rows of no held expert are zero (their gates times nothing)
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    out.index_add_(0, tok, y * gate[:, None])      # in float32
+    out = out.to(dtype)
+    if cfg.d_ff_shared:
+        sp = params["shared"]
+        out = out + mlp_swiglu(xf, sp["w_gate"].to(dtype),
+                               sp["w_up"].to(dtype), sp["w_down"].to(dtype))
+    return out.reshape(orig_shape)
 
 
 def lossless_capacity(cfg: ModelConfig) -> ModelConfig:

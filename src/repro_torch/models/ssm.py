@@ -168,11 +168,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def ssm_block(params: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig,
-              init_state=None):
+              init_state=None, eps: float = 1e-6):
     """Mamba2 block over (B, S, D); returns (y, cache) with final state.
 
     The scan runs ``kernels.ops.ssd_scan_fused``: the CUDA kernel on the
-    card, its plain version on the CPU.
+    card, its plain version on the CPU.  ``eps`` is the gated norm's.
     """
     d_in = cfg.d_inner(d_model)
     H = cfg.num_heads(d_model)
@@ -213,15 +213,16 @@ def ssm_block(params: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     xh = xh[:, :S]
     y = y[:, :S] + params["D"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(Bsz, S, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(gate), params["norm_scale"])
+    y = rms_norm(y * F.silu(gate), params["norm_scale"], eps)
     out = constrain(y @ params["out_proj"].to(x.dtype), "batch", None, None)
     cache = dict(cache_tail, state=final)
     return out, cache
 
 
 def ssm_decode_step(params: dict, x: torch.Tensor, cache: dict,
-                    d_model: int, cfg: SSMConfig):
-    """One-token Mamba2 step. x: (B, 1, D); returns (y (B,1,D), new cache)."""
+                    d_model: int, cfg: SSMConfig, eps: float = 1e-6):
+    """One-token Mamba2 step. x: (B, 1, D); returns (y (B,1,D), new cache).
+    ``eps`` is the gated norm's."""
     d_in = cfg.d_inner(d_model)
     H, N, P = cfg.num_heads(d_model), cfg.d_state, cfg.head_dim
     gate, xs, Bm, Cm, dtr = _streams(params, x)
@@ -262,7 +263,7 @@ def ssm_decode_step(params: dict, x: torch.Tensor, cache: dict,
     else:
         y = y.reshape(Bsz, 1, d_in)
     y = y.to(x.dtype)
-    y = rms_norm(y * F.silu(gate), params["norm_scale"])
+    y = rms_norm(y * F.silu(gate), params["norm_scale"], eps)
     out = y @ params["out_proj"].to(x.dtype)
     return out, {"conv_x": win_x[:, 1:], "conv_B": win_B[:, 1:],
                  "conv_C": win_C[:, 1:], "state": state}

@@ -9,6 +9,8 @@ kinds
   rglru       RG-LRU recurrent block + MLP (``models.rglru``)
   local_attn  sliding-window GQA + MLP (recurrentgemma's attention layers)
   cross       encoder-decoder layer: causal self-attn + cross-attn + MLP
+  mamba_moe   Mamba2 mixer + dropless experts and a shared expert
+  attn_moe    GQA attention mixer + the same experts (Granite 4.0-H)
 
 An architecture is a sequence of *block groups*, each a repeating
 unit of layer kinds; per-group parameters and caches are stacked on a
@@ -49,6 +51,17 @@ keys in prompt order and decode overwrites a key still in the window
 
 Attention logit softcaps raise ``NotImplementedError``: the flash kernel,
 like the TPU kernel, has none, and no config sets one.
+
+A config with ``layer_types`` (Granite 4.0-H, which the JAX package does
+not have) is a hybrid whose every layer ends in the dropless expert layer
+(``models.moe.dropless_moe``): ``mamba_moe`` and ``attn_moe`` layers,
+grouped by runs of one mixer, each branch scaled by
+``residual_multiplier`` into the residual, the embedding multiplied by
+``embedding_multiplier`` and the logits divided by ``logits_scaling``.
+Its attention may be NoPE (``AttentionConfig.rope`` False) and take its
+own softmax scale: q is scaled by ``softmax_scale * sqrt(dh)`` before the
+kernel's (and the decode's) ``1 / sqrt(dh)``.  In a decode step its
+expert layer marks ``route`` and ``experts`` before the layer's ``ffn``.
 """
 
 from __future__ import annotations
@@ -114,6 +127,21 @@ def _dequant_kv(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def block_groups(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
     """[(unit kinds, repeats)] covering cfg.num_layers exactly."""
     Lnum = cfg.num_layers
+    if cfg.layer_types:
+        # runs of consecutive layers of one mixer, each a group
+        if len(cfg.layer_types) != Lnum:
+            raise ValueError(f"{len(cfg.layer_types)} layer types for "
+                             f"{Lnum} layers")
+        kinds = {"mamba": "mamba_moe", "attention": "attn_moe"}
+        groups: list = []
+        for t in cfg.layer_types:
+            if t not in kinds:
+                raise ValueError(f"unknown layer type {t!r}")
+            if groups and groups[-1][0] == (kinds[t],):
+                groups[-1] = (groups[-1][0], groups[-1][1] + 1)
+            else:
+                groups.append(((kinds[t],), 1))
+        return groups
     if cfg.family == "ssm":
         return [(("ssm",), Lnum)]
     if cfg.family == "hybrid":
@@ -186,6 +214,15 @@ def _init_layer(gen, kind: str, cfg: ModelConfig, reps: tuple[int, ...],
     elif kind == "ssm":
         p["ssm"] = ssm_lib.init_ssm_params(gen, cfg.d_model, cfg.ssm,
                                            cfg.pdtype(), reps, dev)
+    elif kind in ("mamba_moe", "attn_moe"):
+        if kind == "mamba_moe":
+            p["ssm"] = ssm_lib.init_ssm_params(gen, cfg.d_model, cfg.ssm,
+                                               cfg.pdtype(), reps, dev)
+        else:
+            p["attn"] = _init_attn(gen, cfg, reps, dev)
+        p["ln2"] = norm()
+        p["ffn"] = moe_lib.init_moe_params(gen, cfg.d_model, cfg.moe,
+                                           cfg.pdtype(), reps, dev)
     elif kind == "rglru":
         p["rglru"] = rglru_lib.init_rglru_params(gen, cfg.d_model, cfg.rglru,
                                                  cfg.pdtype(), reps, dev)
@@ -253,6 +290,20 @@ def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                         ((), (b,)), ((*tokens.shape, table.shape[-1]), (b,)))
 
 
+def _scale_q(q: torch.Tensor, a) -> torch.Tensor:
+    """q scaled so that the attention's ``1 / sqrt(dh)`` gives the config's
+    own softmax scale, where it sets one."""
+    if a.softmax_scale is None:
+        return q
+    return q * (a.softmax_scale * math.sqrt(a.head_dim))
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, p: dict) -> torch.Tensor:
+    """The config's norm at its ``norm_eps`` (the norm's own default when
+    unset)."""
+    return L.apply_norm(cfg.norm, x, p, cfg.norm_eps)
+
+
 def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, window=None, kv=None):
     """Projection + flash attention + output projection over a full
@@ -269,13 +320,15 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         v = einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
         k = constrain(k, "batch", None, "tp", None)
         v = constrain(v, "batch", None, "tp", None)
-        q = L.rope(q, positions, a.rope_theta)
-        k = L.rope(k, positions, a.rope_theta)
+        if a.rope:
+            q = L.rope(q, positions, a.rope_theta)
+            k = L.rope(k, positions, a.rope_theta)
         causal = a.causal
     else:
         k, v = kv
         causal = False
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = ops.flash_attention(_scale_q(q, a), k, v, causal=causal,
+                              window=window)
     out = einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     out = constrain(out, "batch", None, None)
     return out, (k, v)
@@ -301,7 +354,25 @@ def _layer_fwd(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     A ``cross`` layer takes its precomputed encoder K/V as ``enc_kv``.
     """
-    norm = lambda n, h: L.apply_norm(cfg.norm, h, n)
+    norm = lambda n, h: _norm(cfg, h, n)
+    if kind in ("mamba_moe", "attn_moe"):
+        r = cfg.residual_multiplier
+        if kind == "mamba_moe":
+            h, cache = ssm_lib.ssm_block(p["ssm"], norm(p["ln1"], x),
+                                         cfg.d_model, cfg.ssm,
+                                         eps=_ssm_eps(cfg))
+            # the conv windows are views of the whole prompt's streams:
+            # copied, they no longer hold those (Granite: 0.5 GB a layer
+            # at 32 x 1024 tokens) until the group's caches are stacked
+            cache = {n: t.clone() if n.startswith("conv") else t
+                     for n, t in cache.items()}
+        else:
+            h, (k, v) = _attn_apply(p["attn"], norm(p["ln1"], x), cfg,
+                                    positions, window=cfg.attention.window)
+            cache = {"k": k, "v": v}
+        x = x + h * r
+        x = x + moe_lib.moe_block(p["ffn"], norm(p["ln2"], x), cfg.moe) * r
+        return x, cache
     if kind in ("dense", "moe", "local_attn", "cross"):
         window = (_local_window(cfg) if kind == "local_attn"
                   else cfg.attention.window)
@@ -328,6 +399,11 @@ def _layer_fwd(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
         x = x + _ffn_apply(p["ffn"], norm(p["ln2"], x), cfg, "dense")
         return x, cache
     raise ValueError(kind)
+
+
+def _ssm_eps(cfg: ModelConfig) -> float:
+    """The epsilon of a Mamba2 mixer's gated norm."""
+    return 1e-6 if cfg.norm_eps is None else cfg.norm_eps
 
 
 def _local_window(cfg: ModelConfig) -> int:
@@ -449,6 +525,34 @@ def _write_local(local: torch.Tensor, start: torch.Tensor,
             inside, v, local.index_select(1, slots)))
 
 
+def _qkv_decode(ap: dict, hin: torch.Tensor, a,
+                pos_b: torch.Tensor) -> tuple:
+    """One token's q, k and v (B, 1, heads, dh), roped at ``pos_b`` where
+    the config ropes."""
+    q = einsum("bsd,dhk->bshk", hin, ap["wq"].to(hin.dtype))
+    k = einsum("bsd,dhk->bshk", hin, ap["wk"].to(hin.dtype))
+    v = einsum("bsd,dhk->bshk", hin, ap["wv"].to(hin.dtype))
+    if a.rope:
+        q = L.rope(q, pos_b[:, None], a.rope_theta)
+        k = L.rope(k, pos_b[:, None], a.rope_theta)
+    return q, k, v
+
+
+def _attn_decode(ap: dict, hin: torch.Tensor, cache: dict, cfg: ModelConfig,
+                 pos, pos_b: torch.Tensor) -> torch.Tensor:
+    """Attention of one token (B, 1, D) against a cache of every position,
+    written in place at slot ``pos``, at the config's softmax scale; the
+    output projection's result."""
+    a = cfg.attention
+    q, k, v = _qkv_decode(ap, hin, a, pos_b)
+    _write_slot(cache["k"], pos, _quant_kv(k, cfg))
+    _write_slot(cache["v"], pos, _quant_kv(v, cfg))
+    out = L.decode_attention(_scale_q(q, a), _dequant_kv(cache["k"], cfg),
+                             _dequant_kv(cache["v"], cfg), pos_b, a,
+                             cache_len=pos_b + 1)
+    return einsum("bshk,hkd->bsd", out, ap["wo"].to(hin.dtype))
+
+
 def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
                   cfg: ModelConfig, pos, enc_kv=None):
     """Single-token layer step against a cache.  Returns (x, new_cache).
@@ -459,22 +563,32 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
     ``pos`` is an int or a 0-d int64 tensor on x's device (see
     :func:`hidden_step`).
     """
-    norm = lambda n, h: L.apply_norm(cfg.norm, h, n)
+    norm = lambda n, h: _norm(cfg, h, n)
     B = x.shape[0]
     if isinstance(pos, torch.Tensor):
         pos_b = pos.expand(B)
     else:
         pos_b = torch.full((B,), pos, dtype=torch.int64, device=x.device)
+    if kind in ("mamba_moe", "attn_moe"):
+        r = cfg.residual_multiplier
+        hin = norm(p["ln1"], x)
+        if kind == "mamba_moe":
+            h, new_cache = ssm_lib.ssm_decode_step(
+                p["ssm"], hin, cache, cfg.d_model, cfg.ssm, eps=_ssm_eps(cfg))
+        else:
+            h, new_cache = _attn_decode(p["attn"], hin, cache, cfg, pos,
+                                        pos_b), cache
+        x = x + h * r
+        mark("mixer")
+        x = x + moe_lib.moe_block(p["ffn"], norm(p["ln2"], x), cfg.moe) * r
+        mark("ffn")
+        return x, new_cache
     if kind in ("dense", "moe", "local_attn", "cross"):
         a = cfg.attention
         hin = norm(p["ln1"], x)
         ap = p["attn"]
-        q = einsum("bsd,dhk->bshk", hin, ap["wq"].to(x.dtype))
-        k = einsum("bsd,dhk->bshk", hin, ap["wk"].to(x.dtype))
-        v = einsum("bsd,dhk->bshk", hin, ap["wv"].to(x.dtype))
-        q = L.rope(q, pos_b[:, None], a.rope_theta)
-        k = L.rope(k, pos_b[:, None], a.rope_theta)
         if kind == "local_attn":
+            q, k, v = _qkv_decode(ap, hin, a, pos_b)
             # the ring: position pos in slot pos % W; a slot is valid while
             # its position is inside the window ending at pos, and an empty
             # slot (pos -1) never is
@@ -487,19 +601,15 @@ def _layer_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
             pc = cache["pos"]
             valid = (pc >= 0) & (pc <= pos) & (pc > pos - W)
             bias = torch.where(valid, 0.0, L._NEG_INF)
-            qg = L.group_heads(q, a.num_kv_heads)
+            qg = L.group_heads(_scale_q(q, a), a.num_kv_heads)
             out = L._attend(qg, _dequant_kv(cache["k"], cfg),
                             _dequant_kv(cache["v"], cfg),
                             bias[:, None, None, None, :],
                             a.attn_logit_softcap)
             out = out.reshape(B, 1, a.num_heads, a.head_dim)
+            h = einsum("bshk,hkd->bsd", out, ap["wo"].to(x.dtype))
         else:
-            _write_slot(cache["k"], pos, _quant_kv(k, cfg))
-            _write_slot(cache["v"], pos, _quant_kv(v, cfg))
-            out = L.decode_attention(q, _dequant_kv(cache["k"], cfg),
-                                     _dequant_kv(cache["v"], cfg), pos_b, a,
-                                     cache_len=pos_b + 1)
-        h = einsum("bshk,hkd->bsd", out, ap["wo"].to(x.dtype))
+            h = _attn_decode(ap, hin, cache, cfg, pos, pos_b)
         x = x + h
         mark("mixer")
         if kind == "cross":
@@ -544,7 +654,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     for unit, reps in block_groups(cfg):
         unit_caches = []
         for kind in unit:
-            if kind == "ssm":
+            if kind in ("ssm", "mamba_moe"):
                 c = ssm_lib.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dt,
                                            dev)
             elif kind == "rglru":
@@ -575,7 +685,10 @@ def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   extra_embeds: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     x = _lookup(params["embed"], tokens).to(cfg.cdtype())
-    if cfg.family == "hybrid":  # gemma-style embedding scale
+    if cfg.embedding_multiplier is not None:
+        x = x * torch.full((), cfg.embedding_multiplier, dtype=x.dtype,
+                           device=x.device)
+    elif cfg.family == "hybrid":  # gemma-style embedding scale
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
                            device=x.device)
     if cfg.num_image_tokens and extra_embeds is not None:
@@ -588,7 +701,10 @@ def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The plain, full-precision LM head on normed hidden states."""
     w = (params["embed"].to(x.dtype).T if cfg.tie_embeddings
          else params["lm_head"].to(x.dtype))
-    return constrain(x @ w, "batch", None, "tp")
+    logits = x @ w
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return constrain(logits, "batch", None, "tp")
 
 
 def _unstack(group_params: dict) -> list:
@@ -633,7 +749,7 @@ def _encoder_fwd(params: dict, audio_embeds: torch.Tensor, cfg: ModelConfig,
     enc = params["encoder"]
     for p in _unstack(enc["layers"]):
         x, _ = _run_layer(remat, "dense", p, x, ecfg, pos)
-    return L.apply_norm(cfg.norm, x, enc["final_norm"])
+    return _norm(cfg, x, enc["final_norm"])
 
 
 def _enc_cross_kv(params: dict, enc_out: torch.Tensor,
@@ -653,9 +769,10 @@ def _enc_cross_kv(params: dict, enc_out: torch.Tensor,
 
 def _forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
              extra_embeds=None, audio_embeds=None, want_cache: bool = False,
-             remat: bool = False):
+             remat: bool = False, last_only: bool = False):
     """(logits, caches or None, encoder K/V or None): the encoder runs
-    once, and :func:`prefill` keeps its K/V for decode."""
+    once, and :func:`prefill` keeps its K/V for decode.  With
+    ``last_only`` the head runs at the last position alone."""
     _unsupported(cfg)
     B, S = tokens.shape
     x = _embed_inputs(params, tokens, cfg, extra_embeds)
@@ -682,8 +799,9 @@ def _forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         if want_cache:
             caches.append([{n: stack([c[n] for c in cs])
                             for n in cs[0]} for cs in per_layer])
-    logits = _head(params, L.apply_norm(cfg.norm, x, params["final_norm"]),
-                   cfg)
+    if last_only:
+        x = x[:, -1:]
+    logits = _head(params, _norm(cfg, x, params["final_norm"]), cfg)
     return logits, (caches if want_cache else None), enc_kvs
 
 
@@ -730,18 +848,22 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int, *, extra_embeds=None, audio_embeds=None):
     """Run the prompt; returns (last-position logits, caches @ max_len).
 
-    An encoder-decoder's caches are the pair ``(caches, enc_kvs)``.
+    An encoder-decoder's caches are the pair ``(caches, enc_kvs)``.  A
+    config with ``layer_types`` runs the head at the last position only
+    (Granite's 100k-entry head over a whole batch of prompts would hold
+    6.6 GB of logits at 32 x 1024 tokens).
     """
     logits, caches, enc_kvs = _forward(
         params, tokens, cfg, extra_embeds=extra_embeds,
-        audio_embeds=audio_embeds, want_cache=True)
+        audio_embeds=audio_embeds, want_cache=True,
+        last_only=bool(cfg.layer_types))
     S = tokens.shape[1]
     padded = []
     for g, (unit, _) in enumerate(block_groups(cfg)):
         unit_caches = []
         for u, kind in enumerate(unit):
             c = caches[g][u]
-            if kind in ("dense", "moe", "cross"):
+            if kind in ("dense", "moe", "cross", "attn_moe"):
                 # (reps, B, S, n_kv, dh) -> (reps, B, max_len, n_kv, dh);
                 # on a mesh each rank pads its shard, the sequence whole
                 pad = lambda t: F.pad(t, (0, 0, 0, 0, 0, max_len - S))
@@ -805,7 +927,7 @@ def hidden_step(params: dict, token: torch.Tensor, caches, pos,
                 for n, t in new.items():
                     if t is not layer_cache[n]:
                         stacked[n][r].copy_(t)
-    x = L.apply_norm(cfg.norm, x, params["final_norm"])
+    x = _norm(cfg, x, params["final_norm"])
     mark("norm")
     return x[:, 0, :], given
 

@@ -51,8 +51,10 @@ CASES = [("audio", "float32"), ("vlm", "float32"),
 
 
 def port_config(jcfg):
-    """The port's ModelConfig with every field of a JAX package config."""
-    fields = {f.name: getattr(jcfg, f.name)
+    """The port's ModelConfig with every field of a JAX package config,
+    and the port's own fields (which the JAX package lacks) at their
+    defaults."""
+    fields = {f.name: getattr(jcfg, f.name, f.default)
               for f in dataclasses.fields(tbase.ModelConfig)}
     if jcfg.attention is not None:
         fields["attention"] = tbase.AttentionConfig(

@@ -290,7 +290,25 @@ def test_plain_attention_matches_jax_with_softcap(rng):
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=1e-5)
 
 
+def _matches_jax(jd: dict, td: dict, cls) -> None:
+    """Every field of the JAX package's config (``jd``, nested configs
+    included) equal in the port's (``td``); every field of the port alone
+    (its ``cls``) at its default."""
+    from repro_torch.configs import base as tbase
+    nested = {"attention": tbase.AttentionConfig, "moe": tbase.MoEConfig,
+              "ssm": tbase.SSMConfig, "rglru": tbase.RGLRUConfig}
+    assert set(jd) <= set(td), sorted(set(jd) - set(td))
+    for f in dataclasses.fields(cls):
+        if f.name not in jd:
+            assert td[f.name] == f.default, f.name
+        elif f.name in nested and jd[f.name] is not None:
+            _matches_jax(jd[f.name], td[f.name], nested[f.name])
+        else:
+            assert td[f.name] == jd[f.name], f.name
+
+
 def test_block_groups_and_configs_match_jax():
+    from repro_torch.configs import base as tbase
     for arch in treg.ARCH_IDS:
         for get in ("get_config", "get_smoke_config"):
             jcfg = getattr(jreg, get)(arch)
@@ -298,7 +316,7 @@ def test_block_groups_and_configs_match_jax():
             assert JT.block_groups(jcfg) == TT.block_groups(tcfg)
             jd = dataclasses.asdict(jcfg)
             td = dataclasses.asdict(tcfg)
-            assert jd == td, arch
+            _matches_jax(jd, td, tbase.ModelConfig)
     assert treg.get_config("llama3-8b").cdtype() == torch.bfloat16
     assert treg.get_config("llama3-8b").pdtype() == torch.float32
     assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS)
