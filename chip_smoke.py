@@ -87,7 +87,13 @@ main paths and checks what comes out:
    (``moe_grouped_gemm``) at granite-4.0-h-small's decode step and at a
    prefill part against its plain version, timed beside its bound, the
    plain version and ``torch._grouped_mm`` (a yardstick the port never
-   calls);
+   calls); and, after the SSD backward, the Mamba2 decode step kernel
+   (``ssm_step``) at mamba2-370m's and granite-4.0-h-small's decode
+   shapes against its plain chain, one launch and three device kernels a
+   call, timed beside its bound and the plain chain (whose device kernels
+   are counted); the serving phases count its calls (once a Mamba layer a
+   token eagerly, at each call of a capture, none in a replay) and its
+   device kernels in the replays;
 7. main paths 3 to 8, ``launch.serve.ProgressiveServer`` at the full
    width of llama3-8b, mamba2-370m, recurrentgemma-9b (all 38 layers),
    qwen2-moe-a2.7b (all 24 layers), whisper-tiny (4 encoder and 4
@@ -247,7 +253,7 @@ KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul_wgmma_grouped",
                   "flash_attention",
                   "flash_attention_wgmma",
                   "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma",
-                  "ssd_scan_bwd", "moe_grouped_gemm"]
+                  "ssd_scan_bwd", "moe_grouped_gemm", "ssm_step"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 #: recurrentgemma-9b's local attention: MQA at head dim 256, window 2048
@@ -1542,6 +1548,113 @@ GRANITE_MOE = dict(D=4096, F=768, E=36, router=72, k=10,
                    tokens={"granite_decode": 32, "granite_prefill": 16384})
 
 
+#: the Mamba2 decode step as its cells run it: batch, heads, head dim,
+#: state, then the activations' and the parameters' types (mamba2-370m
+#: keeps fp32 parameters, granite-4.0-h-small's cell bf16 ones)
+SSM_STEP = {"mamba2_370m_decode": (64, 32, 64, 128, "bfloat16", "float32"),
+            "granite_4_0_h_small_decode": (32, 128, 64, 128, "bfloat16",
+                                           "bfloat16")}
+#: torch.profiler name substring of the step's device kernels
+SSM_STEP_PROFILE = "ssm_step_"
+
+
+def phase_ssm_step(torch, dev):
+    """The Mamba2 decode step kernel (``csrc/ssm_step.cu``) at
+    :data:`SSM_STEP`'s shapes: one ``ops.ssm_step`` call (one launch, the
+    caches the same tensors, updated in place) and ``ssm_step_plain`` on
+    the same inputs, both against the plain chain in fp32 on fp32 copies
+    of them: the kernel no further from it than the plain chain plus one
+    bf16 step (2^-8) of the largest value, and within 2e-2 (output) and
+    1e-2 (state) of it; the windows equal the plain chain's.  Then
+    the call timed with CUDA events and the profiler (its three device
+    kernels together and apart, and nothing else on the device) beside its
+    bound (``ssm_step.min_bytes`` at 3.35 TB/s) and the plain chain's
+    times and device kernels (no library call computes the step)."""
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_step as sst
+    from repro_torch.models import ssm
+    rows = {}
+    for name, (B, H, P, N, act, param) in SSM_STEP.items():
+        at, pt = getattr(torch, act), getattr(torch, param)
+        cfg = SSMConfig(d_state=N, head_dim=P)
+        d_model = H * P // cfg.expand
+        K = cfg.d_conv - 1
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        params = ssm.init_ssm_params(gen, d_model, cfg, pt, device=dev)
+        cache = {n: torch.randn(t.shape, generator=gen, device=dev)
+                 .to(t.dtype) for n, t in ssm.init_ssm_cache(
+                     B, d_model, cfg, at, device=dev).items()}
+        x = torch.randn((B, 1, d_model), generator=gen, device=dev).to(at)
+        streams = ssm._streams(params, x)
+        want, want_c = sst.ssm_step_plain(params, streams, cache)
+        # the fp32 chain on fp32 copies of the same values
+        ref, ref_c = sst.ssm_step_plain(
+            {n: t.float() for n, t in params.items()},
+            tuple(t.float() for t in streams),
+            {n: t.clone().float() for n, t in cache.items()})
+        where = {n: t.data_ptr() for n, t in cache.items()}
+        before = sst.launches
+        got, got_c = ops.ssm_step(params, streams, cache)
+        torch.cuda.synchronize()
+        if (sst.launches != before + 1 or got_c is not cache
+                or {n: t.data_ptr() for n, t in got_c.items()} != where):
+            raise AssertionError(f"{name}: {sst.launches - before} "
+                                 f"launches, caches not updated in place")
+        errs = {}
+        for what, g, w, r, limit in (
+                ("out", got, want, ref, 2e-2),
+                ("state", got_c["state"], want_c["state"], ref_c["state"],
+                 1e-2)):
+            scale = r.abs().max().item()
+            kernel = (g.float() - r).abs().max().item() / scale
+            chain = (w.float() - r).abs().max().item() / scale
+            if not (torch.isfinite(g).all()
+                    and kernel <= min(limit, chain + 2 ** -8)):
+                raise AssertionError(f"{name} {what}: {kernel} of the "
+                                     f"largest value from the fp32 chain, "
+                                     f"the plain chain {chain}")
+            errs[what] = {"kernel": kernel, "plain": chain}
+        for n in ("conv_x", "conv_B", "conv_C"):
+            if not torch.equal(got_c[n], want_c[n]):
+                raise AssertionError(f"{name}: window {n} differs")
+        # timed and profiled without the wrapper's profiler range
+        call = lambda: sst.ssm_step_kernel_call(params, streams, cache)
+        plain = lambda: sst.ssm_step_plain(params, streams, cache)
+        profiled = prefill_device_profile(torch, call, SSM_STEP_PROFILE,
+                                          want=sst.DEVICE_KERNELS)
+        if not (profiled["kernel_launches"] == profiled["all_launches"]
+                == sst.DEVICE_KERNELS):
+            raise AssertionError(f"{name}: a call ran "
+                                 f"{profiled['all_launches']} device "
+                                 f"kernels, want the step's "
+                                 f"{sst.DEVICE_KERNELS}")
+        plain_profiled = prefill_device_profile(torch, plain, "")
+        bound = sst.min_bytes(B, H, P, N, K, at.itemsize, at.itemsize,
+                              pt.itemsize) / PEAK_BYTES * 1e3
+        dev_ms = device_ms(torch, call, SSM_STEP_PROFILE)
+        rows[name] = {
+            "shape": dict(B=B, H=H, P=P, N=N, d_conv=K + 1,
+                          activations=act, parameters=param),
+            "err_vs_fp32_chain_over_largest_value": errs,
+            "ms": cuda_ms(torch, call), "kernel_device_ms": dev_ms,
+            **{f"{part}_kernel_device_ms": device_ms(
+                torch, call, f"ssm_step_{part}_kernel")
+               for part in ("conv", "state", "norm")},
+            "device_kernels_per_call": profiled["all_launches"],
+            "bound_ms": bound, "bound_by": "bytes",
+            "bound_share_of_device_ms": bound / dev_ms if dev_ms else None,
+            "plain_ms": cuda_ms(torch, plain, runs=5, warmup=1),
+            "plain_device_ms": plain_profiled["all_device_ms"],
+            "plain_device_kernels_per_call": plain_profiled["all_launches"],
+            "library_ms": None}
+        emit({"phase": "ssm_step", "case": name, **rows[name]})
+        del params, cache, streams, want, want_c, got, got_c, x, ref, ref_c
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def moe_grouped_bound(pairs, touched, K, N, gated) -> tuple[float, str]:
     """Least time (ms) of one grouped product on an H100: its flops at the
     bf16 peak, or the touched experts' weights once and each pair's row in
@@ -1692,6 +1805,7 @@ def prefill_device_profile(torch, fn, kernel: str,
             break
     top = sorted(rows, key=lambda e: -e.device_time_total)[:8]
     return {"kernel_launches": sum(e.count for e in mine),
+            "all_launches": sum(e.count for e in rows),
             "kernel_device_ms": sum(e.device_time_total for e in mine) / 1e3,
             "all_device_ms": sum(e.device_time_total for e in rows) / 1e3,
             "top_device_ms": [(e.key[:100], e.count,
@@ -1748,17 +1862,20 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
     replays and the copies of the caches in and out).  Every run's tokens
     must equal the eager run's, and the caches the first graph decode
     writes back the eager run's within 1e-2 of their largest value."""
+    from repro_torch.kernels import ssm_step as sst
     from repro_torch.tree import leaves
     B = prompt.shape[0]
-    runs = {}
+    runs, ssm_launches = {}, {}
 
     def run(label, fresh):
         torch.cuda.synchronize()
+        before = sst.launches
         t0 = time.perf_counter()
         out, stats = server.decode(prompt[:, -1:], fresh, S, G,
                                    layer_budget=budget)
         torch.cuda.synchronize()
         runs[label] = (out, (time.perf_counter() - t0) * 1e3 / G)
+        ssm_launches[label] = sst.launches - before
         if (tuple(out.shape) != (B, G)
                 or stats.released_at_layer != [want_rel] * G
                 or stats.full_resolution != (G if budget is None else 0)):
@@ -1806,7 +1923,7 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
                  if (b, r) == (B, release))
     graph.start(prompt[:, -1:], S)
     replays = prefill_device_profile(
-        torch, lambda: [graph.replay() for _ in range(G)], "")
+        torch, lambda: [graph.replay() for _ in range(G)], SSM_STEP_PROFILE)
     eager = runs["eager"][0]
     for label, (out, _) in runs.items():
         if not torch.equal(out, eager):
@@ -1825,6 +1942,10 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
                 for t in leaves(next(iter(server._graph_caches.values())))),
             "replay_device_ms": replays["all_device_ms"] / G,
             "replay_top_device_ms": replays["top_device_ms"][:4],
+            # the Mamba2 step's calls in each decode (eager, the one that
+            # captures, replays only) and its device kernels in G replays
+            "ssm_step_launches": ssm_launches,
+            "replay_ssm_step_device_kernels": replays["kernel_launches"],
             "decode_device_ms_per_token": profiled["all_device_ms"] / G,
             "graph_caches_max_abs_diff_vs_eager": caches_diff,
             "graph_tokens_equal_eager": True,
@@ -2013,8 +2134,23 @@ def phase_serve_mamba(torch, dev):
     from repro_torch.kernels import ssd_scan as ss
     # two device kernels per scan (state pass, output pass): the profile
     # counts 96 of them for the 48 launches
+    from repro_torch.kernels import ssm_step as sst
+    from repro_torch.launch import graphs
     row = _serve(torch, dev, "mamba2-370m", ss, 48, ss.WGMMA,
                  SSD_WGMMA_PROFILE)
+    # the decode step kernel once a layer a token eagerly, at each call of
+    # the capture, never in a replay; its device kernels in each replay
+    G = SERVE["gen"]
+    replayed = sst.DEVICE_KERNELS * 48 * G
+    for label, dec in row["decode"].items():
+        want = {"eager": 48 * G, "graph_first": graphs.CAPTURE_CALLS * 48,
+                "graph": 0}
+        if (dec["ssm_step_launches"] != want
+                or dec["replay_ssm_step_device_kernels"] != replayed):
+            raise AssertionError(
+                f"{label}: ssm_step launched {dec['ssm_step_launches']}, "
+                f"want {want}; {dec['replay_ssm_step_device_kernels']} "
+                f"device kernels in {G} replays, want {replayed}")
     emit(dict(phase="serve_mamba2_370m", **row))
     return row
 
@@ -2086,6 +2222,7 @@ def phase_serve_granite(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_grouped_gemm as mg
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssm_step as sst
     from repro_torch.launch import graphs
     from repro_torch.launch.serve import ProgressiveServer
     from repro_torch.models import moe as moe_lib
@@ -2112,7 +2249,7 @@ def phase_serve_granite(torch, dev):
 
     def reset():
         torch.cuda.synchronize()
-        mg.launches = fa.launches = ss.launches = 0
+        mg.launches = fa.launches = ss.launches = sst.launches = 0
         fa.kernel_launches.update(dict.fromkeys(fa.KERNELS, 0))
         ss.kernel_launches.update(dict.fromkeys(ss.KERNELS, 0))
 
@@ -2143,8 +2280,10 @@ def phase_serve_granite(torch, dev):
         t0 = time.perf_counter()
         out, _ = server.decode(prompt[:, -1:], fresh, S, n)
         torch.cuda.synchronize()
+        ssm_launches.append(sst.launches)
         return out, (time.perf_counter() - t0) * 1e3 / n, mg.launches
 
+    ssm_launches = []
     eager, eager_ms, eager_launches = decode(False)
     captures = len(server.graph_log)
     first, first_ms, capture_launches = decode(True)
@@ -2162,16 +2301,36 @@ def phase_serve_granite(torch, dev):
         raise AssertionError(f"kernel 4 launched {eager_launches} in the "
                              f"eager decode, {capture_launches} at the "
                              f"capture, {replay_launches} in the replays")
+    # the Mamba2 decode step: once a Mamba layer a token eagerly, at each
+    # call of the capture, never in a replay
+    if ssm_launches != [mamba * n, graphs.CAPTURE_CALLS * mamba, 0]:
+        raise AssertionError(f"ssm_step launched {ssm_launches} in the "
+                             f"eager decode, at the capture and in the "
+                             f"replays, want {mamba * n}, "
+                             f"{graphs.CAPTURE_CALLS * mamba}, 0")
     graph = next(g for (_, b, r), g in server._graphs.items()
                  if (b, r) == (B, server.m))
-    graph.start(prompt[:, -1:], S)
+
+    def replays():
+        # from the prompt's position each time: a profile taken again
+        # must not run past the caches
+        graph.start(prompt[:, -1:], S)
+        for _ in range(n):
+            graph.replay()
+
     profiled = prefill_device_profile(
-        torch, lambda: [graph.replay() for _ in range(n)],
-        "moe_grouped_gemm_kernel", want=2 * L * n)
+        torch, replays, "moe_grouped_gemm_kernel", want=2 * L * n)
     if profiled["kernel_launches"] != 2 * L * n:
         raise AssertionError(f"{n} profiled replays ran "
                              f"{profiled['kernel_launches']} kernel-4 "
                              f"launches, want {2 * L * n}")
+    want_ssm = sst.DEVICE_KERNELS * mamba * n
+    ssm_profiled = prefill_device_profile(torch, replays, SSM_STEP_PROFILE,
+                                          want=want_ssm)
+    if ssm_profiled["kernel_launches"] != want_ssm:
+        raise AssertionError(f"{n} profiled replays ran "
+                             f"{ssm_profiled['kernel_launches']} ssm_step "
+                             f"device kernels, want {want_ssm}")
     if not torch.equal(first, replayed):
         raise AssertionError("two graph decodes from the same caches "
                              "differ")
@@ -2188,6 +2347,12 @@ def phase_serve_granite(torch, dev):
                "decode_capture": capture_launches,
                "decode_replays": replay_launches,
                "profiled_replays_device": profiled["kernel_launches"]},
+           "ssm_step_launches": {
+               "eager_decode": ssm_launches[0],
+               "decode_capture": ssm_launches[1],
+               "decode_replays": ssm_launches[2],
+               "profiled_replays_device": ssm_profiled["kernel_launches"]},
+           "replay_ssm_step_device_ms": ssm_profiled["kernel_device_ms"] / n,
            "capture_calls": graphs.CAPTURE_CALLS,
            "eager_ms_per_token": eager_ms,
            "first_graph_decode_ms_per_token": first_ms,
@@ -3728,6 +3893,7 @@ def main() -> int:
                         ("ssd_scan_vs_plain", phase_ssd_vs_plain),
                         ("ssd_backward_vs_plain",
                          phase_ssd_backward_vs_plain),
+                        ("ssm_step", phase_ssm_step),
                         ("serve_llama3_8b", phase_serve_llama),
                         ("serve_mamba2_370m", phase_serve_mamba),
                         ("serve_recurrentgemma_9b",
@@ -3939,6 +4105,43 @@ def main() -> int:
                 "ms", "kernel_device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")} for c, r in rows.items()
                 if c != "granite_decode"}})
+    if ("ssm_step" in results and "serve_mamba2_370m" in results
+            and "serve_granite_4_0_h_small" in results):
+        # kernel 5: the Mamba2 decode step, launched by the eager decodes
+        # and the captures of mamba2-370m's and granite's serving paths
+        rows = results["ssm_step"]
+        row = rows["mamba2_370m_decode"]
+        mamba = results["serve_mamba2_370m"]["decode"]["unbudgeted"]
+        granite = results["serve_granite_4_0_h_small"]["ssm_step_launches"]
+        by_path = {
+            "serve_mamba2_370m_eager_decode":
+                mamba["ssm_step_launches"]["eager"],
+            "serve_mamba2_370m_decode_capture":
+                mamba["ssm_step_launches"]["graph_first"],
+            "serve_granite_4_0_h_small_eager_decode":
+                granite["eager_decode"],
+            "serve_granite_4_0_h_small_decode_capture":
+                granite["decode_capture"]}
+        kernels.append({
+            "name": "ssm_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_step.cu",
+            "replaces": None, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "graph_replay_launches_by_path": {
+                "serve_mamba2_370m_decode":
+                    mamba["replay_ssm_step_device_kernels"],
+                "serve_granite_4_0_h_small_decode":
+                    granite["profiled_replays_device"]},
+            "err_vs_fp32_chain_over_largest_value": max(
+                e["kernel"] for r in rows.values()
+                for e in r["err_vs_fp32_chain_over_largest_value"].values()),
+            "ms": row["ms"], "kernel_device_ms": row["kernel_device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "other_shapes": {c: {k: r[k] for k in (
+                "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                "bound_by")} for c, r in rows.items()
+                if c != "mamba2_370m_decode"}})
     if kernels:
         emit({"kernels": kernels})
     if failed:

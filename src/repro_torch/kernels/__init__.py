@@ -22,6 +22,15 @@
                     its backward for the tensor-core kernel's inputs
                     (csrc/ssd_scan_bwd.cu on mma.sync; replaces no TPU
                     kernel)
+  moe_grouped_gemm  the dropless expert layer's products grouped by
+                    expert (csrc/moe_grouped_gemm.cu on mma.sync;
+                    replaces no TPU kernel)
+  ssm_step          the Mamba2 decode step between the input projections
+                    and out_proj: conv windows, state update and readout,
+                    gated norm, the caches updated in place (CUDA C++,
+                    csrc/ssm_step.cu, three device kernels on the CUDA
+                    cores; replaces no TPU kernel: the reference's decode
+                    step is plain jnp)
 ops.py holds the public wrappers, ref.py the NumPy oracles, _build.py the
 nvcc build step.
 """

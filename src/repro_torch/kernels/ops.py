@@ -33,7 +33,9 @@ each backward kernel call a ``repro.kernel.ssd_scan_backward`` range
 (``launch.graphs.span``).
 
 :func:`moe_grouped_gemm` (the dropless expert layer's products, no
-autograd) is a ``repro.kernel.moe_grouped_gemm`` range.
+autograd) is a ``repro.kernel.moe_grouped_gemm`` range, and
+:func:`ssm_step` (the Mamba2 decode step, no autograd) a
+``repro.kernel.ssm_step`` range.
 """
 
 from __future__ import annotations
@@ -47,11 +49,12 @@ from repro_torch.core import layering
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_grouped_gemm as mg
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.kernels import ssm_step as sst
 from repro_torch.kernels.layered_matmul import K_ALIGN, layered_matmul_kmajor
 from repro_torch.launch import graphs
 
 __all__ = ["layered_matmul", "layered_matmul_partials", "flash_attention",
-           "ssd_scan_fused", "moe_grouped_gemm"]
+           "ssd_scan_fused", "moe_grouped_gemm", "ssm_step"]
 
 
 def _planes_kmajor(x: torch.Tensor, m: int, d: int) -> torch.Tensor:
@@ -429,3 +432,21 @@ def moe_grouped_gemm(a: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
         if a.device.type == "cuda":
             return mg.moe_grouped_gemm_kernel_call(a, w, offsets, w_up)
         return mg.moe_grouped_gemm_plain(a, w, offsets, w_up)
+
+
+def ssm_step(params: dict, streams: tuple, cache: dict, *,
+             eps: float = 1e-6):
+    """The Mamba2 decode step between the five input projections
+    (``streams``: gate, x, B, C and dt of one token, each ``(B, 1,
+    width)``) and ``out_proj``: the conv windows, the state update and
+    readout, the gated norm (``eps``).  Returns ``(y (B, 1, d_in), caches
+    one token on)`` (``kernels.ssm_step``: on a plain CUDA tensor the
+    kernel, which updates ``cache``'s tensors in place and returns them; on
+    a CPU tensor, a DTensor or fake tensors the plain version, which
+    returns new ones)."""
+    with graphs.span("repro.kernel.ssm_step"):
+        xs = streams[1]
+        if (xs.device.type == "cuda" and not isinstance(xs, DTensor)
+                and not _fake(*streams)):
+            return sst.ssm_step_kernel_call(params, streams, cache, eps)
+        return sst.ssm_step_plain(params, streams, cache, eps)

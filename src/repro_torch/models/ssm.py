@@ -11,7 +11,10 @@ the hand-written CUDA kernel on the card) in its place.  With one B/C group (``N
 every call.
 
 Decode keeps a recurrent state (B, H, P, N) plus a (d_conv-1)-deep causal
-conv cache per stream; one token costs O(H*P*N).
+conv cache per stream; one token costs O(H*P*N).  Its step between the
+projections and ``out_proj`` is ``kernels.ops.ssm_step`` (the
+hand-written CUDA kernel on the card, which updates the caches in
+place).
 """
 
 from __future__ import annotations
@@ -26,8 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
-from repro_torch.launch.axes import (constrain, einsum, local_shards,
-                                     spec_of)
+from repro_torch.launch.axes import constrain, local_shards
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models.layers import init_linear, rms_norm
 
@@ -221,49 +223,13 @@ def ssm_block(params: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig,
 
 def ssm_decode_step(params: dict, x: torch.Tensor, cache: dict,
                     d_model: int, cfg: SSMConfig, eps: float = 1e-6):
-    """One-token Mamba2 step. x: (B, 1, D); returns (y (B,1,D), new cache).
-    ``eps`` is the gated norm's."""
-    d_in = cfg.d_inner(d_model)
-    H, N, P = cfg.num_heads(d_model), cfg.d_state, cfg.head_dim
-    gate, xs, Bm, Cm, dtr = _streams(params, x)
-    cd = x.dtype
+    """One-token Mamba2 step. x: (B, 1, D); returns (y (B,1,D), caches).
 
-    win_x = torch.cat([cache["conv_x"], xs], dim=1)     # (B, K+1, d_in)
-    win_B = torch.cat([cache["conv_B"], Bm], dim=1)
-    win_C = torch.cat([cache["conv_C"], Cm], dim=1)
-
-    def conv_step(win, w, b):
-        out = einsum("bkc,kc->bc", win, params[w].to(cd))
-        return F.silu(out + params[b].to(cd))[:, None, :]
-
-    xs = conv_step(win_x, "conv_x", "conv_x_b")
-    Bm = conv_step(win_B, "conv_B", "conv_B_b")
-    Cm = conv_step(win_C, "conv_C", "conv_C_b")
-
-    dt = F.softplus(dtr.to(torch.float32)
-                    + params["dt_bias"][None, None, :])[:, 0]   # (B, H)
-    A = -torch.exp(params["A_log"])
-    Bsz = x.shape[0]
-    xh = xs.reshape(Bsz, H, P).to(torch.float32)
-    Bh = Bm.reshape(Bsz, NGROUPS, N).repeat_interleave(H // NGROUPS, 1)
-    Ch = Cm.reshape(Bsz, NGROUPS, N).repeat_interleave(H // NGROUPS, 1)
-
-    dA = torch.exp(dt * A[None, :])                            # (B, H)
-    dBx = einsum("bh,bhn,bhp->bhpn", dt, Bh.to(torch.float32), xh)
-    state = cache["state"] * dA[:, :, None, None] + dBx
-    y = einsum("bhpn,bhn->bhp", state, Ch.to(torch.float32))
-    y = y + params["D"][None, :, None] * xh
-    if isinstance(y, DTensor):
-        # (B, H, P) -> (B, 1, d_in) shard by shard: heads outermost, so
-        # each rank's heads flatten into its own slice of d_in
-        b, h, _ = spec_of(y)
-        y = local_shards(lambda t: t.reshape(t.shape[0], 1, -1),
-                         y.device_mesh, (y,), ((b, h, None),),
-                         ((Bsz, 1, d_in), (b, None, h)))
-    else:
-        y = y.reshape(Bsz, 1, d_in)
-    y = y.to(x.dtype)
-    y = rms_norm(y * F.silu(gate), params["norm_scale"], eps)
-    out = y @ params["out_proj"].to(x.dtype)
-    return out, {"conv_x": win_x[:, 1:], "conv_B": win_B[:, 1:],
-                 "conv_C": win_C[:, 1:], "state": state}
+    Between the projections and ``out_proj`` it runs
+    ``kernels.ops.ssm_step``: on the card one kernel call, which updates
+    ``cache``'s tensors in place and returns them (so ``hidden_step``
+    copies none); elsewhere the plain chain, which returns new ones.
+    ``eps`` is the gated norm's.  The widths come from the projections'
+    shapes; ``d_model`` and ``cfg`` keep the JAX package's signature."""
+    y, cache = ops.ssm_step(params, _streams(params, x), cache, eps=eps)
+    return y @ params["out_proj"].to(x.dtype), cache

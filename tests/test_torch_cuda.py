@@ -586,6 +586,154 @@ def test_ssm_block_bf16_on_card_matches_host(rng, hopper, S):
                                atol=1e-2, rtol=1e-2)
 
 
+#: the Mamba2 decode step kernel's cases (B, H, P, N, activations,
+#: parameters): mamba2-370m's and granite-4.0-h-small's decode at their
+#: cells' batches, and the smoke configs' P = N = 16 in fp32 (as
+#: test_smoke_model_on_card_matches_host runs them) and bf16 (GRAPH_ARCHS)
+SSM_STEP_CASES = [(64, 32, 64, 128, "bfloat16", "float32"),
+                  (32, 128, 64, 128, "bfloat16", "bfloat16"),
+                  (2, 8, 16, 16, "float32", "float32"),
+                  (2, 8, 16, 16, "bfloat16", "float32")]
+
+
+def _ssm_step_layer(B, H, P, N, act, param, dev, seed=0):
+    """One Mamba2 layer's parameters (biases and norm scales drawn, so
+    every term counts), random caches and a draw of one token's five
+    projections (``ssm._streams``' order) in the activations' type."""
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.models import ssm
+    cfg = SSMConfig(d_state=N, head_dim=P)
+    d_model = H * P // cfg.expand
+    at = getattr(torch, act)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = ssm.init_ssm_params(gen, d_model, cfg, getattr(torch, param),
+                                 device=dev)
+    for n in ("conv_x_b", "conv_B_b", "conv_C_b", "norm_scale"):
+        params[n] = (0.1 * torch.randn(params[n].shape, generator=gen,
+                                       device=dev)).to(params[n].dtype)
+    cache = {n: torch.randn(t.shape, generator=gen, device=dev).to(t.dtype)
+             for n, t in ssm.init_ssm_cache(B, d_model, cfg, at,
+                                            device=dev).items()}
+
+    def streams():
+        return tuple(torch.randn((B, 1, w), generator=gen, device=dev).to(at)
+                     for w in (H * P, H * P, N, N, H))
+
+    return params, cache, streams
+
+
+def _worst(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("B,H,P,N,act,param", SSM_STEP_CASES)
+def test_ssm_step_kernel_matches_plain(hopper, B, H, P, N, act, param):
+    """16 chained steps through ``ops.ssm_step`` (the kernel) against the
+    plain chain in the same types, each on its own caches and both fed
+    the same projections, and both against the fp32 chain on fp32 copies
+    of the same values.  Each call is one launch of three device kernels
+    and hands back the caches it was given, updated in place.  The
+    windows hold the last inputs: equal to the plain chain's bit for bit.
+    In fp32 the two differ by their sums' order: output and state within
+    1e-5 of their largest value.  In bf16 the kernel rounds where the
+    chain does (conv outputs, y, the output) and keeps the rest in fp32:
+    its distance from the fp32 chain is no more than the plain chain's
+    plus one bf16 step (2^-8) of the largest value, and within 2e-2 for
+    the output and 1e-2 for the state, whose inputs carry the rounded
+    conv outputs for 16 steps."""
+    from repro_torch.kernels import ssm_step as sst
+    params, cache, streams = _ssm_step_layer(B, H, P, N, act, param, hopper)
+    plain_c = {n: t.clone() for n, t in cache.items()}
+    ref_c = {n: t.clone().float() for n, t in cache.items()}
+    ref_p = {n: t.float() for n, t in params.items()}
+    where = {n: t.data_ptr() for n, t in cache.items()}
+    worst = {"out": [0.0, 0.0], "state": [0.0, 0.0]}
+    for _ in range(16):
+        s = streams()
+        before = sst.launches
+        got, got_c = ops.ssm_step(params, s, cache)
+        assert sst.launches == before + 1
+        assert got_c is cache and {n: t.data_ptr() for n, t in
+                                   cache.items()} == where
+        want, plain_c = sst.ssm_step_plain(params, s, plain_c)
+        ref, ref_c = sst.ssm_step_plain(ref_p, tuple(t.float() for t in s),
+                                        ref_c)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        worst["out"] = [max(worst["out"][0], _worst(got, ref)),
+                        max(worst["out"][1], _worst(want, ref))]
+        if act == "float32":
+            assert _worst(got, want) <= 1e-5
+    worst["state"] = [_worst(cache["state"], ref_c["state"]),
+                      _worst(plain_c["state"], ref_c["state"])]
+    print(f"B {B} H {H} P {P} N {N} {act}: kernel, plain chain against "
+          f"fp32: {worst}")
+    for n in ("conv_x", "conv_B", "conv_C"):
+        assert torch.equal(cache[n], plain_c[n])
+    if act == "float32":
+        assert _worst(cache["state"], plain_c["state"]) <= 1e-5
+        return
+    for what, limit in (("out", 2e-2), ("state", 1e-2)):
+        kernel, plain = worst[what]
+        assert kernel <= min(limit, plain + 2 ** -8), (what, worst)
+
+
+def test_ssm_step_runs_its_device_kernels_and_the_same_bits(hopper):
+    """At granite's decode shape: a call runs the step's three device
+    kernels and nothing else, and a second call on a copy of the same
+    caches gives the same bits (the norm's sums run in a fixed order, as
+    a graph replay must equal the eager step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ssm_step as sst
+    params, cache, streams = _ssm_step_layer(32, 128, 64, 128, "bfloat16",
+                                             "bfloat16", hopper)
+    s = streams()
+    sst.ssm_step_kernel_call(params, s, {n: t.clone()
+                                         for n, t in cache.items()})
+    copy = {n: t.clone() for n, t in cache.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got, _ = sst.ssm_step_kernel_call(params, s, cache)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_time_total > 0}
+    assert all("ssm_step_" in k for k in kernels), kernels
+    assert sum(kernels.values()) == sst.DEVICE_KERNELS, kernels
+    again, _ = sst.ssm_step_kernel_call(params, s, copy)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    for n in cache:
+        assert torch.equal(cache[n], copy[n]), n
+
+
+def test_ssm_step_kernel_rejects_what_it_cannot_take(hopper):
+    """A state width or head dim the kernel does not take, a state not in
+    fp32, caches it cannot update in place and a float64 stream raise on
+    the host, through ``ops.ssm_step`` too; nothing is launched."""
+    from repro_torch.kernels import ssm_step as sst
+    before = sst.launches
+    for B, H, P, N, what in ((2, 4, 16, 8, "d_state"),
+                             (2, 4, 16, 256, "d_state"),
+                             (1, 1, 512, 16, "head_dim")):
+        params, cache, streams = _ssm_step_layer(B, H, P, N, "bfloat16",
+                                                 "float32", hopper)
+        with pytest.raises(ValueError, match=what):
+            ops.ssm_step(params, streams(), cache)
+    params, cache, streams = _ssm_step_layer(2, 4, 16, 16, "bfloat16",
+                                             "float32", hopper)
+    with pytest.raises(TypeError, match="float32 state"):
+        ops.ssm_step(params, streams(), dict(cache,
+                                             state=cache["state"].double()))
+    strided = cache["conv_x"].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssm_step(params, streams(), dict(cache, conv_x=strided))
+    with pytest.raises(TypeError):
+        sst.ssm_step_kernel_call(params, tuple(t.double() for t in
+                                               streams()), cache)
+    assert sst.launches == before
+
+
 @pytest.mark.parametrize("arch", [
     "llama3-8b", "mamba2-370m", "yi-6b", "glm4-9b", "starcoder2-7b",
     "recurrentgemma-9b", "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b"])

@@ -207,6 +207,52 @@ def test_ssm_prefill_pads_to_the_chunk(rng):
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ["mamba2-370m", "granite-4.0-h-small"])
+def test_ssm_decode_step_on_the_cpu_runs_the_plain_step(rng, monkeypatch,
+                                                        arch, dtype):
+    """On CPU tensors ``kernels.ops.ssm_step`` runs ``ssm_step_plain``
+    and never the kernel, and ``ssm_decode_step`` is that plain step
+    between ``_streams`` and ``out_proj`` bit for bit, over three chained
+    steps of the smoke config's Mamba2 layer: new cache tensors each
+    step, the given ones untouched."""
+    from repro_torch.kernels import ssm_step as sst
+    from repro_torch.models import ssm
+    cfg = treg.get_smoke_config(arch)
+    dt = getattr(torch, dtype)
+    plain, calls = sst.ssm_step_plain, []
+
+    def counted(*args):
+        calls.append(args)
+        return plain(*args)
+
+    def kernel(*args):
+        raise AssertionError("the kernel ran on CPU tensors")
+
+    monkeypatch.setattr(sst, "ssm_step_plain", counted)
+    monkeypatch.setattr(sst, "ssm_step_kernel_call", kernel)
+    gen = torch.Generator().manual_seed(0)
+    params = ssm.init_ssm_params(gen, cfg.d_model, cfg.ssm, torch.float32,
+                                 device="cpu")
+    cache = {n: torch.from_numpy(rng.normal(size=t.shape)).to(t.dtype)
+             for n, t in ssm.init_ssm_cache(2, cfg.d_model, cfg.ssm, dt,
+                                            device="cpu").items()}
+    eps = TT._ssm_eps(cfg)
+    for step in range(3):
+        x = torch.from_numpy(rng.normal(size=(2, 1, cfg.d_model))).to(dt)
+        given = {n: t.clone() for n, t in cache.items()}
+        got, new = ssm.ssm_decode_step(params, x, cache, cfg.d_model,
+                                       cfg.ssm, eps=eps)
+        want, want_c = plain(params, ssm._streams(params, x), given, eps)
+        assert len(calls) == step + 1
+        assert torch.equal(got, want @ params["out_proj"].to(dt))
+        assert got.dtype == dt
+        for n, t in cache.items():
+            assert new[n] is not t and torch.equal(t, given[n]), n
+            assert torch.equal(new[n], want_c[n]), n
+        cache = new
+
+
 @pytest.mark.parametrize("init", [False, True])
 def test_plain_ssd_scan_matches_jax(rng, init):
     """``models.ssm.ssd_scan``, the plain scan with the reference's
