@@ -8,7 +8,7 @@ builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 main paths and checks what comes out:
 
 1. environment: card name and power limit, torch/CUDA versions, build time;
-2. the four layered int8 matmul kernels against their plain PyTorch
+2. the two layered int8 matmul kernels against their plain PyTorch
    version on the card, bit-exactly: the tensor-core (wgmma) kernel for
    m <= 3 at the llama3-8b LM-head contraction (K=4096, M=64, N=128256), a
    square 4096^3 and a ragged m=3 case, the grouped tensor-core kernel
@@ -17,10 +17,7 @@ main paths and checks what comes out:
    which kernel launched, with CUDA-event medians of the kernel, the plain
    version and (as a reference point only) m^2 int8 ``torch._int_mm``
    calls, the kernel's device time from ``torch.profiler``, and the
-   kernel's bound; beside each, the earlier routes at that shape (the
-   mma.sync kernel up to m=4, the grouped mma.sync kernel past m=3),
-   reached through ``_launch(kernel=...)`` and held against the plain
-   version before they are timed;
+   kernel's bound;
 3. main path 1, ``kernels.ops.layered_matmul`` at the LM-head contraction
    (launch counts reset before it and read after it: one launch, of the
    tensor-core kernel; then the medians of the whole wrapper and of its
@@ -157,17 +154,8 @@ main paths and checks what comes out:
    every step's loss and gradient norm and the final parameters and
    state bit-equal to the eager run's, step wall ms beside the eager
    run's, and a profiled replay that runs the kernel 24, 48 and 12 times;
-10. ``cells_four_ranks_host``: the sharded cells that failed on this
-   machine's torch before the port laid out their pads, flattens and
-   decode masks shard by shard (ROADMAP F5), llama3-8b, qwen2-moe-a2.7b,
-   mamba2-370m, recurrentgemma-9b (serve and train), whisper-tiny and
-   internvl2-1b on (data 2, model 2) and llama3-8b, yi-6b and
-   llama4-maverick on (1, 4), at smoke width in fp32 on four spawned gloo
-   ranks on the host CPU, each rank's outputs within 1e-4 of the
-   one-rank cell's (``tests/_torch_dist.py``, as
-   ``tests/test_torch_cells_ranks.py``); then the mesh layer, on one rank
-   of a real NCCL group, where
-   every collective is trivial and the card's work is real: the sharding
+10. the mesh layer, on one rank of a real NCCL group, where every
+   collective is trivial and the card's work is real: the sharding
    rules of all ten configs at full width on stand-ins of the production
    meshes (16 x 16 and 2 x 16 x 16; bytes per device computed, not
    measured) and the one-rank card mesh; mamba2-370m at full width saved
@@ -249,7 +237,6 @@ PEAK_BYTES = 3.35e12
 
 #: Every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu).
 KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul_wgmma_grouped",
-                  "layered_matmul", "layered_matmul_grouped",
                   "flash_attention",
                   "flash_attention_wgmma",
                   "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma",
@@ -468,12 +455,10 @@ def phase_environment(torch, dev):
     return smi
 
 
-#: torch.profiler name substrings of the four layered-matmul kernels
+#: torch.profiler name substrings of the two layered-matmul kernels
 LM_PROFILE = {"layered_matmul_wgmma": "layered_matmul_wgmma_kernel",
               "layered_matmul_wgmma_grouped":
-                  "layered_matmul_wgmma_grouped_kernel",
-              "layered_matmul": "layered_matmul_kernel",
-              "layered_matmul_grouped": "layered_matmul_grouped_kernel"}
+                  "layered_matmul_wgmma_grouped_kernel"}
 
 
 def phase_kernel_vs_plain(torch, dev):
@@ -481,19 +466,16 @@ def phase_kernel_vs_plain(torch, dev):
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
-    # name: (shape, the kernel it launches, the earlier routes timed beside
-    # it)
-    for name, s, kernel, earlier in (
-            ("llama3_8b_head", HEAD, lm.WGMMA, (lm.MMA_SYNC,)),
-            ("square_4096", SQUARE, lm.WGMMA, (lm.MMA_SYNC,)),
-            ("ragged_m3", RAGGED, lm.WGMMA, ()),
-            ("llama3_8b_head_m4", HEAD_M4, lm.WGMMA_GROUPED,
-             (lm.MMA_SYNC, lm.GROUPED)),
-            ("square_4096_m4", SQUARE_M4, lm.WGMMA_GROUPED,
-             (lm.MMA_SYNC, lm.GROUPED)),
-            ("square_4096_m5", SQUARE_M5, lm.WGMMA_GROUPED, (lm.GROUPED,)),
-            ("square_4096_m8", SQUARE_M8, lm.WGMMA_GROUPED, (lm.GROUPED,)),
-            ("ragged_m8", RAGGED_M8, lm.WGMMA_GROUPED, (lm.GROUPED,))):
+    # name: (shape, the kernel it launches)
+    for name, s, kernel in (
+            ("llama3_8b_head", HEAD, lm.WGMMA),
+            ("square_4096", SQUARE, lm.WGMMA),
+            ("ragged_m3", RAGGED, lm.WGMMA),
+            ("llama3_8b_head_m4", HEAD_M4, lm.WGMMA_GROUPED),
+            ("square_4096_m4", SQUARE_M4, lm.WGMMA_GROUPED),
+            ("square_4096_m5", SQUARE_M5, lm.WGMMA_GROUPED),
+            ("square_4096_m8", SQUARE_M8, lm.WGMMA_GROUPED),
+            ("ragged_m8", RAGGED_M8, lm.WGMMA_GROUPED)):
         K, M, N, m, d = s["K"], s["M"], s["N"], s["m"], s["d"]
         a = random_ints(torch, gen, m, d, (K, M), dev)
         b = random_ints(torch, gen, m, d, (K, N), dev)
@@ -519,24 +501,7 @@ def phase_kernel_vs_plain(torch, dev):
                                  f"version by {err}")
         bound_ms, bound_by = layered_bound(K, M, N, m)
         row = {"shape": s, "kernel": kernel, "max_abs_err": err,
-               "bound_ms": bound_ms, "bound_by": bound_by, "earlier": {}}
-        for old in earlier:
-            # an earlier route at this shape, reached through _launch, held
-            # against the plain version first; the slow grouped mma.sync
-            # kernel with fewer timed runs
-            old_call = lambda k=old: lm._launch(pa, pb, m, kernel=k)
-            old_err = max_err(old_call())
-            if old_err != 0:
-                raise AssertionError(f"{name}: {old} differs from plain "
-                                     f"version by {old_err}")
-            old_dev_ms = device_ms(torch, old_call, LM_PROFILE[old])
-            row["earlier"][old] = {
-                "max_abs_err": old_err,
-                "ms": cuda_ms(torch, old_call,
-                              runs=5 if old == lm.GROUPED else TIMED_RUNS),
-                "kernel_device_ms": old_dev_ms,
-                "bound_share_of_device_ms": (bound_ms / old_dev_ms
-                                             if old_dev_ms else None)}
+               "bound_ms": bound_ms, "bound_by": bound_by}
         del got, want
         ms = cuda_ms(torch, call)
         dev_ms = device_ms(torch, call, LM_PROFILE[kernel])
@@ -2426,74 +2391,6 @@ def phase_examples(torch, dev):
     return rows
 
 
-#: the four-rank cells that failed on the card machine's torch (2.11)
-#: before the prefill's cache pad, the RG-LRU's conv window, the SSM
-#: decode's flatten and the decode attention's mask were laid out shard
-#: by shard (ROADMAP F5): (data, model), arch, parts of ``cell_run``
-FOUR_RANK_CELLS = (
-    [((2, 2), a, ("serve",)) for a in ("llama3-8b", "qwen2-moe-a2.7b",
-                                       "mamba2-370m", "whisper-tiny",
-                                       "internvl2-1b")]
-    + [((2, 2), "recurrentgemma-9b", ("serve", "train"))]
-    + [((1, 4), a, ("serve",)) for a in ("llama3-8b", "yi-6b",
-                                         "llama4-maverick-400b-a17b")])
-CELL_KINDS = {"serve": ("prefill", "decode"), "train": ("train",)}
-
-
-def phase_cells_four_ranks_host(torch, dev):
-    """The sharded cells of :data:`FOUR_RANK_CELLS` on four spawned gloo
-    ranks on the host CPU (smoke width, fp32; three spawns at a time),
-    each rank's outputs against the one-rank cell computed in this
-    process meanwhile, on a gloo group of its own: the check of
-    ``tests/test_torch_cells_ranks.py`` (``tests/_torch_dist.py``'s
-    ``cell_run`` and ``cell_mismatches``, 1e-4 of each leaf's scale)
-    under this machine's torch.  Needs no process group before it and
-    leaves none."""
-    import concurrent.futures
-    import tempfile
-
-    import torch.distributed as dist
-    sys.path.insert(0, str(HERE / "tests"))
-    import _torch_dist
-    if dist.is_initialized():
-        raise AssertionError("a process group is already up")
-    t0 = time.perf_counter()
-    rows = []
-    with tempfile.TemporaryDirectory() as tmp, \
-            concurrent.futures.ThreadPoolExecutor(3) as pool:
-        dirs = [pathlib.Path(tmp) / str(i)
-                for i in range(len(FOUR_RANK_CELLS))]
-        for d in dirs:
-            d.mkdir()
-        spawned = [pool.submit(_torch_dist.run_ranks, d, 4,
-                               _torch_dist.cell_run, arch, *mesh, parts)
-                   for d, (mesh, arch, parts) in zip(dirs, FOUR_RANK_CELLS)]
-        want = {}
-        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                                world_size=1)
-        try:
-            for arch in dict.fromkeys(a for _, a, _ in FOUR_RANK_CELLS):
-                want[arch] = _torch_dist.cell_run(0, 1, arch, 1, 1)
-        finally:
-            dist.destroy_process_group()
-        for (mesh, arch, parts), job in zip(FOUR_RANK_CELLS, spawned):
-            runs = job.result()
-            for rank, got in enumerate(runs):
-                for kind in (k for p in parts for k in CELL_KINDS[p]):
-                    bad = _torch_dist.cell_mismatches(got[kind],
-                                                      want[arch][kind])
-                    if bad:
-                        raise AssertionError(f"{mesh} {arch} rank {rank} "
-                                             f"{kind}: {bad[:5]}")
-            rows.append({"mesh": list(mesh), "arch": arch,
-                         "parts": list(parts), "ranks": 4,
-                         "coords": [r["coords"] for r in runs]})
-    row = {"torch": torch.__version__, "cells": rows,
-           "wall_seconds": time.perf_counter() - t0}
-    emit({"phase": "cells_four_ranks_host", **row})
-    return row
-
-
 class plain_kernels:
     """While open, the differentiable wrappers of ``kernels.ops`` run the
     plain versions of the flash and SSD kernels on the card (a check only,
@@ -3910,9 +3807,6 @@ def main() -> int:
                         ("serve_deadline", phase_serve_deadline),
                         ("examples", phase_examples),
                         ("train", phase_train),
-                        # before any NCCL group: a gloo group of its own
-                        ("cells_four_ranks_host",
-                         phase_cells_four_ranks_host),
                         ("sharding_rules", phase_sharding_rules),
                         ("elastic_restore_mamba2_370m",
                          phase_elastic_restore),
@@ -3955,9 +3849,7 @@ def main() -> int:
     if "kernel_vs_plain" in results and "layered_main_path" in results:
         lm_rows = results["kernel_vs_plain"]
         head = lm_rows["llama3_8b_head"]
-        errs = [e for row in lm_rows.values()
-                for e in [row["max_abs_err"]]
-                + [r["max_abs_err"] for r in row["earlier"].values()]]
+        errs = [row["max_abs_err"] for row in lm_rows.values()]
         # launches on the two main paths (the head at m = 2 and m = 4),
         # counted from 0 before each, by source
         paths = results["layered_main_path"]
@@ -3967,9 +3859,8 @@ def main() -> int:
                 by_source[src] = by_source.get(src, 0) + n
         kernels.append({
             "name": "layered_matmul", "route": "cuda",
-            # the two routed sources first, then the earlier routes
             "source": ", ".join(f"src/repro_torch/kernels/csrc/{src}.cu"
-                                for src in KERNEL_SOURCES[:4]),
+                                for src in KERNEL_SOURCES[:2]),
             "replaces": "src/repro/kernels/layered_matmul.py:71",
             "launches": sum(by_source.values()),
             "launches_by_path": {p: sum(n.values()) for p, n in paths.items()},

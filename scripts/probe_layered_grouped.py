@@ -3,7 +3,7 @@
     python3 scripts/probe_layered_grouped.py [--check]
 
 Run from the repository root on a machine with an sm_90 card and ``nvcc``.
-It builds the four layered-matmul sources and prints JSON lines:
+It builds the two layered-matmul sources and prints JSON lines:
 
 - ``build``: ptxas's registers and spills of every kernel, its
   performance notes (C75xx) counted, and the grouped kernel's highest
@@ -15,9 +15,8 @@ It builds the four layered-matmul sources and prints JSON lines:
   the mismatches, not the first one only;
 - ``timing`` (not with ``--check``): at the llama3-8b head with m = 4
   and at 4096^3 with m = 4, 5 and 8, each layout's CUDA-event ms and
-  profiler device ms beside the bound, the earlier routes
-  (``layered_matmul`` at m = 4, ``layered_matmul_grouped``), each held
-  against the plain version first, and m^2 ``torch._int_mm`` products.
+  profiler device ms beside the bound, and m^2 ``torch._int_mm``
+  products.
   Layouts are timed in the order a, b, b, a.
 
 The last line is ``{"ok": true}`` when every check held.
@@ -76,8 +75,7 @@ def main() -> int:
         want = lm.layered_matmul_plain(pa, pb, m=m)
         for label, layout in LAYOUTS.items():
             try:
-                got = lm._launch(pa, pb, m, kernel=lm.WGMMA_GROUPED,
-                                 layout=layout)
+                got = lm._launch(pa, pb, m, layout=layout)
                 lm.check_faults()
                 diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
                 if diff.max().item() != 0:
@@ -112,10 +110,9 @@ def main() -> int:
         bound_ms, bound_by = cs.layered_bound(K, M, N, m)
         row = {"shape": s, "bound_ms": bound_ms, "bound_by": bound_by,
                "routed_layout": lm.grouped_layout(m, M),
-               "layouts": {}, "earlier": {}}
+               "layouts": {}}
         for label in [*LAYOUTS, *reversed(LAYOUTS)]:
-            call = (lambda v=LAYOUTS[label]: lm._launch(
-                pa, pb, m, kernel=lm.WGMMA_GROUPED, layout=v))
+            call = lambda v=LAYOUTS[label]: lm._launch(pa, pb, m, layout=v)
             if not torch.equal(call(), want):
                 raise AssertionError(f"{name} {label}: differs from plain")
             dev_ms = cs.device_ms(torch, call, "wgmma_grouped_kernel")
@@ -125,16 +122,6 @@ def main() -> int:
         for r in row["layouts"].values():
             r["bound_share_of_device_ms"] = [bound_ms / t
                                              for t in r["device_ms"] if t]
-        earlier = [lm.GROUPED] + ([lm.MMA_SYNC] if m <= 4 else [])
-        for kernel in earlier:
-            call = lambda k=kernel: lm._launch(pa, pb, m, kernel=k)
-            if not torch.equal(call(), want):
-                raise AssertionError(f"{name} {kernel}: differs from plain")
-            dev_ms = cs.device_ms(torch, call, cs.LM_PROFILE[kernel])
-            row["earlier"][kernel] = {
-                "ms": cs.cuda_ms(torch, call, runs=5), "device_ms": dev_ms,
-                "bound_share_of_device_ms": bound_ms / dev_ms if dev_ms
-                else None}
         bt = pb[0].T
         row["int_mm_x_m2_ms"] = m * m * cs.cuda_ms(
             torch, lambda: torch._int_mm(pa[0], bt))

@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
   layered_matmul    the paper's mini-job grid as one fused int8 pass
-                    (CUDA C++, two kernels routed by the plane count:
-                    csrc/layered_matmul_wgmma.cu, m <= 3 on int8 wgmma
-                    with TMA; csrc/layered_matmul.cu, m = 4 on int8
-                    mma.sync; replaces the TPU kernel in
-                    repro/kernels/layered_matmul.py)
+                    (CUDA C++, two kernels routed by the plane count,
+                    both int8 wgmma fed by TMA:
+                    csrc/layered_matmul_wgmma.cu, m <= 3;
+                    csrc/layered_matmul_wgmma_grouped.cu, m >= 4, a group
+                    of layers a consumer warpgroup; replaces the TPU
+                    kernel in repro/kernels/layered_matmul.py)
   flash_attention   online-softmax attention, causal skip, window, GQA
                     (CUDA C++, three kernels routed by dtype and head dim:
                     csrc/flash_attention_wgmma.cu, bf16 dh 64/128, and

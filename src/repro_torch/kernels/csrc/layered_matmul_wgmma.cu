@@ -3,8 +3,7 @@
 //
 // Replaces the TPU kernel `layered_matmul_kernel_call`
 // (src/repro/kernels/layered_matmul.py:71, body `_kernel` :39) for up to
-// three planes, and with it the mma.sync kernel beside it
-// (layered_matmul.cu); four planes and more go to
+// three planes; four planes and more go to
 // layered_matmul_wgmma_grouped.cu.  Same function: from int8 digit
 // planes A_i (M x K) and B_j (N x K), both K-contiguous, it writes the
 // L = 2m-1 exact int32 anti-diagonal partials

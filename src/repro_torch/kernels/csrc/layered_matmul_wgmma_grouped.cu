@@ -5,9 +5,7 @@
 // Replaces the TPU kernel `layered_matmul_kernel_call`
 // (src/repro/kernels/layered_matmul.py:71, body `_kernel` :39) for m >= 4,
 // where the kernel beside it (layered_matmul_wgmma.cu, m <= 3) runs out of
-// registers; it takes that route over from the mma.sync kernels
-// (layered_matmul.cu at m = 4, layered_matmul_grouped.cu past it).  Same
-// function: from int8 digit planes A_i (M x K) and B_j (N x K), both
+// registers.  Same function: from int8 digit planes A_i (M x K) and B_j (N x K), both
 // K-contiguous, it writes the L exact int32 anti-diagonal partials
 //
 //     out[l] = sum_{i+j = 2m-2-l} A_i B_j^T          (unscaled, per layer)

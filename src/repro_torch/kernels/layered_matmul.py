@@ -1,4 +1,4 @@
-"""Layered-resolution int8 digit-plane matmul: four CUDA kernels + plain
+"""Layered-resolution int8 digit-plane matmul: two CUDA kernels + plain
 version.
 
 Port of the TPU kernel ``layered_matmul_kernel_call``
@@ -31,14 +31,7 @@ kernels, chosen by :func:`kernel_for` from ``(m, M, N, K)``, both int8
   give-up sets a device word that :func:`check_faults` reads, and raises
   for.
 
-The two earlier routes stay built and reachable through
-``_launch(..., kernel=...)``, so they can be held against the plain
-version and timed beside the kernels that replaced them: ``layered_matmul``
-(``csrc/layered_matmul.cu``, int8 ``mma.sync``, m <= 4, one CTA per 64x64
-tile) and ``layered_matmul_grouped`` (``csrc/layered_matmul_grouped.cu``,
-``mma.sync``, any m, at most seven layers a CTA, no prefetch).
-
-All four need K-contiguous planes, ``(m, M, K)`` and ``(m, N, K)``, with K a
+Both need K-contiguous planes, ``(m, M, K)`` and ``(m, N, K)``, with K a
 multiple of :data:`K_ALIGN`, so :func:`layered_matmul_kmajor` takes that
 layout (padding K with zeros where a caller's planes lack it) and
 :func:`layered_matmul_kernel_call` keeps the reference's ``(m, K, M)`` /
@@ -66,23 +59,20 @@ __all__ = ["GROUP_LAYERS", "K_ALIGN", "KERNELS", "KernelFault",
            "layered_matmul_kernel_call", "layered_matmul_kmajor",
            "layered_matmul_plain", "launches"]
 
-#: The kernels read K in 16-byte rows (TMA's stride unit, the mma.sync
-#: kernel's vector): the contraction length of the planes they are given
+#: The kernels read K in 16-byte rows (TMA's stride unit): the contraction
+#: length of the planes they are given
 #: and their start addresses are multiples of this.
 K_ALIGN = 16
 
-#: The four kernels, by source name (``csrc/<name>.cu``): the two routes
-#: :func:`kernel_for` picks, then the two earlier ones.
+#: The two kernels, by source name (``csrc/<name>.cu``), as
+#: :func:`kernel_for` picks them.
 WGMMA = "layered_matmul_wgmma"
 WGMMA_GROUPED = "layered_matmul_wgmma_grouped"
-MMA_SYNC = "layered_matmul"
-GROUPED = "layered_matmul_grouped"
-KERNELS = (WGMMA, WGMMA_GROUPED, MMA_SYNC, GROUPED)
+KERNELS = (WGMMA, WGMMA_GROUPED)
 
-#: Most planes the two register-resident kernels are built for; more go
-#: to :data:`WGMMA_GROUPED` (or, asked for, :data:`GROUPED`).
+#: Most planes the register-resident :data:`WGMMA` is built for; more go
+#: to :data:`WGMMA_GROUPED`.
 WGMMA_MAX_PLANES = 3
-MMA_SYNC_MAX_PLANES = 4
 #: The most layers a group of :data:`WGMMA_GROUPED` holds: a consumer
 #: keeps a 64 x 128 int32 tile a layer, 64 registers a thread (192).
 GROUP_LAYERS = 3
@@ -94,7 +84,7 @@ STACKED, LAYER_SPLIT = 0, 1
 #: the kernel's most groups in a plan
 MAX_GROUPS = 128
 
-#: Kernel launches so far, of all four kernels (incremented only where a CUDA
+#: Kernel launches so far, of both kernels (incremented only where a CUDA
 #: kernel is launched; a caller resets it to 0 to count one run).
 launches = 0
 #: The same count per kernel; a caller resets each entry to 0 with it.
@@ -251,9 +241,8 @@ def _entry(name: str):
 def _kernel_operand(planes: torch.Tensor) -> torch.Tensor:
     """``planes`` as the kernel reads them: contiguous, 16-byte aligned,
     with K padded by zeros to a multiple of :data:`K_ALIGN`.  Planes from
-    ``ops`` already are; other planes are copied.  All three kernels take
-    this: TMA zero-fills the rest of the wgmma kernel's 128-byte K
-    slices."""
+    ``ops`` already are; other planes are copied.  TMA zero-fills the rest
+    of the kernels' 128-byte K slices."""
     R, K = planes.shape[1:]
     pad = -K % K_ALIGN
     if (not pad and planes.is_contiguous()
@@ -266,11 +255,10 @@ def _kernel_operand(planes: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int,
-            kernel: Optional[str] = None,
             layout: Optional[int] = None) -> torch.Tensor:
-    """K-major planes on the card, through ``kernel`` (default:
-    :func:`kernel_for`'s choice); ``layout`` sets :data:`WGMMA_GROUPED`'s
-    in place of :func:`grouped_layout`'s."""
+    """K-major planes on the card, through :func:`kernel_for`'s kernel;
+    ``layout`` sets :data:`WGMMA_GROUPED`'s in place of
+    :func:`grouped_layout`'s."""
     global launches
     dev = a_km.device
     if b_km.device != dev:
@@ -278,15 +266,7 @@ def _launch(a_km: torch.Tensor, b_km: torch.Tensor, m: int,
                          f"{b_km.device}")
     _, M, K = a_km.shape
     N = b_km.shape[1]
-    if kernel is None:
-        kernel = kernel_for(m, M, N, K)
-    if kernel not in KERNELS:
-        raise ValueError(f"no layered matmul kernel {kernel!r}")
-    if kernel == WGMMA and m > WGMMA_MAX_PLANES:
-        raise ValueError(f"{WGMMA} takes m <= {WGMMA_MAX_PLANES}, got m={m}")
-    if kernel == MMA_SYNC and m > MMA_SYNC_MAX_PLANES:
-        raise ValueError(f"{MMA_SYNC} takes m <= {MMA_SYNC_MAX_PLANES}, "
-                         f"got m={m}")
+    kernel = kernel_for(m, M, N, K)
     extra = ()
     if kernel == WGMMA_GROUPED:
         if layout is None:

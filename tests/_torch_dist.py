@@ -15,6 +15,7 @@ the harness started, and returns tensors for the test to check.
 
 from __future__ import annotations
 
+import functools
 import multiprocessing
 import time
 import traceback
@@ -259,16 +260,15 @@ def cell_inputs(arch: str, dtype: str = "float32", batch: int = 4,
     return cfg, params, tokens, targets, extras
 
 
-def cell_run(rank, world, arch, data, model, parts=("serve", "train"),
-             dtype="float32", seed=0):
+def cell_run(rank, world, arch, data, model, dtype="float32", seed=0):
     """The cells of ``arch``'s smoke config on a (data, model) mesh of this
-    group.  Part "serve": prefill of a 16-token prompt (caches for 20,
-    which split over 2 and 4 ranks), then one decode step from its caches
-    (DTensors handed on as they come); part "prefill": the prefill alone.  Part "train": one AdamW step (the
-    default ``TrainConfig``).  Every output as a full tensor, with the
-    placements of the prefill's outputs and of the new parameters and opt
-    state, by leaf, and the rank's mesh coordinate.  "decode" steps at a
-    tensor position (``fn``), "decode_int" at the int one (``eager``)."""
+    group: prefill of a 16-token prompt (caches for 20, which split over 2
+    and 4 ranks), one decode step from its caches (DTensors handed on as
+    they come), and one AdamW train step (the default ``TrainConfig``).
+    Every output as a full tensor, with the placements of the prefill's
+    outputs and of the new parameters and opt state, by leaf, and the
+    rank's mesh coordinate.  "decode" steps at a tensor position (``fn``),
+    "decode_int" at the int one (``eager``)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs.base import ShapeConfig, TrainConfig
@@ -280,50 +280,30 @@ def cell_run(rank, world, arch, data, model, parts=("serve", "train"),
                                                        seed=seed)
     B, S = targets.shape
     out = {"coords": mesh.get_coordinate()}
-    if "serve" in parts or "prefill" in parts:
-        pre = steps.build_cell(cfg, ShapeConfig("p", S + 4, B, "prefill"),
-                               mesh)
-        logits, caches = pre.fn(params, dict(extras, tokens=tokens[:, :S]))
-        out["prefill"] = _full((logits, caches))
-        out["prefill_placements"] = [tuple(x.placements)
-                                     for x in leaves((logits, caches))]
-    if "serve" in parts:
-        dec = steps.build_cell(cfg, ShapeConfig("d", S + 4, B, "decode"),
-                               mesh)
-        # the same step at an int position, on a copy of the caches (the
-        # step writes them in place); then at a tensor one, as ``fn``
-        # steps
-        at_int = dec.eager(params, {"token": tokens[:, S:], "pos": S,
-                                    "caches": _owned_tree(caches)})
-        out["decode_int"] = _full(at_int)
-        out["decode"] = _full(dec.fn(params, {"token": tokens[:, S:],
-                                              "pos": S, "caches": caches}))
-    if "train" in parts:
-        tcfg = TrainConfig()
-        train = steps.build_cell(cfg, ShapeConfig("t", S, B, "train"), mesh,
-                                 tcfg)
-        _, optimizer = steps.make_train_step(cfg, tcfg)
-        new_params, new_opt, metrics = train.fn(
-            params, optimizer.init(params),
-            dict(extras, tokens=tokens[:, :S], targets=targets))
-        out["train"] = _full((new_params, new_opt, metrics))
-        out["train_placements"] = [tuple(x.placements) for x in
-                                   leaves((new_params, new_opt))
-                                   if isinstance(x, DTensor)]
-    return out
-
-
-def cell_placements(rank, world, archs, data, model):
-    """The layouts of :func:`cell_run`'s prefill outputs and new train
-    state (parts "prefill" and "train") for each of ``archs`` in turn, in
-    one group: one spawn serves every arch, so the interpreters, imports,
-    rendezvous and DTensor's first-use costs are paid once, not once an
-    arch."""
-    out = {}
-    for arch in archs:
-        run = cell_run(rank, world, arch, data, model, ("prefill", "train"))
-        out[arch] = {k: run[k] for k in ("prefill_placements",
-                                         "train_placements")}
+    pre = steps.build_cell(cfg, ShapeConfig("p", S + 4, B, "prefill"), mesh)
+    logits, caches = pre.fn(params, dict(extras, tokens=tokens[:, :S]))
+    out["prefill"] = _full((logits, caches))
+    out["prefill_placements"] = [tuple(x.placements)
+                                 for x in leaves((logits, caches))]
+    dec = steps.build_cell(cfg, ShapeConfig("d", S + 4, B, "decode"), mesh)
+    # the same step at an int position, on a copy of the caches (the step
+    # writes them in place); then at a tensor one, as ``fn`` steps
+    at_int = dec.eager(params, {"token": tokens[:, S:], "pos": S,
+                                "caches": _owned_tree(caches)})
+    out["decode_int"] = _full(at_int)
+    out["decode"] = _full(dec.fn(params, {"token": tokens[:, S:], "pos": S,
+                                          "caches": caches}))
+    tcfg = TrainConfig()
+    train = steps.build_cell(cfg, ShapeConfig("t", S, B, "train"), mesh,
+                             tcfg)
+    _, optimizer = steps.make_train_step(cfg, tcfg)
+    new_params, new_opt, metrics = train.fn(
+        params, optimizer.init(params),
+        dict(extras, tokens=tokens[:, :S], targets=targets))
+    out["train"] = _full((new_params, new_opt, metrics))
+    out["train_placements"] = [tuple(x.placements) for x in
+                               leaves((new_params, new_opt))
+                               if isinstance(x, DTensor)]
     return out
 
 
@@ -331,6 +311,27 @@ def cell_placements(rank, world, archs, data, model):
 SPAWNED = {(2, 2): ["llama3-8b", "qwen2-moe-a2.7b", "mamba2-370m",
                     "recurrentgemma-9b", "whisper-tiny", "internvl2-1b"],
            (1, 4): ["llama3-8b", "yi-6b", "llama4-maverick-400b-a17b"]}
+
+
+def mesh_run(rank, world, data, model):
+    """Every cell of a (data, model) mesh in one group: :func:`cell_run`
+    of each arch of :data:`SPAWNED` for that mesh in turn, then
+    :func:`write_slot_run`.  One spawn serves the mesh, so the
+    interpreters, imports, rendezvous and DTensor's first-use costs are
+    paid once, not once an arch.  Returns ``{"results": {arch or
+    "write_slot": what it returned}, "errors": {arch or "write_slot": its
+    traceback}}``: an arch that raises fails only its own cases."""
+    runs = {arch: functools.partial(cell_run, rank, world, arch, data, model)
+            for arch in SPAWNED[(data, model)]}
+    runs["write_slot"] = functools.partial(write_slot_run, rank, world, data,
+                                           model)
+    out = {"results": {}, "errors": {}}
+    for name, run in runs.items():
+        try:
+            out["results"][name] = run()
+        except Exception:      # reported to that name's cases only
+            out["errors"][name] = traceback.format_exc()
+    return out
 
 
 def cell_mismatches(got, want, tol: float = 1e-4) -> list:

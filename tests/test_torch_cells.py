@@ -19,10 +19,9 @@ and cache specs, ``launch.steps.build_cell``, ``train_loop(mesh=)``).
   ``test_torch_models.py``), the train step's parameters, moments and
   gradient norm within rtol 1e-5 at the default ``TrainConfig``'s first
   learning rate (as ``test_torch_train.py``).
-* The cells on four spawned gloo ranks, (data 2, model 2): each
-  placement the one the reference's rules give on a stand-in mesh of the
-  same axis sizes.  Their values against the one-rank cell are held in
-  ``test_torch_cells_ranks.py``, which needs no JAX.
+* The cells on four spawned gloo ranks, their values against the
+  one-rank cell and their placements against the reference's rules, are
+  in ``test_torch_cells_ranks.py``, which needs no JAX to collect.
 * ``train_loop(mesh=)`` for 3 steps against ``train_loop()`` (losses within
   rtol 1e-5), also on (2, 2) with a checkpoint and a resume.
 * What the card's CUDA graphs need (``launch.graphs``): the decode cell
@@ -52,7 +51,6 @@ from repro.configs import registry as jreg  # noqa: E402
 from repro.configs.base import TrainConfig as JTrainConfig  # noqa: E402
 from repro.launch import axes as jaxes  # noqa: E402
 from repro.launch import mesh as jmesh  # noqa: E402
-from repro.launch import sharding as jsh  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
@@ -434,76 +432,6 @@ def test_graphs_true_raises_on_the_cpu(one_rank):
     params = T.init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="CUDA graphs need card tensors"):
         steps.graph_step(step, "train")(params, {}, {})
-
-
-# ---------------------------------------------------------------------------
-# Four gloo ranks against one
-# ---------------------------------------------------------------------------
-
-#: One spawn of four ranks runs the prefill and train cells of all six
-#: archs (``_torch_dist.cell_placements``).  Traced on an 8-core host: 38 s
-#: alone (interpreter and torch 3 s, the port's imports 3 s, then 2–9 s an
-#: arch, recurrentgemma-9b the longest), 71 s with all eight cores kept
-#: busy by other processes.  A spawn of recurrentgemma-9b alone takes
-#: 19–22 s (10 of them first-use costs that a shared spawn pays once) and
-#: overran a 60 s deadline under the full suite's six workers, a slowdown
-#: of at least 2.7x; this deadline allows 7.9x the alone time.
-PLACEMENT_SPAWN_TIMEOUT = 300.0
-
-
-@pytest.fixture(scope="module")
-def four_rank_placements(tmp_path_factory):
-    """Each arch's prefill and train placements on (data 2, model 2), as
-    rank 0 of one four-rank spawn sees them: no decode step (its values
-    are held in ``test_torch_cells_ranks.py``)."""
-    return _torch_dist.run_ranks(
-        tmp_path_factory.mktemp("cells"), 4, _torch_dist.cell_placements,
-        _torch_dist.SPAWNED[(2, 2)], 2, 2,
-        timeout=PLACEMENT_SPAWN_TIMEOUT)[0]
-
-
-def _expected_placements(spec, mesh_axes):
-    spec = tuple(spec)
-    out = []
-    for name in mesh_axes:
-        dims = [d for d, ax in enumerate(spec) if ax is not None and
-                name in (ax if isinstance(ax, tuple) else (ax,))]
-        out.append(Shard(dims[0]) if dims else Replicate())
-    return tuple(out)
-
-
-@pytest.mark.parametrize("arch", _torch_dist.SPAWNED[(2, 2)])
-def test_four_rank_placements_follow_the_reference_rules(
-        four_rank_placements, arch):
-    """Each parameter's and AdamW state's layout on (data 2, model 2) is
-    the reference's ``param_specs``/``opt_state_specs`` on a stand-in
-    mesh of those sizes, and the prefill's logits and caches its logits
-    spec and ``cache_specs_tree``."""
-    train = serve = four_rank_placements[arch]
-    fake = FakeMesh(data=2, model=2)
-    jcfg = jreg.get_smoke_config(arch)
-    jparams = jax.eval_shape(functools.partial(JT.init_params, cfg=jcfg),
-                             jax.random.PRNGKey(0))
-    pspecs = jsh.param_specs(jparams, fake)
-    _, jopt = jsteps.make_train_step(jcfg, JTrainConfig())
-    ospecs = jsh.opt_state_specs(jax.eval_shape(jopt.init, jparams), pspecs,
-                                 fake)
-    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)  # noqa
-    want = [_expected_placements(s, ("data", "model")) for s in
-            jax.tree.leaves((pspecs, ospecs), is_leaf=is_spec)]
-    got = train["train_placements"]
-    assert len(got) == len(want)
-    diff = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
-    assert not diff, diff[:5]
-    jcaches = jax.eval_shape(lambda: JT.init_cache(jcfg, 4, 20))
-    if jcfg.is_encdec:
-        jcaches = jreg.cache_specs(jcfg, 4, 20)
-    cspecs = jsh.cache_specs_tree(jcaches, fake)
-    want = [_expected_placements(s, ("data", "model")) for s in
-            [jsh.fix_spec((4, jcfg.vocab_size), ("data", "model"), fake,
-                          relocate=False)]
-            + jax.tree.leaves(cspecs, is_leaf=is_spec)]
-    assert serve["prefill_placements"] == want
 
 
 # ---------------------------------------------------------------------------

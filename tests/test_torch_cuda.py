@@ -41,8 +41,7 @@ def _planes(rng, m, d, K, R, dev):
     return x, ops._planes_kmajor(x, m, d).to(dev)
 
 
-WGMMA, MMA_SYNC, GROUPED = lm.WGMMA, lm.MMA_SYNC, lm.GROUPED
-WGMMA_GROUPED = lm.WGMMA_GROUPED
+WGMMA, WGMMA_GROUPED = lm.WGMMA, lm.WGMMA_GROUPED
 
 
 @pytest.mark.parametrize("m,d,K,M,N,kernel", [
@@ -124,24 +123,18 @@ def test_fused_wrapper_on_card_matches_oracle(rng, hopper):
 
 
 @pytest.mark.parametrize("m,M,N,kernel", [(1, 4, 16, WGMMA),
-                                          (4, 4, 16, MMA_SYNC),
-                                          (5, 4, 16, GROUPED),
                                           (4, 4, 16, WGMMA_GROUPED),
                                           (5, 4, 16, WGMMA_GROUPED)])
 def test_kernels_wrap_past_int32_like_plain(hopper, m, M, N, kernel):
     """Every digit 127 over K = 140288: each plane product is 127**2 K =
     2262705152, past 2**31.  The kernels accumulate in int32 without
     saturation (no ``.satfinite``), so they wrap, as the reference's
-    int32 accumulation and the plain version do.  The routed kernels are
-    reached through the wrapper, the earlier routes through ``_launch``."""
+    int32 accumulation and the plain version do."""
     K = 274 * 512
     pa = torch.full((m, M, K), 127, dtype=torch.int8, device=hopper)
     pb = torch.full((m, N, K), 127, dtype=torch.int8, device=hopper)
     before = lm.kernel_launches[kernel]
-    if kernel == lm.kernel_for(m, M, N, K):
-        got = lm.layered_matmul_kmajor(pa, pb, m=m)
-    else:
-        got = lm._launch(pa, pb, m, kernel=kernel)
+    got = lm.layered_matmul_kmajor(pa, pb, m=m)
     lm.check_faults()
     assert lm.kernel_launches[kernel] == before + 1
     want = lm.layered_matmul_plain(pa, pb, m=m)
@@ -158,8 +151,7 @@ def test_many_planes_match_plain(hopper, m, M, N, K):
     """From four planes on the grouped tensor-core kernel (a group of at
     most three layers a consumer) gives the plain version's partials bit
     for bit, ragged and at 4096^3, in the layout it routes to and in the
-    other; so does the grouped mma.sync kernel, its earlier route; the two
-    register-resident kernels refuse what they were not built for."""
+    other."""
     gen = torch.Generator(device=hopper).manual_seed(m * 1000 + M)
     pa = torch.randint(-128, 128, (m, M, K), generator=gen,
                        device=hopper).to(torch.int8)
@@ -172,16 +164,8 @@ def test_many_planes_match_plain(hopper, m, M, N, K):
     assert lm.kernel_launches[WGMMA_GROUPED] == before + 1
     assert torch.equal(got, want)
     other = 1 - lm.grouped_layout(m, M)
-    assert torch.equal(lm._launch(pa, pb, m, kernel=WGMMA_GROUPED,
-                                  layout=other), want)
+    assert torch.equal(lm._launch(pa, pb, m, layout=other), want)
     lm.check_faults()
-    assert torch.equal(lm._launch(pa, pb, m, kernel=GROUPED), want)
-    z = torch.zeros((m, 8, 16), dtype=torch.int8, device=hopper)
-    if m > lm.MMA_SYNC_MAX_PLANES:
-        with pytest.raises(ValueError, match="m <= 4"):
-            lm._launch(z, z, m, kernel=MMA_SYNC)
-    with pytest.raises(ValueError, match="m <= 3"):
-        lm._launch(z, z, m, kernel=WGMMA)
 
 
 @pytest.mark.parametrize("m,d,K,M,N", [

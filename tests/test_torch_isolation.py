@@ -68,7 +68,7 @@ def test_port_has_modules_and_smoke_script():
             "examples/quickstart.py", "examples/runtime_deadline.py",
             "examples/serve_progressive.py", "examples/train_lm.py",
             "examples/fault_tolerance.py"} <= names
-    for kernel in ("layered_matmul", "flash_attention", "ssd_scan"):
+    for kernel in ("layered_matmul_wgmma", "flash_attention", "ssd_scan"):
         assert (PORT / "kernels" / "csrc" / f"{kernel}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
 
