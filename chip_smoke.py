@@ -90,7 +90,13 @@ main paths and checks what comes out:
    call, timed beside its bound and the plain chain (whose device kernels
    are counted); the serving phases count its calls (once a Mamba layer a
    token eagerly, at each call of a capture, none in a replay) and its
-   device kernels in the replays;
+   device kernels in the replays; then the decode-attention kernel
+   (``decode_attention``) at yi-6b's two cells' and granite-4.0-h-small's
+   decode shapes against the plain version and the fp32 path, timed
+   beside its bound, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls),
+   and in fp32 at the smoke configs' head dims; ``serve_llama3_8b``
+   counts its calls and device kernels as the Mamba2 step's are counted;
 7. main paths 3 to 8, ``launch.serve.ProgressiveServer`` at the full
    width of llama3-8b, mamba2-370m, recurrentgemma-9b (all 38 layers),
    qwen2-moe-a2.7b (all 24 layers), whisper-tiny (4 encoder and 4
@@ -240,7 +246,8 @@ KERNEL_SOURCES = ["layered_matmul_wgmma", "layered_matmul_wgmma_grouped",
                   "flash_attention",
                   "flash_attention_wgmma",
                   "flash_attention_wgmma_d256", "ssd_scan", "ssd_scan_wgmma",
-                  "ssd_scan_bwd", "moe_grouped_gemm", "ssm_step"]
+                  "ssd_scan_bwd", "moe_grouped_gemm", "ssm_step",
+                  "decode_attention"]
 
 LLAMA_PREFILL = dict(B=4, S=1024, H=32, kv=8, dh=128)      # llama3-8b
 #: recurrentgemma-9b's local attention: MQA at head dim 256, window 2048
@@ -263,6 +270,11 @@ DECODE_TOL = 5e-2
 #: version on the same inputs: max |diff| / max |plain|, the bf16 budget
 #: of the parity tests
 SERVED_FLASH_TOL = 2e-2
+#: each decode-attention call of a served decode against the plain version
+#: in fp32 on fp32 copies of its inputs: no further than the plain version
+#: in the inputs' own type, plus one step of that type's rounding of the
+#: largest value (bf16 2^-8; fp32 1e-5, sums in another order)
+SERVED_DECODE_ATTENTION_SLACK = {"bfloat16": 2 ** -8, "float32": 1e-5}
 #: a train step's loss and gradient norm through the kernels against the
 #: same step with every kernel replaced by its plain version: relative
 #: difference, the bf16 budget of the parity tests
@@ -1620,6 +1632,152 @@ def phase_ssm_step(torch, dev):
     return rows
 
 
+#: the decode attention as its cells run it (the position of the
+#: benchmark's last traced decode step, prompt + 7), then as the serving
+#: phases of llama3-8b (positions split four ways, and combined) and
+#: internvl2-1b (head dim 64, a group of 7) run it at their last token:
+#: batch, cache slots, position, heads, kv heads, head dim, the softmax
+#: scale the config sets (None: 1 / sqrt(head dim))
+DECODE_ATTENTION = {
+    "yi_6b_chat": (32, 1152, 1031, 32, 4, 128, None),
+    "yi_6b_long_prompt": (4, 4112, 4103, 32, 4, 128, None),
+    "granite_4_0_h_small_chat": (32, 1152, 1031, 32, 8, 128, 1.0 / 128),
+    "llama3_8b_serve": (4, 1041, 1039, 32, 8, 128, None),
+    "internvl2_1b_serve": (4, 1041, 1039, 14, 2, 64, None)}
+#: the smoke configs' decode attention in fp32 (the CUDA-core route):
+#: batch, slots, position, heads, kv heads, head dim, window, softcap
+DECODE_ATTENTION_FP32 = {"head_dim_16": (2, 24, 20, 4, 2, 16, None, None),
+                         "head_dim_8": (2, 24, 20, 8, 2, 8, 7, 30.0)}
+#: torch.profiler name substring of the kernel's device kernels
+DECODE_ATTENTION_PROFILE = "decode_attention_"
+
+
+def phase_decode_attention(torch, dev):
+    """The decode-attention kernel (``csrc/decode_attention.cu``) at
+    :data:`DECODE_ATTENTION`'s shapes, bf16 (the tensor-core route): one
+    ``ops.decode_attention`` call (one launch) and
+    ``decode_attention_plain`` on the same inputs, both against the plain
+    version in fp32 on fp32 copies of them: the kernel no further from it
+    than the plain bf16 path plus one bf16 step (2^-8) of the largest
+    value.  Then the call timed with CUDA events and the profiler (its
+    device kernels, and nothing else on the device) beside its bound
+    (``decode_attention.min_bytes`` at 3.35 TB/s, the valid slots of
+    every row), at the traced position and with the whole cache valid, and
+    with one split beside the wrapper's choice; the plain version's times;
+    and ``torch.nn.functional.scaled_dot_product_attention`` over the same
+    cache and mask (the library yardstick, which the port never calls).
+    Last, :data:`DECODE_ATTENTION_FP32` (the CUDA-core route) against the
+    plain version within 1e-5 of the largest value (fp32 sums in another
+    order)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    rows = {}
+    bf = torch.bfloat16
+    for name, (B, S, pos, H, kv, dh, scale) in DECODE_ATTENTION.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        q = torch.randn((B, 1, H, dh), generator=gen, device=dev)
+        if scale is not None:          # as models.transformer._scale_q
+            q = q * (scale * math.sqrt(dh))
+        q = q.to(bf)
+        k = torch.randn((B, S, kv, dh), generator=gen, device=dev).to(bf)
+        v = torch.randn((B, S, kv, dh), generator=gen, device=dev).to(bf)
+        row = {"shape": dict(B=B, S=S, H=H, kv=kv, dh=dh, dtype="bfloat16",
+                             route=da.route_for(bf, dh)),
+               "splits": da.splits_for(
+                   B * kv * -(-(H // kv) // da.ROWS), S,
+                   da.route_for(bf, dh),
+                   torch.cuda.get_device_properties(dev)
+                   .multi_processor_count)}
+        for at, p in (("traced", pos), ("full", S - 1)):
+            pos_b = torch.full((B,), p, dtype=torch.int64, device=dev)
+            length = pos_b + 1
+            want = da.decode_attention_plain(q, k, v, pos_b, length)
+            ref = da.decode_attention_plain(q.float(), k.float(), v.float(),
+                                            pos_b, length)
+            before = da.launches
+            got = ops.decode_attention(q, k, v, pos_b, length)
+            torch.cuda.synchronize()
+            if da.launches != before + 1:
+                raise AssertionError(f"{name}: {da.launches - before} "
+                                     f"launches")
+            top = ref.abs().max().item()
+            kernel = (got.float() - ref).abs().max().item() / top
+            plain = (want.float() - ref).abs().max().item() / top
+            if not (torch.isfinite(got).all() and kernel <= plain + 2 ** -8):
+                raise AssertionError(f"{name} at {p}: {kernel} of the "
+                                     f"largest value from the fp32 path, "
+                                     f"the plain bf16 path {plain}")
+            call = lambda: da.decode_attention_kernel_call(q, k, v, pos_b,
+                                                           length)
+            one = lambda: da.decode_attention_kernel_call(
+                q, k, v, pos_b, length, splits=1)
+            plain_call = lambda: da.decode_attention_plain(q, k, v, pos_b,
+                                                           length)
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < length[:, None])[:, None, None, :]
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            # ten calls a window: a window of one call lost all its records
+            # to the profiler three times running after the ssm_step phase
+            kernels = 1 + (row["splits"] > 1)
+            profiled = prefill_device_profile(
+                torch, lambda: [call() for _ in range(10)],
+                DECODE_ATTENTION_PROFILE, want=10 * kernels)
+            if not (profiled["kernel_launches"] == profiled["all_launches"]
+                    == 10 * kernels):
+                raise AssertionError(f"{name}: ten calls ran "
+                                     f"{profiled['top_device_ms']}")
+            dev_ms = device_ms(torch, call, DECODE_ATTENTION_PROFILE)
+            one_ms = device_ms(torch, one, DECODE_ATTENTION_PROFILE)
+            bound = da.min_bytes(B * (p + 1), kv, dh, B, H, 2) \
+                / PEAK_BYTES * 1e3
+            row[at] = {
+                "position": p,
+                "err_vs_fp32_over_largest_value": {"kernel": kernel,
+                                                   "plain": plain},
+                "ms": cuda_ms(torch, call), "kernel_device_ms": dev_ms,
+                "device_kernels_per_call": profiled["all_launches"] / 10,
+                "one_split_device_ms": one_ms,
+                "bound_ms": bound, "bound_by": "bytes",
+                "bound_share_of_device_ms": bound / dev_ms if dev_ms
+                else None,
+                "one_split_bound_share": bound / one_ms if one_ms else None,
+                "plain_ms": cuda_ms(torch, plain_call, runs=5, warmup=1),
+                "plain_device_ms": prefill_device_profile(
+                    torch, plain_call, "")["all_device_ms"],
+                "library_ms": cuda_ms(torch, sdpa)}
+        rows[name] = row
+        emit({"phase": "decode_attention", "case": name, **row})
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, (B, S, pos, H, kv, dh, window, cap) in \
+            DECODE_ATTENTION_FP32.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((B, 1, H, dh), (B, S, kv, dh),
+                                 (B, S, kv, dh)))
+        pos_b = torch.full((B,), pos, dtype=torch.int64, device=dev)
+        want = da.decode_attention_plain(q, k, v, pos_b, pos_b + 1, window,
+                                         cap)
+        got = ops.decode_attention(q, k, v, pos_b, pos_b + 1, window=window,
+                                   softcap=cap)
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"fp32 {name}: {err} of the largest value")
+        rows[name] = {"shape": dict(B=B, S=S, H=H, kv=kv, dh=dh,
+                                    window=window, softcap=cap,
+                                    dtype="float32",
+                                    route=da.route_for(torch.float32, dh)),
+                      "err_vs_plain_over_largest_value": err}
+        emit({"phase": "decode_attention", "case": name, **rows[name]})
+    return rows
+
+
 def moe_grouped_bound(pairs, touched, K, N, gated) -> tuple[float, str]:
     """Least time (ms) of one grouped product on an H100: its flops at the
     bf16 peak, or the touched experts' weights once and each pair's row in
@@ -1756,11 +1914,11 @@ def prefill_device_profile(torch, fn, kernel: str,
     kernels whose name contains ``kernel`` (their count and ms), of every
     kernel and copy of the call, and the eight that took the most (name
     cut to 100 characters, count, ms).  With ``want``, a call that records
-    fewer such kernels is profiled again, up to three calls: the profiler
+    fewer such kernels is profiled again, up to five calls: the profiler
     may drop some of a window's records (``device_ms``), and a drop only
     lowers the count."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -1815,8 +1973,61 @@ def served_flash_vs_plain(torch, fn, want_kernel: str) -> dict:
             "shapes": sorted(shapes)}
 
 
+def served_decode_attention_vs_plain(torch, fn) -> dict:
+    """Runs ``fn`` (an eager served decode) with every
+    ``ops.decode_attention`` call of the model held against the plain
+    version on the inputs the path gives it, as ``phase_decode_attention``
+    holds the kernel at random inputs: each call launches the kernel once,
+    and its output is no further from the plain version taken in fp32 on
+    fp32 copies of the inputs than the plain version in the inputs' type
+    is, plus :data:`SERVED_DECODE_ATTENTION_SLACK` of the largest value."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    real, errs, shapes = ops.decode_attention, [], set()
+
+    def checked(q, k_cache, v_cache, pos, cache_len, *, window=None,
+                softcap=None):
+        before = da.launches
+        out = real(q, k_cache, v_cache, pos, cache_len, window=window,
+                   softcap=softcap)
+        if da.launches != before + 1:
+            raise AssertionError(f"served decode attention launched "
+                                 f"{da.launches - before} kernels, want 1")
+        want = da.decode_attention_plain(q, k_cache, v_cache, pos,
+                                         cache_len, window, softcap)
+        ref = da.decode_attention_plain(q.float(), k_cache.float(),
+                                        v_cache.float(), pos, cache_len,
+                                        window, softcap)
+        top = ref.abs().max()
+        kernel = ((out.float() - ref).abs().max() / top).item()
+        plain = ((want.float() - ref).abs().max() / top).item()
+        dtype = str(q.dtype).removeprefix("torch.")
+        slack = SERVED_DECODE_ATTENTION_SLACK[dtype]
+        if not (torch.isfinite(out).all() and kernel <= plain + slack):
+            raise AssertionError(f"served decode attention {tuple(q.shape)} "
+                                 f"against {tuple(k_cache.shape)}: {kernel} "
+                                 f"of the largest fp32 value, the plain "
+                                 f"path {plain} (slack {slack})")
+        errs.append((kernel, plain))
+        shapes.add((tuple(q.shape), tuple(k_cache.shape), dtype, window,
+                    softcap))
+        return out
+
+    ops.decode_attention = checked
+    try:
+        fn()
+    finally:
+        ops.decode_attention = real
+    return {"calls": len(errs),
+            "max_err_vs_fp32": max((e[0] for e in errs), default=None),
+            "plain_max_err_vs_fp32": max((e[1] for e in errs),
+                                         default=None),
+            "slack": SERVED_DECODE_ATTENTION_SLACK, "shapes": sorted(
+                shapes, key=str)}
+
+
 def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
-                   want_rel: int) -> dict:
+                   want_rel: int, want_ssm: int, want_attn: int) -> dict:
     """``G`` tokens at ``budget`` from the prefill's ``caches``, each run
     from its own copy, as each request brings caches of its own: eager
     (``server.graphs = False``), then through the CUDA graphs, whose first
@@ -1826,21 +2037,26 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
     copy under ``torch.profiler`` for the device time of a decode (the
     replays and the copies of the caches in and out).  Every run's tokens
     must equal the eager run's, and the caches the first graph decode
-    writes back the eager run's within 1e-2 of their largest value."""
+    writes back the eager run's within 1e-2 of their largest value.
+    ``want_ssm`` and ``want_attn`` are the Mamba2 step's and the
+    decode-attention kernel's device kernels in ``G`` replays: a profile
+    that records fewer is taken again (``prefill_device_profile``)."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ssm_step as sst
     from repro_torch.tree import leaves
     B = prompt.shape[0]
-    runs, ssm_launches = {}, {}
+    runs, ssm_launches, da_launches = {}, {}, {}
 
     def run(label, fresh):
         torch.cuda.synchronize()
-        before = sst.launches
+        before, da_before = sst.launches, da.launches
         t0 = time.perf_counter()
         out, stats = server.decode(prompt[:, -1:], fresh, S, G,
                                    layer_budget=budget)
         torch.cuda.synchronize()
         runs[label] = (out, (time.perf_counter() - t0) * 1e3 / G)
         ssm_launches[label] = sst.launches - before
+        da_launches[label] = da.launches - da_before
         if (tuple(out.shape) != (B, G)
                 or stats.released_at_layer != [want_rel] * G
                 or stats.full_resolution != (G if budget is None else 0)):
@@ -1886,9 +2102,18 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
     release = server.m if budget is None else budget
     graph = next(g for (_, b, r), g in server._graphs.items()
                  if (b, r) == (B, release))
-    graph.start(prompt[:, -1:], S)
-    replays = prefill_device_profile(
-        torch, lambda: [graph.replay() for _ in range(G)], SSM_STEP_PROFILE)
+
+    def replay():
+        # from the prompt's position each time: a profile taken again
+        # must not run past the caches
+        graph.start(prompt[:, -1:], S)
+        for _ in range(G):
+            graph.replay()
+
+    replays = prefill_device_profile(torch, replay, SSM_STEP_PROFILE,
+                                     want=want_ssm)
+    attends = prefill_device_profile(torch, replay, DECODE_ATTENTION_PROFILE,
+                                     want=want_attn)
     eager = runs["eager"][0]
     for label, (out, _) in runs.items():
         if not torch.equal(out, eager):
@@ -1911,6 +2136,10 @@ def graph_vs_eager(torch, server, prompt, caches, S: int, G: int, budget,
             # captures, replays only) and its device kernels in G replays
             "ssm_step_launches": ssm_launches,
             "replay_ssm_step_device_kernels": replays["kernel_launches"],
+            # the same for the decode-attention kernel
+            "decode_attention_launches": da_launches,
+            "replay_decode_attention_device_kernels":
+                attends["kernel_launches"],
             "decode_device_ms_per_token": profiled["all_device_ms"] / G,
             "graph_caches_max_abs_diff_vs_eager": caches_diff,
             "graph_tokens_equal_eager": True,
@@ -1939,7 +2168,12 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
     the kernels named ``kernel_name``), the decode step against forward,
     16 tokens unbudgeted and 16 at budget 1.  Where the path runs flash
     attention, one more prefill holds each of its calls against the plain
-    version (:func:`served_flash_vs_plain`).  A vlm or encoder-decoder
+    version (:func:`served_flash_vs_plain`), and one more eager decode each
+    decode-attention call (:func:`served_decode_attention_vs_plain`).  The
+    Mamba2 step (kernel 5) and the decode-attention kernel (kernel 6) once
+    a layer of theirs a token eagerly, at each call of a capture and never
+    in a replay; their device kernels in each replay (kernel 6's: the
+    attention, and the combine where the positions are split).  A vlm or encoder-decoder
     config gets seeded stub frontend inputs with its prompt
     (``models.transformer.stub_extras``).
 
@@ -1955,9 +2189,12 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
 
     from repro_torch.configs import registry
     from repro_torch.core import progressive
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import layered_matmul as lm
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssm_step as sst
+    from repro_torch.launch import graphs
     from repro_torch.launch.serve import ProgressiveServer
     from repro_torch.models import moe
     from repro_torch.models import transformer as T
@@ -2033,10 +2270,51 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
                              f"{rel} of the largest logit (tolerance "
                              f"{DECODE_TOL})")
 
+    kinds = [k for unit, reps in T.block_groups(cfg) for k in unit * reps]
+    ssm_layers = kinds.count("ssm")
+    attn_layers = sum(k in ("dense", "moe", "cross") for k in kinds)
+    a = cfg.attention
+    splits = da.splits_for(
+        B * a.num_kv_heads * -(-(a.num_heads // a.num_kv_heads) // da.ROWS),
+        S + 1 + G, da.route_for(cfg.cdtype(), a.head_dim),
+        torch.cuda.get_device_properties(dev).multi_processor_count) \
+        if attn_layers else None
+    want_ssm = sst.DEVICE_KERNELS * ssm_layers * G
+    want_attn = (1 + (splits > 1)) * attn_layers * G if attn_layers else 0
     decode = {label: graph_vs_eager(torch, server, prompt, caches, S, G,
-                                    budget, want_rel)
+                                    budget, want_rel, want_ssm, want_attn)
               for label, budget, want_rel in (("unbudgeted", None, 2),
                                               ("layer_budget_1", 1, 1))}
+    for label, dec in decode.items():
+        ssm = {"eager": ssm_layers * G,
+               "graph_first": graphs.CAPTURE_CALLS * ssm_layers,
+               "graph": 0}
+        attn = {"eager": attn_layers * G,
+                "graph_first": graphs.CAPTURE_CALLS * attn_layers,
+                "graph": 0}
+        if (dec["ssm_step_launches"] != ssm
+                or dec["replay_ssm_step_device_kernels"] != want_ssm
+                or dec["decode_attention_launches"] != attn
+                or dec["replay_decode_attention_device_kernels"]
+                != want_attn):
+            raise AssertionError(
+                f"{arch} {label}: ssm_step launched "
+                f"{dec['ssm_step_launches']}, want {ssm}, and "
+                f"{dec['replay_ssm_step_device_kernels']} device kernels "
+                f"in {G} replays, want {want_ssm}; decode_attention "
+                f"launched {dec['decode_attention_launches']}, want "
+                f"{attn}, and {dec['replay_decode_attention_device_kernels']}"
+                f" device kernels in {G} replays, want {want_attn}")
+    graphed, server.graphs = server.graphs, False
+    fresh = _clone(caches)
+    served_attn = served_decode_attention_vs_plain(
+        torch, lambda: server.decode(prompt[:, -1:], fresh, S, G))
+    server.graphs = graphed
+    del fresh
+    if served_attn["calls"] != attn_layers * G:
+        raise AssertionError(f"{arch}: {served_attn['calls']} decode "
+                             f"attention calls checked, want "
+                             f"{attn_layers * G}")
     token_bytes = decode_token_bytes(params, server, caches)
 
     hidden, _ = T.hidden_step(params, prompt[:, -1:], caches, S, cfg)
@@ -2060,6 +2338,8 @@ def _serve(torch, dev, arch: str, kernel_module, want_launches: int,
                kernel_share_of_device=(profiled["kernel_device_ms"]
                                        / profiled["all_device_ms"])),
            "served_flash_vs_plain": served_flash,
+           "served_decode_attention_vs_plain": served_attn,
+           "decode_attention_splits": splits,
            "decode_vs_forward_rel_err": rel,
            "decode_vs_forward_check": {
                "batch": int(check_tokens.shape[0]),
@@ -2099,23 +2379,8 @@ def phase_serve_mamba(torch, dev):
     from repro_torch.kernels import ssd_scan as ss
     # two device kernels per scan (state pass, output pass): the profile
     # counts 96 of them for the 48 launches
-    from repro_torch.kernels import ssm_step as sst
-    from repro_torch.launch import graphs
     row = _serve(torch, dev, "mamba2-370m", ss, 48, ss.WGMMA,
                  SSD_WGMMA_PROFILE)
-    # the decode step kernel once a layer a token eagerly, at each call of
-    # the capture, never in a replay; its device kernels in each replay
-    G = SERVE["gen"]
-    replayed = sst.DEVICE_KERNELS * 48 * G
-    for label, dec in row["decode"].items():
-        want = {"eager": 48 * G, "graph_first": graphs.CAPTURE_CALLS * 48,
-                "graph": 0}
-        if (dec["ssm_step_launches"] != want
-                or dec["replay_ssm_step_device_kernels"] != replayed):
-            raise AssertionError(
-                f"{label}: ssm_step launched {dec['ssm_step_launches']}, "
-                f"want {want}; {dec['replay_ssm_step_device_kernels']} "
-                f"device kernels in {G} replays, want {replayed}")
     emit(dict(phase="serve_mamba2_370m", **row))
     return row
 
@@ -2177,8 +2442,10 @@ def phase_serve_granite(torch, dev):
     4 twice a layer in each, and the replays call no wrapper), then a
     decode of replays only under ``torch.cuda.set_sync_debug_mode
     ("error")`` (no wrapper call) and the same replays under
-    ``torch.profiler`` (kernel 4's device kernels twice a layer a token).
-    The graph decode's tokens beside the eager one's (their share alike:
+    ``torch.profiler`` (kernel 4's device kernels twice a layer a token,
+    kernel 5's in each replay alone), then an eager decode with each
+    decode-attention call held against the plain version
+    (:func:`served_decode_attention_vs_plain`).  The graph decode's tokens beside the eager one's (their share alike:
     the experts' scatter-add sums in another order each call, so a near
     tie may flip), its ms per token and the peak memory."""
     import dataclasses
@@ -2276,26 +2543,41 @@ def phase_serve_granite(torch, dev):
     graph = next(g for (_, b, r), g in server._graphs.items()
                  if (b, r) == (B, server.m))
 
-    def replays():
+    def replays(tokens):
         # from the prompt's position each time: a profile taken again
         # must not run past the caches
         graph.start(prompt[:, -1:], S)
-        for _ in range(n):
+        for _ in range(tokens):
             graph.replay()
 
     profiled = prefill_device_profile(
-        torch, replays, "moe_grouped_gemm_kernel", want=2 * L * n)
+        torch, lambda: replays(n), "moe_grouped_gemm_kernel", want=2 * L * n)
     if profiled["kernel_launches"] != 2 * L * n:
         raise AssertionError(f"{n} profiled replays ran "
                              f"{profiled['kernel_launches']} kernel-4 "
                              f"launches, want {2 * L * n}")
-    want_ssm = sst.DEVICE_KERNELS * mamba * n
-    ssm_profiled = prefill_device_profile(torch, replays, SSM_STEP_PROFILE,
-                                          want=want_ssm)
-    if ssm_profiled["kernel_launches"] != want_ssm:
-        raise AssertionError(f"{n} profiled replays ran "
-                             f"{ssm_profiled['kernel_launches']} ssm_step "
-                             f"device kernels, want {want_ssm}")
+    # kernel 5's device kernels a replay, counted in a window of one
+    # replay each: a window of all n replays lost one of its 864 records
+    # to the profiler three times running
+    want_ssm = sst.DEVICE_KERNELS * mamba
+    ssm_profiled = [prefill_device_profile(torch, lambda: replays(1),
+                                           SSM_STEP_PROFILE, want=want_ssm)
+                    for _ in range(n)]
+    ssm_counts = [r["kernel_launches"] for r in ssm_profiled]
+    if ssm_counts != [want_ssm] * n:
+        raise AssertionError(f"{n} profiled replays ran {ssm_counts} "
+                             f"ssm_step device kernels, want {want_ssm} "
+                             f"each")
+    # each decode-attention call of an eager decode against the plain
+    # version: kernel 6 in the four NoPE attention layers
+    server.graphs = False
+    fresh = _clone(caches)
+    served_attn = served_decode_attention_vs_plain(
+        torch, lambda: server.decode(prompt[:, -1:], fresh, S, n))
+    del fresh
+    if served_attn["calls"] != (L - mamba) * n:
+        raise AssertionError(f"{served_attn['calls']} decode attention "
+                             f"calls checked, want {(L - mamba) * n}")
     if not torch.equal(first, replayed):
         raise AssertionError("two graph decodes from the same caches "
                              "differ")
@@ -2316,8 +2598,10 @@ def phase_serve_granite(torch, dev):
                "eager_decode": ssm_launches[0],
                "decode_capture": ssm_launches[1],
                "decode_replays": ssm_launches[2],
-               "profiled_replays_device": ssm_profiled["kernel_launches"]},
-           "replay_ssm_step_device_ms": ssm_profiled["kernel_device_ms"] / n,
+               "profiled_replays_device": sum(ssm_counts)},
+           "replay_ssm_step_device_ms": sum(
+               r["kernel_device_ms"] for r in ssm_profiled) / n,
+           "served_decode_attention_vs_plain": served_attn,
            "capture_calls": graphs.CAPTURE_CALLS,
            "eager_ms_per_token": eager_ms,
            "first_graph_decode_ms_per_token": first_ms,
@@ -3791,6 +4075,7 @@ def main() -> int:
                         ("ssd_backward_vs_plain",
                          phase_ssd_backward_vs_plain),
                         ("ssm_step", phase_ssm_step),
+                        ("decode_attention", phase_decode_attention),
                         ("serve_llama3_8b", phase_serve_llama),
                         ("serve_mamba2_370m", phase_serve_mamba),
                         ("serve_recurrentgemma_9b",
@@ -4033,6 +4318,37 @@ def main() -> int:
                 "ms", "kernel_device_ms", "plain_ms", "bound_ms",
                 "bound_by")} for c, r in rows.items()
                 if c != "mamba2_370m_decode"}})
+    if "decode_attention" in results and "serve_llama3_8b" in results:
+        # kernel 6: the decode step's attention, launched by the eager
+        # decodes and the captures of llama3-8b's serving path
+        rows = results["decode_attention"]
+        row = rows["yi_6b_chat"]["traced"]
+        llama = results["serve_llama3_8b"]["decode"]["unbudgeted"]
+        by_path = {
+            "serve_llama3_8b_eager_decode":
+                llama["decode_attention_launches"]["eager"],
+            "serve_llama3_8b_decode_capture":
+                llama["decode_attention_launches"]["graph_first"]}
+        kernels.append({
+            "name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": None, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "graph_replay_launches_by_path": {
+                "serve_llama3_8b_decode":
+                    llama["replay_decode_attention_device_kernels"]},
+            "err_vs_fp32_over_largest_value": max(
+                r[at]["err_vs_fp32_over_largest_value"]["kernel"]
+                for r in rows.values() for at in ("traced", "full")
+                if at in r),
+            "ms": row["ms"], "kernel_device_ms": row["kernel_device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "other_shapes": {f"{c}_{at}": {k: r[at][k] for k in (
+                "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for c, r in rows.items()
+                for at in ("traced", "full") if at in r
+                and (c, at) != ("yi_6b_chat", "traced")}})
     if kernels:
         emit({"kernels": kernels})
     if failed:

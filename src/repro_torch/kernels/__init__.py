@@ -32,6 +32,12 @@
                     csrc/ssm_step.cu, three device kernels on the CUDA
                     cores; replaces no TPU kernel: the reference's decode
                     step is plain jnp)
+  decode_attention  one token against the KV cache, read in place once,
+                    split over positions (csrc/decode_attention.cu:
+                    mma.sync for bf16 at head dim 64/128, the CUDA cores
+                    for the rest, and a combine of the splits; replaces
+                    no TPU kernel: the reference's decode attention is
+                    plain jnp)
 ops.py holds the public wrappers, ref.py the NumPy oracles, _build.py the
 nvcc build step.
 """

@@ -33,9 +33,11 @@ each backward kernel call a ``repro.kernel.ssd_scan_backward`` range
 (``launch.graphs.span``).
 
 :func:`moe_grouped_gemm` (the dropless expert layer's products, no
-autograd) is a ``repro.kernel.moe_grouped_gemm`` range, and
+autograd) is a ``repro.kernel.moe_grouped_gemm`` range,
 :func:`ssm_step` (the Mamba2 decode step, no autograd) a
-``repro.kernel.ssm_step`` range.
+``repro.kernel.ssm_step`` range, and :func:`decode_attention` (one token
+against a KV cache, no autograd) a ``repro.kernel.decode_attention``
+range.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.core import layering
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_grouped_gemm as mg
 from repro_torch.kernels import ssd_scan as ss
@@ -54,7 +57,8 @@ from repro_torch.kernels.layered_matmul import K_ALIGN, layered_matmul_kmajor
 from repro_torch.launch import graphs
 
 __all__ = ["layered_matmul", "layered_matmul_partials", "flash_attention",
-           "ssd_scan_fused", "moe_grouped_gemm", "ssm_step"]
+           "ssd_scan_fused", "moe_grouped_gemm", "ssm_step",
+           "decode_attention"]
 
 
 def _planes_kmajor(x: torch.Tensor, m: int, d: int) -> torch.Tensor:
@@ -450,3 +454,25 @@ def ssm_step(params: dict, streams: tuple, cache: dict, *,
                 and not _fake(*streams)):
             return sst.ssm_step_kernel_call(params, streams, cache, eps)
         return sst.ssm_step_plain(params, streams, cache, eps)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor,
+                     cache_len: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """One token ``q (B, 1, H, Dh)`` against a ``(B, S, n_kv, Dh)`` KV
+    cache: the slots below ``cache_len (B,)`` and, with a ``window``,
+    above ``pos (B,) - window``; logits through a ``softcap`` where one is
+    given.  ``(B, 1, H, Dh)`` in v's type (``kernels.decode_attention``:
+    on a plain CUDA tensor the kernel; on a CPU tensor, a DTensor or fake
+    tensors the plain version)."""
+    with graphs.span("repro.kernel.decode_attention"):
+        ins = (q, k_cache, v_cache, pos, cache_len)
+        if (q.device.type == "cuda"
+                and not any(isinstance(t, DTensor) for t in ins)
+                and not _fake(*ins)):
+            return da.decode_attention_kernel_call(
+                q, k_cache, v_cache, pos, cache_len, window, softcap)
+        return da.decode_attention_plain(q, k_cache, v_cache, pos,
+                                         cache_len, window, softcap)

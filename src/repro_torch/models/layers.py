@@ -5,8 +5,10 @@ Pure functions over explicit parameter dicts, as in the JAX package's
 reshaped to ``(B, S, n_kv, group, head_dim)`` so K/V are never repeated.
 :func:`attention` is the plain general function (any positions, optional
 ``kv_valid`` mask, logit softcap); the models' full-sequence self-attention
-goes to the flash kernel instead (``models/transformer.py``), and decode
-stays :func:`decode_attention`, which the JAX package has no kernel for.
+goes to the flash kernel instead (``models/transformer.py``), and
+:func:`decode_attention` to the decode-attention kernel
+(``kernels.ops.decode_attention``), which the JAX package has no kernel
+for.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.kernels import ops
 from repro_torch.launch.axes import constrain, einsum, local_shards, spec_of
 
 __all__ = [
@@ -194,18 +197,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-token attention against a (B, S_cache, n_kv, Dh) KV cache.
 
     q: (B, 1, n_heads, Dh); ``pos`` (B,) is the new token's position;
-    ``cache_len`` (B,) marks how many cache slots are valid.
+    ``cache_len`` (B,) marks how many cache slots are valid.  The config's
+    window and logit softcap apply (``kernels.ops.decode_attention``: the
+    decode-attention kernel on the card, the plain version elsewhere).
     """
-    B, _, H, Dh = q.shape
-    S = k_cache.shape[1]
-    qg = group_heads(q, cfg.num_kv_heads)
-    slots = torch.arange(S, dtype=torch.int64, device=q.device)[None, :]
-    valid = slots < cache_len[:, None]
-    if cfg.window is not None:
-        valid = valid & (slots > (pos[:, None] - cfg.window))
-    bias = torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
-    out = _attend(qg, k_cache, v_cache, bias, cfg.attn_logit_softcap)
-    return out.reshape(B, 1, H, Dh)
+    return ops.decode_attention(q, k_cache, v_cache, pos, cache_len,
+                                window=cfg.window,
+                                softcap=cfg.attn_logit_softcap)
 
 
 # ---------------------------------------------------------------------------

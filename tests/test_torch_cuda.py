@@ -718,6 +718,225 @@ def test_ssm_step_kernel_rejects_what_it_cannot_take(hopper):
     assert sst.launches == before
 
 
+#: the decode attention: batch, cache slots, heads, kv heads, head dim,
+#: type, the softmax scale the config sets (None: 1 / sqrt(head dim)) --
+#: the three attention cells', the smoke configs' head dims in fp32,
+#: llama3-8b's serving shape (positions split four ways), and groups of 1
+#: (MHA) and 7 (internvl2-1b) at head dim 64
+DECODE_ATTENTION_CASES = [
+    pytest.param(32, 1152, 32, 4, 128, "bfloat16", None, id="yi-6b.chat"),
+    pytest.param(4, 4112, 32, 4, 128, "bfloat16", None,
+                 id="yi-6b.long-prompt"),
+    pytest.param(32, 1152, 32, 8, 128, "bfloat16", 1.0 / 128,
+                 id="granite-4.0-h-small.chat"),
+    pytest.param(2, 24, 4, 2, 16, "float32", None, id="smoke-dh16"),
+    pytest.param(2, 24, 8, 2, 8, "float32", None, id="smoke-dh8"),
+    pytest.param(4, 1041, 32, 8, 128, "bfloat16", None,
+                 id="llama3-8b-serve"),
+    pytest.param(4, 300, 8, 8, 128, "bfloat16", None, id="G1"),
+    pytest.param(3, 300, 14, 2, 64, "bfloat16", None, id="G7-dh64")]
+
+
+def _decode_attention_case(B, S, H, kv, dh, dtype, scale, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, 1, H, dh), generator=gen, device=dev)
+    if scale is not None:          # as models.transformer._scale_q
+        q = q * (scale * dh ** 0.5)
+    dt = getattr(torch, dtype)
+    k, v = (torch.randn((B, S, kv, dh), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    return q.to(dt), k, v
+
+
+def _cache_lengths(lengths, B, S, dev):
+    if lengths == "one":
+        n = [1] * B
+    elif lengths == "full":
+        n = [S] * B
+    else:                           # ragged: from one slot to all of them
+        n = [1 + (S - 1) * i // max(B - 1, 1) for i in range(B)]
+    length = torch.tensor(n, dtype=torch.int64, device=dev)
+    return length - 1, length
+
+
+def _assert_decode_attention_close(got, q, k, v, pos, length, window=None,
+                                   softcap=None):
+    """The kernel against the plain version.  fp32: within 1e-5 of the
+    largest value (the same fp32 arithmetic, sums in another order over up
+    to 4112 positions).  bf16: no further from the plain path taken in
+    fp32 on fp32 copies of the inputs than the plain bf16 path is, plus
+    one bf16 step (2^-8) of the largest value -- the kernel rounds the
+    probabilities to bf16 before they are normalised, the plain path
+    after, and sums in another order."""
+    from repro_torch.kernels import decode_attention as da
+    want = da.decode_attention_plain(q, k, v, pos, length, window, softcap)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    if q.dtype == torch.float32:
+        top = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * top
+        return
+    ref = da.decode_attention_plain(q.float(), k.float(), v.float(), pos,
+                                    length, window, softcap)
+    top = ref.abs().max().item()
+    kernel = (got.float() - ref).abs().max().item() / top
+    plain = (want.float() - ref).abs().max().item() / top
+    assert kernel <= plain + 2 ** -8, (kernel, plain)
+
+
+@pytest.mark.parametrize("lengths", ["one", "ragged", "full"])
+@pytest.mark.parametrize("B,S,H,kv,dh,dtype,scale", DECODE_ATTENTION_CASES)
+def test_decode_attention_kernel_matches_plain(hopper, B, S, H, kv, dh,
+                                               dtype, scale, lengths):
+    """``ops.decode_attention`` (one kernel launch) against the plain
+    version at the attention cells' shapes, the smoke configs' fp32 head
+    dims and groups of 1, 4, 7 and 8, with one valid slot a row, ragged
+    cache lengths and a full cache."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _decode_attention_case(B, S, H, kv, dh, dtype, scale, hopper)
+    pos, length = _cache_lengths(lengths, B, S, hopper)
+    before = da.launches
+    got = ops.decode_attention(q, k, v, pos, length)
+    assert da.launches == before + 1
+    _assert_decode_attention_close(got, q, k, v, pos, length)
+
+
+@pytest.mark.parametrize("window,softcap", [(100, None), (None, 30.0),
+                                            (7, 5.0)])
+@pytest.mark.parametrize("dh,dtype,splits", [
+    (128, "bfloat16", None), (128, "bfloat16", 3), (64, "bfloat16", 1),
+    (16, "float32", None), (16, "bfloat16", 2), (8, "float32", 4)])
+def test_decode_attention_kernel_takes_a_window_and_a_softcap(
+        hopper, window, softcap, dh, dtype, splits):
+    """A sliding window (slots after ``pos - window`` only) and a logit
+    softcap as the plain path takes them, on both routes, at ragged
+    lengths, with the wrapper's split count and with forced ones."""
+    from repro_torch.kernels import decode_attention as da
+    B, S, H, kv = 4, 300, 16, 2
+    q, k, v = _decode_attention_case(B, S, H, kv, dh, dtype, None, hopper,
+                                     seed=1)
+    pos, length = _cache_lengths("ragged", B, S, hopper)
+    got = da.decode_attention_kernel_call(q, k, v, pos, length, window,
+                                          softcap, splits=splits)
+    _assert_decode_attention_close(got, q, k, v, pos, length, window,
+                                   softcap)
+
+
+@pytest.mark.parametrize("dh,dtype,splits", [
+    (128, "bfloat16", None), (128, "bfloat16", 3), (64, "bfloat16", 2),
+    (16, "float32", None), (16, "float32", 4)])
+def test_decode_attention_rows_without_a_valid_slot_match_plain(
+        hopper, dh, dtype, splits):
+    """Rows with no valid slot -- no cache length, and a position past the
+    cache's capacity under a window -- read nothing past the cache and
+    attend every slot alike, as the plain version's bias leaves them,
+    beside rows whose window holds the cache's last slots, and a full row.
+    300 slots fill neither route's last tile."""
+    from repro_torch.kernels import decode_attention as da
+    B, S, H, kv, window = 5, 300, 16, 2, 5
+    q, k, v = _decode_attention_case(B, S, H, kv, dh, dtype, None, hopper,
+                                     seed=2)
+    pos = torch.tensor([0, S + 10, S + 2, 10 ** 6, S - 1],
+                       dtype=torch.int64, device=hopper)
+    length = torch.tensor([0, S, S, S, S], dtype=torch.int64, device=hopper)
+    got = da.decode_attention_kernel_call(q, k, v, pos, length, window,
+                                          splits=splits)
+    _assert_decode_attention_close(got, q, k, v, pos, length, window)
+
+
+@pytest.mark.parametrize("B,S,kv,dh,dtype", [
+    (32, 1152, 4, 128, "bfloat16"), (4, 4112, 4, 128, "bfloat16"),
+    (32, 1152, 8, 128, "bfloat16"), (2, 24, 2, 16, "float32")])
+def test_decode_attention_gives_the_same_bits_twice(hopper, B, S, kv, dh,
+                                                    dtype):
+    """The same inputs give the same bits (no atomics; the warps' and the
+    splits' partials are combined in a fixed order), and a call runs the
+    kernel's own device kernels and nothing else: the attention, and the
+    combine where the positions are split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _decode_attention_case(B, S, 32, kv, dh, dtype, None, hopper)
+    pos, length = _cache_lengths("ragged", B, S, hopper)
+    first = da.decode_attention_kernel_call(q, k, v, pos, length)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = da.decode_attention_kernel_call(q, k, v, pos, length)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_time_total > 0}
+    assert all("decode_attention_" in n for n in kernels), kernels
+    pairs = B * kv * -(-(32 // kv) // da.ROWS)
+    splits = da.splits_for(pairs, S, da.route_for(q.dtype, dh),
+                           torch.cuda.get_device_properties(hopper)
+                           .multi_processor_count)
+    assert sum(kernels.values()) == 1 + (splits > 1), kernels
+    assert torch.equal(first, again)
+
+
+def test_decode_attention_graph_replays_equal_eager_calls(hopper):
+    """Captured once at a 0-d position on the device, replays at
+    successive positions (slots written between them, as a decode step
+    writes its token's K and V) equal eager calls at those positions bit
+    for bit: the kernel reads the position and the cache length on the
+    device."""
+    B, S, H, kv, dh = 8, 600, 32, 4, 128
+    q, k, v = _decode_attention_case(B, S, H, kv, dh, "bfloat16", None,
+                                     hopper)
+    pos = torch.zeros((), dtype=torch.int64, device=hopper)
+
+    def step():
+        pos_b = pos.expand(B)
+        return ops.decode_attention(q, k, v, pos_b, pos_b + 1)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    gen = torch.Generator(device=hopper).manual_seed(5)
+    for p in (0, 1, 63, 64, 65, 300, 599):
+        pos.fill_(p)
+        k[:, p] = torch.randn((B, kv, dh), generator=gen,
+                              device=hopper).to(k.dtype)
+        graph.replay()
+        assert torch.equal(out, step()), p
+
+
+def test_decode_attention_kernel_rejects_what_it_cannot_take(hopper):
+    """fp16 or mixed types, a head dim past 256, a cache whose head dim is
+    not contiguous or whose rows the tensor cores cannot read 16 bytes at a
+    time, too many splits and a window of 0 raise on the host; nothing is
+    launched."""
+    from repro_torch.kernels import decode_attention as da
+    before = da.launches
+    q, k, v = _decode_attention_case(2, 64, 8, 2, 128, "bfloat16", None,
+                                     hopper)
+    pos, length = _cache_lengths("full", 2, 64, hopper)
+    with pytest.raises(TypeError):
+        ops.decode_attention(q.half(), k.half(), v.half(), pos, length)
+    with pytest.raises(TypeError):
+        ops.decode_attention(q, k.float(), v, pos, length)
+    big = _decode_attention_case(2, 64, 2, 1, 512, "float32", None, hopper)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.decode_attention(*big, pos, length)
+    strided = k.transpose(1, 3).contiguous().transpose(1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, strided, v, pos, length)
+    unaligned = torch.empty((2, 64, 2, 132), dtype=k.dtype,
+                            device=hopper)[..., 1:129]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.decode_attention(q, unaligned, v, pos, length)
+    with pytest.raises(ValueError, match="splits"):
+        da.decode_attention_kernel_call(q, k, v, pos, length, splits=2)
+    with pytest.raises(ValueError, match="window"):
+        ops.decode_attention(q, k, v, pos, length, window=0)
+    assert da.launches == before
+
+
 @pytest.mark.parametrize("arch", [
     "llama3-8b", "mamba2-370m", "yi-6b", "glm4-9b", "starcoder2-7b",
     "recurrentgemma-9b", "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b"])

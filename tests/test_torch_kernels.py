@@ -1069,3 +1069,142 @@ def test_ssd_backward_on_fake_tensors_gives_the_gradients_shapes():
     kernels = (ss.flops(B, nc, chunk, H, P, N)
                + ss.backward_flops(B, nc, chunk, H, P, N))
     assert kernels <= costs.flops < 1.01 * kernels
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (one token against a KV cache)
+# ---------------------------------------------------------------------------
+
+def _parent_decode_attention(q, k_cache, v_cache, pos, cfg, cache_len):
+    """``models.layers.decode_attention`` as it was before the kernel: the
+    grouped fp32 logits over every slot, a bias mask, softmax in fp32."""
+    from repro_torch.models import layers as L
+    B, _, H, Dh = q.shape
+    S = k_cache.shape[1]
+    qg = L.group_heads(q, cfg.num_kv_heads)
+    slots = torch.arange(S, dtype=torch.int64, device=q.device)[None, :]
+    valid = slots < cache_len[:, None]
+    if cfg.window is not None:
+        valid = valid & (slots > (pos[:, None] - cfg.window))
+    bias = torch.where(valid, 0.0, L._NEG_INF)[:, None, None, None, :]
+    out = L._attend(qg, k_cache, v_cache, bias, cfg.attn_logit_softcap)
+    return out.reshape(B, 1, H, Dh)
+
+
+def _decode_case(rng, B, S, H, kv, dh, dtype):
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(dtype) for shape in ((B, 1, H, dh), (B, S, kv, dh),
+                                        (B, S, kv, dh)))
+    length = torch.from_numpy(rng.integers(1, S + 1, size=B))
+    return q, k, v, length - 1, length
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,kv,dh,window,softcap", [
+    (4, 2, 16, None, None), (8, 8, 8, None, None), (8, 1, 16, 5, None),
+    (32, 4, 32, None, 30.0), (12, 3, 16, 7, 20.0)])
+def test_decode_attention_on_the_cpu_equals_the_parents_path(
+        rng, monkeypatch, dtype, H, kv, dh, window, softcap):
+    """On CPU tensors ``ops.decode_attention`` (and
+    ``models.layers.decode_attention`` through it) is the parent's plain
+    path bit for bit, at ragged cache lengths, and launches nothing."""
+    from repro_torch.configs.base import AttentionConfig
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import layers as L
+
+    def kernel(*args, **kw):
+        raise AssertionError("the kernel ran on CPU tensors")
+
+    monkeypatch.setattr(da, "decode_attention_kernel_call", kernel)
+    cfg = AttentionConfig(num_heads=H, num_kv_heads=kv, head_dim=dh,
+                          window=window, attn_logit_softcap=softcap)
+    q, k, v, pos, length = _decode_case(rng, 3, 40, H, kv, dh, dtype)
+    want = _parent_decode_attention(q, k, v, pos, cfg, length)
+    before = da.launches
+    got = ops.decode_attention(q, k, v, pos, length, window=window,
+                               softcap=softcap)
+    assert da.launches == before
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(L.decode_attention(q, k, v, pos, cfg, length), want)
+
+
+def test_decode_attention_records_its_range_under_the_profiler(rng):
+    """Each call is one ``repro.kernel.decode_attention`` range while the
+    profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, pos, length = _decode_case(rng, 2, 24, 4, 2, 16, torch.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            ops.decode_attention(q, k, v, pos, length)
+    names = [e.name for e in prof.events() if e.name.startswith("repro.")]
+    assert names == ["repro.kernel.decode_attention"] * 3
+
+
+def test_decode_attention_on_a_dtensor_takes_the_plain_path(rng,
+                                                            monkeypatch):
+    """A DTensor cache split over the slots of a context-parallel mesh (here
+    one rank) takes the plain version: the same values as on plain
+    tensors, never the kernel, and a DTensor out."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import mesh as mesh_lib
+
+    def kernel(*args, **kw):
+        raise AssertionError("the kernel ran on a DTensor")
+
+    monkeypatch.setattr(da, "decode_attention_kernel_call", kernel)
+    q, k, v, pos, length = _decode_case(rng, 2, 24, 4, 2, 16, torch.float32)
+    want = da.decode_attention_plain(q, k, v, pos, length, 5)
+    assert not dist.is_initialized()
+    try:
+        mesh = mesh_lib.make_test_mesh(1, 1, device="cpu")
+        qd = DTensor.from_local(q, mesh, [Replicate(), Replicate()],
+                                run_check=False)
+        kd, vd = (DTensor.from_local(t, mesh, [Replicate(), Shard(1)],
+                                     run_check=False) for t in (k, v))
+        # positions stay plain tensors, as the sharded cells pass them
+        got = ops.decode_attention(qd, kd, vd, pos, length, window=5)
+        assert isinstance(got, DTensor)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=0, atol=0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 128, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 8, "simt")])
+def test_decode_attention_routing_by_dtype_and_head_dim(dtype, dh, want):
+    """bf16 at head dim 64 or 128 takes the tensor cores; fp32 and the
+    other head dims the CUDA cores."""
+    from repro_torch.kernels import decode_attention as da
+    assert da.route_for(dtype, dh) == want
+
+
+@pytest.mark.parametrize("B,S,H,kv,want", [
+    (32, 1152, 32, 4, 1),      # yi-6b.chat: 128 pairs
+    (4, 4112, 32, 4, 8),       # yi-6b.long-prompt: 16 pairs
+    (32, 1152, 32, 8, 1),      # granite-4.0-h-small.chat: 256 pairs
+    (4, 1040, 32, 8, 4),       # llama3-8b served at 4 x 1024: 32 pairs
+    (1, 100, 8, 1, 2),         # few slots: no more splits than tiles
+    (1, 100000, 8, 1, 128)])   # many slots, one pair: the cap
+def test_decode_attention_splits_follow_pairs_and_slots(B, S, H, kv, want):
+    """About one CTA an SM of an H100's 132: the splits of the cache's
+    positions follow batch x kv heads x 16-row tiles and the capacity."""
+    from repro_torch.kernels import decode_attention as da
+    pairs = B * kv * -(-(H // kv) // da.ROWS)
+    assert da.splits_for(pairs, S, da.MMA, 132) == want
+
+
+def test_decode_attention_bound_reads_the_valid_cache_once():
+    """``min_bytes`` at yi-6b.chat with every slot valid: K and V of 32
+    rows x 1152 slots x 4 kv heads x 128 at bf16 (75.5 MB), the query and
+    the output."""
+    from repro_torch.kernels import decode_attention as da
+    kv_bytes = 2 * 32 * 1152 * 4 * 128 * 2
+    assert da.min_bytes(32 * 1152, 4, 128, 32, 32, 2) == \
+        kv_bytes + 2 * 32 * 32 * 128 * 2
+    assert kv_bytes == 75_497_472

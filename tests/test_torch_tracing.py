@@ -111,8 +111,9 @@ def test_mark_outside_a_capture_does_nothing(monkeypatch):
 def test_server_spans_nest_under_the_profiler(arch, kernel):
     """The CPU server's prefill holds its kernel entry points' ranges;
     its eager decode holds one ``repro.serve.step`` a token, inside it
-    one ``repro.kernel.ssm_step`` a Mamba2 layer, and none of a graph's
-    (capture, copies, replays)."""
+    one ``repro.kernel.ssm_step`` a Mamba2 layer and one
+    ``repro.kernel.decode_attention`` an attention layer, and none of a
+    graph's (capture, copies, replays)."""
     cfg = registry.get_smoke_config(arch)
     params = T.init_params(cfg, seed=0, device="cpu")
     server = ProgressiveServer(cfg, params, device="cpu")
@@ -132,11 +133,15 @@ def test_server_spans_nest_under_the_profiler(arch, kernel):
     assert [r[0] for r in steps] == ["repro.serve.step"] * _G
     (_, d0, d1, _), = [r for r in ranges if r[0] == "repro.serve.decode"]
     assert all(d0 <= s0 <= s1 <= d1 for _, s0, s1, _ in steps)
+    kinds = [k for unit, reps in T.block_groups(cfg) for k in unit * reps]
     ssm_steps = [r for r in ranges if r[0] == "repro.kernel.ssm_step"]
-    assert len(ssm_steps) == _G * sum(
-        k == "ssm" for unit, reps in T.block_groups(cfg) for k in unit * reps)
-    assert all(p == "repro.serve.step" for *_, p in ssm_steps)
-    assert len(ranges) == 2 + cfg.num_layers + _G + len(ssm_steps)
+    assert len(ssm_steps) == _G * kinds.count("ssm")
+    attends = [r for r in ranges
+               if r[0] == "repro.kernel.decode_attention"]
+    assert len(attends) == _G * sum(k in ("dense", "moe") for k in kinds)
+    assert all(p == "repro.serve.step" for *_, p in ssm_steps + attends)
+    assert len(ranges) == (2 + cfg.num_layers + _G + len(ssm_steps)
+                           + len(attends))
     assert list(graphs.stage_log) == []     # eager: no stage times
 
 
